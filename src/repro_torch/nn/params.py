@@ -1,0 +1,88 @@
+"""Parameter specification and initialization.
+
+A model is described by a nested dict of :class:`ParamSpec` leaves, as in
+the reference package; :func:`init_params` turns it into a dict of tensors
+drawn from an explicit ``torch.Generator``.  Leaves are drawn in the
+reference's pytree order (sorted keys), with the same lecun / normal /
+zeros rules — but ``torch.Generator`` is not ``jax.random``, so the
+numbers differ.  Parity tests take the reference's parameters instead,
+through :func:`params_from_numpy`.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+Pytree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    """Declarative description of one parameter tensor."""
+
+    shape: tuple[int, ...]
+    # Logical axis name per dim (None = replicated / unnamed dim).
+    axes: tuple[Optional[str], ...]
+    init: str = "lecun"  # lecun | normal | zeros | ones | embed
+    dtype: torch.dtype = torch.float32
+    scale: float = 1.0
+    # Dims treated as fan-in for variance-scaling inits.
+    fan_in_dims: tuple[int, ...] = (0,)
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(
+                f"shape {self.shape} and axes {self.axes} rank mismatch")
+
+
+def _init_leaf(spec: ParamSpec, generator: torch.Generator) -> torch.Tensor:
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=spec.dtype)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=spec.dtype)
+    fan_in = max(1, int(np.prod([spec.shape[d] for d in spec.fan_in_dims])))
+    if spec.init == "lecun":
+        std = spec.scale * math.sqrt(1.0 / fan_in)
+    elif spec.init == "normal":
+        std = spec.scale * 0.02
+    elif spec.init == "embed":
+        std = spec.scale * 1.0
+    else:
+        raise ValueError(f"unknown init {spec.init!r}")
+    draw = torch.randn(spec.shape, generator=generator, dtype=torch.float32)
+    return (std * draw).to(spec.dtype)
+
+
+def init_params(specs: Pytree, generator: torch.Generator,
+                device="cuda") -> Pytree:
+    """Tensor dict from a ParamSpec dict.  Values are drawn on the CPU
+    from ``generator`` and then moved to ``device``, so a seed gives the
+    same parameters on every device."""
+    dev = resolve_device(device)
+
+    def build(node):
+        if isinstance(node, ParamSpec):
+            return _init_leaf(node, generator).to(dev)
+        return {k: build(node[k]) for k in sorted(node)}
+
+    return build(specs)
+
+
+def params_from_numpy(tree: Pytree, device="cuda") -> Pytree:
+    """The reference's parameters as numpy arrays (``jax.tree.map(
+    np.asarray, params)``) → the port's tensors in the same nested layout
+    and shapes (GAT's ``w`` stays (din, heads, head_dim))."""
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return torch.from_numpy(np.array(node, copy=True)).to(dev)
+
+    return conv(tree)

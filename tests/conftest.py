@@ -105,6 +105,10 @@ def pytest_configure(config):
         "markers",
         "forced_devices(n): requires >= n forced host devices "
         "(REPRO_HOST_DEVICES); skipped on smaller platforms")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card (the port's CUDA kernels); skipped "
+        "where torch.cuda.is_available() is false")
     for leg in ALL_LEGS:
         config.addinivalue_line(
             "markers",

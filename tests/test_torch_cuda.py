@@ -1,0 +1,121 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  Marked ``cuda``: skipped where no card is present.  This file
+imports neither JAX nor the reference package, so it also runs where only
+the port is installed:
+
+  PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerance 1e-5 (atol = rtol): the kernels fuse each multiply-add (FMA),
+the plain versions round the product first; the order over k is the same.
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np
+
+from repro_torch.core.halo_exchange import HaloPrecision, quantize_rows
+from repro_torch.kernels import _build
+from repro_torch.kernels.spmm import (halo_spmm, halo_spmm_cuda,
+                                      halo_spmm_plain, halo_spmm_stream_cuda,
+                                      halo_spmm_stream_plain, spmm_cuda,
+                                      spmm_plain)
+from repro_torch.launch.serving_driver import profile_serve_loop
+
+pytestmark = pytest.mark.cuda
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
+                    "false)")
+    return torch.device("cuda")
+
+
+def _case(seed, rows, deg, ncols, feat, dev):
+    rng = np.random.default_rng(seed)
+    nbr = rng.integers(0, ncols + 1, size=(rows, deg)).astype(np.int32)
+    wts = (rng.random((rows, deg)) * (nbr < ncols)).astype(np.float32)
+    table = rng.normal(size=(ncols + 1, feat)).astype(np.float32)
+    table[-1] = 0
+    return (torch.from_numpy(nbr).to(dev), torch.from_numpy(wts).to(dev),
+            torch.from_numpy(table).to(dev))
+
+
+def _slab(table, storage):
+    data, scale = quantize_rows(table, HaloPrecision(storage))
+    data[-1] = 0
+    return data, scale
+
+
+@pytest.mark.parametrize("rows,deg,ncols,feat", [
+    (17, 3, 9, 33), (384, 9, 57, 70), (1000, 80, 12000, 128),
+    (300, 5, 40, 300)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spmm_kernel(dev, rows, deg, ncols, feat, dtype):
+    nbr, wts, table = _case(rows, rows, deg, ncols, feat, dev)
+    table = table.to(dtype)
+    before = _build.LAUNCHES["spmm"]
+    got = spmm_cuda(nbr, wts, table)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["spmm"] == before + 1
+    torch.testing.assert_close(got, spmm_plain(nbr, wts, table), **TOL)
+
+
+@pytest.mark.parametrize("storage", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("pred", [False, True])
+@pytest.mark.parametrize("shape", [(17, 3, 9, 33), (256, 80, 12615, 128)])
+def test_halo_kernels(dev, storage, pred, shape):
+    rows, deg, ncols, feat = shape
+    nbr, wts, table = _case(7 + rows, rows, deg, ncols, feat, dev)
+    data, scale = _slab(table, storage)
+    if scale is None:
+        scale = torch.ones((data.shape[0], 1), device=dev)  # reach K2
+    pdata = pscale = None
+    if pred:
+        pdata, pscale = _slab(torch.randn_like(table), storage)
+    args = (nbr, wts, data, scale, pdata, pscale, 0.7)
+    k2 = halo_spmm_cuda(*args)
+    torch.testing.assert_close(k2, halo_spmm_plain(*args), **TOL)
+    chunk = 512 if ncols > 512 else 4
+    k3 = halo_spmm_stream_cuda(*args, chunk_rows=chunk)
+    torch.testing.assert_close(
+        k3, halo_spmm_stream_plain(*args, chunk_rows=chunk), **TOL)
+    torch.testing.assert_close(k3, k2, **TOL)
+    # One chunk covering the slab: the very same FMAs as K2.
+    one = halo_spmm_stream_cuda(*args, chunk_rows=data.shape[0])
+    assert torch.equal(one, k2)
+
+
+def test_ladder_launches_the_selected_kernel(dev):
+    nbr, wts, table = _case(3, 64, 8, 3000, 128, dev)
+    data, scale = _slab(table, "int8")
+    _build.reset_launches()
+    halo_spmm(nbr, wts, data, scale)                         # resident
+    halo_spmm(nbr, wts, table)                               # K1 delegate
+    halo_spmm(nbr, wts, table, resident_max_bytes=1024)      # stream
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {"spmm": 1, "halo_spmm": 1,
+                               "halo_spmm_stream": 1}
+
+
+def test_profile_serve_loop_splits_device_time(dev):
+    nbr, wts, table = _case(9, 256, 80, 12000, 128, dev)
+
+    def step(carry, _):
+        return carry + 1, spmm_cuda(nbr, wts, table)
+
+    split = profile_serve_loop(step, range(4), carry=0)
+    assert 0 < split["device_ms"] <= split["wall_ms"]
+    assert 0 < split["busy_share"] <= 1
+    assert any("spmm_kernel" in op["op"] for op in split["top"])
+
+
+def test_kernels_refuse_bad_inputs(dev):
+    nbr, wts, table = _case(5, 8, 2, 4, 16, dev)
+    with pytest.raises(ValueError):
+        spmm_cuda(nbr, wts, table.cpu())
+    with pytest.raises(TypeError):
+        spmm_cuda(nbr, wts, table.double())
