@@ -20,7 +20,8 @@ Phases, each ending the run with a non-zero exit on failure:
    calls between CUDA events, host launch gap included) beside its plain
    version, its byte/operation bound and one PyTorch library call
    (``torch.sparse.mm`` on the CSR form of the ELL) as a yardstick;
-4. the main path: the paper's GCN config (products-sim, 3 layers, hidden
+4. the serving main path (under ``torch.inference_mode``): the paper's
+   GCN config (products-sim, 3 layers, hidden
    128, 8 parts, random weights from ``torch.Generator`` seed 0), for an
    int8, a bf16 and an fp32 serving store: top-layer representations, two
    in-place store refreshes, then 64 Zipf batches of 256 queries behind a
@@ -31,10 +32,41 @@ Phases, each ending the run with a non-zero exit on failure:
    K1 in the refresh forward and K2 (int8), K1 (bf16) or K3 (fp32) in the
    queries;
 5. SAGE and GAT (same sizes, int8 store): one refresh and 8 batches each,
-   with the same check.
+   with the same check;
+6. the training kernels at the training path's shapes (papers-sim, scale
+   1.0, 8 parts, rcm order, 256-row chunks; subgraph 0): K4 on the out-ELL
+   (5256 x 64) over a (14289, 128) fp32, bf16 and int8 slab with its
+   worklist, held against its plain version within 1e-5, equal to K3 bit
+   for bit, and visiting exactly its worklist; ``spmm_bwd_table`` on the
+   in-ELL (5256 x 56) into the (5257, 128) table and ``spmm_bwd_wts`` at
+   GAT's per-head shape (over a (5257, 32) table), each also held against
+   autograd of the gather oracle; timed as in phase 3, beside
+   ``torch.sparse.mm`` on the CSR (K4) or transposed CSR (table gradient)
+   and ``torch.sparse.sampled_addmm`` (weight gradient);
+7. the training main path: full-batch DIGEST (Algorithm 1, N = 10, Adam
+   5e-3) of the paper's GCN widths (``repro_torch.configs.digest_gcn``,
+   3 x 128) on that partition, random weights from ``torch.Generator``
+   seed 0: 12 epochs with an fp32 store (pull at r = 10, pushes at r = 1
+   and 11), 3 each with int8 and bf16 stores, 2 each of SAGE and GAT
+   (fp32).  Each run is held against the same run through the gather-form
+   oracles (``backend="jnp"``, differentiated by autograd on the card):
+   epoch 1's per-leaf gradients within 1e-5 of each leaf's max |g| (or,
+   where a leaf misses that, within twice the oracle's own change when
+   the input features are scaled by one ulp: a (Leaky)ReLU input within
+   an ulp of its kink takes either slope, which GAT's near-zero attention
+   logits make common), and
+   the fp32 GCN's (loss, train F1) trajectory within 1e-4 over all 12
+   epochs.  K4 must launch exactly 2 layers x 8 subgraphs per fp32 epoch,
+   K2 in the int8 epochs, the table-gradient kernel 16 times per bf16
+   epoch and the weight-gradient kernel in GAT's.  Epoch times (host
+   clock around an epoch ending in a synchronize) and val/test F1 are
+   printed.
 
-The last lines are the card's ``nvidia-smi`` line, one JSON object
-``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.  Without a
+Each path's launch counters are set to 0 just before it and read just
+after; the oracle runs launch nothing.  The last lines are the card's
+``nvidia-smi`` line, one JSON object ``{"kernels": [...]}`` (each
+kernel's launches on the two paths, its worst error and the times of its
+main-path variant) and ``{"ok": true, "device": {...}}``.  Without a
 card, or outside a checkout, it exits non-zero and prints no result.
 TF32 is off throughout (fp32 products run in full fp32).
 """
@@ -42,6 +74,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -61,16 +94,40 @@ BATCH = 256
 BATCHES = 64
 ZIPF_SKEW = 1.1
 
+# name: (title, source, the TPU kernel it replaces, the variant whose
+# times the summary line carries).  The backward kernels replace no
+# Pallas kernel: the reference autodiffs its jnp oracle.
 KERNELS = {
     "spmm": ("K1 ELL SpMM", "src/repro_torch/csrc/spmm.cu",
-             "src/repro/kernels/spmm/spmm.py:49"),
+             "src/repro/kernels/spmm/spmm.py:49", "full float32 w128"),
     "halo_spmm": ("K2 fused halo pull (resident)",
                   "src/repro_torch/csrc/halo_pull.cu",
-                  "src/repro/kernels/spmm/halo_pull.py:128"),
+                  "src/repro/kernels/spmm/halo_pull.py:128", "int8"),
     "halo_spmm_stream": ("K3 fused halo pull (stream)",
                          "src/repro_torch/csrc/halo_pull.cu",
-                         "src/repro/kernels/spmm/halo_pull.py:251"),
+                         "src/repro/kernels/spmm/halo_pull.py:251", "fp32"),
+    "halo_spmm_skip": ("K4 fused halo pull (chunk-skipping stream)",
+                       "src/repro_torch/csrc/halo_pull.cu",
+                       "src/repro/kernels/spmm/halo_pull.py:365", "fp32"),
+    "spmm_bwd_table": ("SpMM backward, table gradient (transposed ELL)",
+                       "src/repro_torch/csrc/spmm_bwd.cu",
+                       "src/repro/kernels/spmm/ref.py:8 (autodiff of "
+                       "spmm_ref; no Pallas kernel)", "in-ELL w128"),
+    "spmm_bwd_wts": ("SpMM backward, weight gradient (GAT attention)",
+                     "src/repro_torch/csrc/spmm_bwd.cu",
+                     "src/repro/kernels/spmm/ref.py:8 (autodiff of "
+                     "spmm_ref; no Pallas kernel)", "in-ELL head w32"),
 }
+SERVING_KERNELS = ("spmm", "halo_spmm", "halo_spmm_stream")
+TRAINING_KERNELS = ("spmm", "halo_spmm", "halo_spmm_skip", "spmm_bwd_table",
+                    "spmm_bwd_wts")
+# The training configuration: the paper's GCN widths on papers-sim, whose
+# rcm / 256-row-chunk partition has worklist occupancy 0.475, so the fp32
+# store's hidden layers select K4.
+TRAIN_PARTS = 8
+TRAIN_CHUNK_ROWS = 256
+TRAIN_EPOCHS = 12
+TRAJ_TOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -136,6 +193,38 @@ def device_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
         check(cycles <= 10 ** 10, "cannot enqueue faster than the card runs")
 
 
+def measure(torch, records, name, variant, shape, got, want, run, plain,
+            bound_, library, lib_want):
+    """Hold a kernel's output ``got`` against its plain version's
+    ``want`` (atol = rtol = TOL), check that the library yardstick
+    computes the same function (``lib_want``, within 1e-4), time all
+    three and append the record."""
+    err = float((got.float() - want.float()).abs().max())
+    check(torch.allclose(got, want, atol=TOL, rtol=TOL),
+          f"{name} [{variant}] disagrees with its plain version: "
+          f"max |err| {err:.3e}")
+    lib = library()
+    check(torch.allclose(lib, lib_want, atol=1e-4, rtol=1e-4),
+          f"library yardstick of {name} [{variant}] computes another "
+          "function")
+    times = {"ms": device_ms(torch, run),
+             "kernel_ms": event_ms(torch, run),
+             "plain_ms": event_ms(torch, plain, reps=5, warmup=1),
+             "library_ms": device_ms(torch, library)}
+    check(all(isinstance(t, float) and t > 0 for t in times.values()),
+          f"{name} [{variant}]: a timing is missing: {times}")
+    records.append({"name": name, "variant": variant, "shape": shape,
+                    "max_abs_err": err, "bound_ms": bound_[0],
+                    "bound_by": bound_[1], **times})
+
+
+def roofline(nbytes: float, flops: float) -> tuple:
+    """(least ms, "bytes" or "operations") on an H100 SXM."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def bound(torch, nbr, wts, slabs, scales, feat):
     """Least time for the work on an H100 SXM: the larger of the bytes
     that must move (nbr and wts read once, each referenced slab row and
@@ -146,9 +235,7 @@ def bound(torch, nbr, wts, slabs, scales, feat):
               + sum(rows_ref * feat * s.element_size() for s in slabs)
               + sum(rows_ref * 4 for s in scales if s is not None))
     flops = 2 * int((wts != 0).sum()) * feat * len(slabs)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    return roofline(nbytes, flops)
 
 
 def csr_of(torch, nbr, wts, n_tab):
@@ -186,29 +273,12 @@ def kernel_phase(torch, dev, data, plan, queries):
 
     def record(name, variant, got, want, run, plain, nbr, wts, slabs,
                scales, lib_table):
-        err = float((got - want).abs().max())
-        check(torch.allclose(got, want, atol=TOL, rtol=TOL),
-              f"{name} [{variant}] disagrees with its plain version: "
-              f"max |err| {err:.3e}")
         feat = got.shape[1]
-        b_ms, b_by = bound(torch, nbr, wts, slabs, scales, feat)
         csr = csr_of(torch, nbr, wts, lib_table.shape[0])
-        lib = torch.sparse.mm(csr, lib_table)
-        check(torch.allclose(lib, want, atol=1e-4, rtol=1e-4),
-              f"library yardstick of {name} [{variant}] computes another "
-              "function")
-        times = {"ms": device_ms(torch, run),
-                 "kernel_ms": event_ms(torch, run),
-                 "plain_ms": event_ms(torch, plain, reps=5, warmup=1),
-                 "library_ms": device_ms(
-                     torch, lambda: torch.sparse.mm(csr, lib_table))}
-        check(all(isinstance(t, float) and t > 0 for t in times.values()),
-              f"{name} [{variant}]: a timing is missing: {times}")
-        records.append({
-            "name": name, "variant": variant, "shape": list(nbr.shape)
-            + [int(lib_table.shape[0]), feat],
-            "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
-            **times})
+        measure(torch, records, name, variant,
+                list(nbr.shape) + [int(lib_table.shape[0]), feat], got,
+                want, run, plain, bound(torch, nbr, wts, slabs, scales, feat),
+                lambda: torch.sparse.mm(csr, lib_table), want)
 
     # K1 on the full-graph in-ELL (the refresh forward's aggregation): at
     # the layer-0 width (the 100 input features) and the hidden width.
@@ -362,8 +432,9 @@ def serve_path(torch, dev, cfg, params, data, plan, storage, refreshes,
             "launches_queries": {k: c2[k] - c1[k] for k in c0}}
 
 
-def run(torch, dev) -> list:
-    """Phases 3-5 on the card ``dev``; returns the kernels' records."""
+def run(torch, dev) -> tuple:
+    """Phases 3-5 on the card ``dev``; returns the kernels' records and
+    the launches of the serving main path."""
     import numpy as np
 
     from repro_torch.core import serving
@@ -411,8 +482,8 @@ def run(torch, dev) -> list:
               f"{res['launches_queries'][expect[storage]]} times in "
               f"{BATCHES} batches")
     main_launches = dict(_build.LAUNCHES)
-    check(all(v > 0 for v in main_launches.values()),
-          f"a kernel of the main path never launched: {main_launches}")
+    check(all(main_launches[k] > 0 for k in SERVING_KERNELS),
+          f"a kernel of the serving path never launched: {main_launches}")
 
     for name in ("sage", "gat"):
         cfg, params = model(name)
@@ -422,22 +493,303 @@ def run(torch, dev) -> list:
         check(res["launches_refresh"]["spmm"] > 0,
               f"{res['path']}: K1 not launched in the refresh forward")
 
-    out = []
-    main_variant = {"spmm": "full float32 w128", "halo_spmm": "int8",
-                    "halo_spmm_stream": "fp32"}
-    for name, (title, source, replaces) in KERNELS.items():
-        mine = [r for r in records if r["name"] == name]
-        rec = next(r for r in mine if r["variant"] == main_variant[name])
-        out.append({"name": name, "title": title, "route": "cuda",
-                    "source": source, "replaces": replaces,
-                    "launches": main_launches[name],
-                    "max_abs_err": max(r["max_abs_err"] for r in mine),
-                    "ms": rec["ms"], "kernel_ms": rec["kernel_ms"],
-                    "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-                    "bound_by": rec["bound_by"],
-                    "library_ms": rec["library_ms"],
-                    "variant": rec["variant"], "shape": rec["shape"]})
-    return out
+    return records, main_launches
+
+
+def training_kernel_phase(torch, dev, data):
+    """K4 and the SpMM backward kernels against their plain versions at
+    the training path's shapes (subgraph 0 of papers-sim, 8 parts, rcm,
+    256-row chunks), K4 == K3 bit for bit; returns one record per
+    (kernel, variant)."""
+    from repro_torch.core.halo_exchange import (HaloPrecision,
+                                                dequantize_rows,
+                                                quantize_rows)
+    from repro_torch.kernels.spmm import (halo_spmm_skip_cuda,
+                                          halo_spmm_skip_plain,
+                                          halo_spmm_stream_cuda,
+                                          spmm_bwd_table,
+                                          spmm_bwd_table_plain, spmm_bwd_wts,
+                                          spmm_bwd_wts_plain, spmm_ref)
+    gen = torch.Generator().manual_seed(2)
+    records = []
+    st = {k: v[0] for k, v in data["struct"].items()}
+    nbr, wts = st["out_nbr"], st["out_wts"]
+    ids, cnt = st["wl_ids"], st["wl_cnt"]
+    n_tab = int(data["halo_ids"].shape[1]) + 1
+    slab = torch.randn((n_tab, 128), generator=gen)
+    slab[-1] = 0
+    slab = slab.to(dev)
+    for storage in ("fp32", "bf16", "int8"):
+        sdata, scale = quantize_rows(slab, HaloPrecision(storage))
+        args = (nbr, wts, sdata, scale, ids, cnt)
+        kw = {"chunk_rows": TRAIN_CHUNK_ROWS}
+        k4, visits = halo_spmm_skip_cuda(*args, count_visits=True, **kw)
+        k3 = halo_spmm_stream_cuda(nbr, wts, sdata, scale, **kw)
+        check(torch.equal(k4, k3),
+              f"K4 [{storage}] is not equal to K3 at chunk_rows "
+              f"{TRAIN_CHUNK_ROWS}")
+        t = torch.arange(ids.shape[1], device=dev)[None, :]
+        check(torch.equal(visits, torch.where(t < cnt[:, None], ids, -1)),
+              f"K4 [{storage}] did not visit exactly its worklist")
+        deq = dequantize_rows(sdata, scale)
+        csr = csr_of(torch, nbr, wts, n_tab)
+        measure(torch, records, "halo_spmm_skip", storage,
+                list(nbr.shape) + [n_tab, 128], k4,
+                halo_spmm_skip_plain(*args, **kw),
+                lambda: halo_spmm_skip_cuda(*args, **kw),
+                lambda: halo_spmm_skip_plain(*args, **kw),
+                bound(torch, nbr, wts, [sdata], [scale], 128),
+                lambda: torch.sparse.mm(csr, deq), k4)
+        # K3 on the same call: what skipping the worklist's empty chunks
+        # saves.
+        records[-1]["k3_ms"] = device_ms(
+            torch, lambda: halo_spmm_stream_cuda(nbr, wts, sdata, scale,
+                                                 **kw))
+
+    # Table gradient of an in-subgraph product: in-ELL (5256 x 56) into
+    # the (5257, 128) local table, through the transposed in-ELL.
+    nbr, wts, pos = st["in_nbr"], st["in_wts"], st["in_pos"]
+    rows, deg = nbr.shape
+    g = torch.randn((rows, 128), generator=gen).to(dev)
+    got = spmm_bwd_table(pos, wts, g)
+    tab = torch.zeros((rows + 1, 128), device=dev, requires_grad=True)
+    with torch.enable_grad():
+        spmm_ref(nbr, wts, tab).backward(g)
+    oracle = tab.grad.clone()
+    oracle[-1] = 0                         # the sentinel gets no gradient
+    check(torch.allclose(got, oracle, atol=TOL, rtol=TOL),
+          "spmm_bwd_table disagrees with autograd of the gather oracle")
+    keep = (wts != 0) & (nbr < rows)
+    r = torch.arange(rows, device=dev)[:, None].expand(rows, deg)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        csr_t = torch.sparse_coo_tensor(
+            torch.stack([nbr[keep].long(), r[keep]]), wts[keep],
+            (rows + 1, rows)).coalesce().to_sparse_csr()
+    live = int((pos < rows * deg).sum())
+    measure(torch, records, "spmm_bwd_table", "in-ELL w128",
+            [rows, deg, rows + 1, 128], got,
+            spmm_bwd_table_plain(pos, wts, g),
+            lambda: spmm_bwd_table(pos, wts, g),
+            lambda: spmm_bwd_table_plain(pos, wts, g),
+            roofline(pos.numel() * 4 + wts.numel() * 4 + g.numel() * 4
+                     + (rows + 1) * 128 * 4, 2 * live * 128),
+            lambda: torch.sparse.mm(csr_t, g), got)
+
+    # Weight gradient at GAT's per-head shape: the same in-ELL over a
+    # (5257, 32) head table.
+    head = torch.randn((rows + 1, 32), generator=gen)
+    head[-1] = 0
+    head = head.to(dev)
+    g = torch.randn((rows, 32), generator=gen).to(dev)
+    got = spmm_bwd_wts(nbr, g, head)
+    w = wts.clone().requires_grad_()
+    with torch.enable_grad():
+        spmm_ref(nbr, w, head).backward(g)
+    check(torch.allclose(got, w.grad, atol=TOL, rtol=TOL),
+          "spmm_bwd_wts disagrees with autograd of the gather oracle")
+    csr = csr_of(torch, nbr, wts, rows + 1)
+    dense = torch.zeros((rows, rows + 1), device=dev)
+    dense[r[keep], nbr[keep].long()] = got[keep]
+    referenced = int(torch.unique(nbr).numel())
+
+    def library():
+        return torch.sparse.sampled_addmm(csr, g, head.t(), beta=0.0)
+
+    lib = library()
+    lib_vals = lib.values()
+    crow, col = lib.crow_indices(), lib.col_indices()
+    lib_rows = torch.repeat_interleave(
+        torch.arange(rows, device=dev), crow[1:] - crow[:-1])
+    check(torch.allclose(lib_vals, dense[lib_rows, col], atol=1e-4,
+                         rtol=1e-4),
+          "library yardstick of spmm_bwd_wts computes another function")
+    measure(torch, records, "spmm_bwd_wts", "in-ELL head w32",
+            [rows, deg, rows + 1, 32], got, spmm_bwd_wts_plain(nbr, g, head),
+            lambda: spmm_bwd_wts(nbr, g, head),
+            lambda: spmm_bwd_wts_plain(nbr, g, head),
+            roofline(nbr.numel() * 4 + g.numel() * 4 + referenced * 32 * 4
+                     + rows * deg * 4, 2 * rows * deg * 32),
+            lambda: library().values(), lib_vals)
+    return records
+
+
+def capture(opt):
+    """``opt`` that also keeps the mean gradient of its last update in
+    its state, so a run's gradients can be held leaf by leaf against
+    another run's."""
+    from repro_torch.optim import Optimizer
+
+    def init(params):
+        return {"opt": opt.init(params), "grads": None}
+
+    def update(grads, state, params, step):
+        new_params, new_state = opt.update(grads, state["opt"], params,
+                                           step)
+        return new_params, {"opt": new_state, "grads": grads}
+
+    return Optimizer(opt.name, init, update)
+
+
+def train_run(torch, cfg, data, storage, params, epochs, lr):
+    """``epochs`` epochs of DIGEST from ``params``: the per-epoch (loss,
+    train F1, eps), epoch 1's per-leaf mean gradients, the epoch times
+    (host clock around an epoch that ends in a synchronize) and the final
+    state."""
+    from repro_torch.core.digest import (TrainSettings, _leaves, init_state,
+                                         make_epoch_fn)
+    from repro_torch.core.halo_exchange import HaloPrecision
+    from repro_torch.optim import adam
+
+    settings = TrainSettings(sync_interval=10, mode="digest",
+                             precision=HaloPrecision(storage))
+    opt = capture(adam(lr))
+    state = init_state(cfg, opt, data, precision=settings.precision,
+                       params=params)
+    epoch_fn = make_epoch_fn(cfg, opt, settings)
+    traj, times, grads = [], [], None
+    for e in range(epochs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = epoch_fn(state, data)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        traj.append((float(m["loss"]), float(m["train_f1"]),
+                     m["staleness_eps"].tolist()))
+        if e == 0:
+            grads = [g.clone() for g in _leaves(state["opt_state"]["grads"])]
+    return traj, grads, times, state
+
+
+def train_path(torch, cfg, data, storage, params, epochs, lr, kernel,
+               expect_per_epoch):
+    """One training main-path run and its check against the same run
+    through the gather-form oracles (``backend="jnp"``, autograd on the
+    card): epoch 1's per-leaf gradients within TOL of each leaf's max
+    |g| (or twice the oracle's own one-ulp sensitivity, where larger),
+    and, when the run is the long one, the (loss, train F1) trajectory
+    within TRAJ_TOL.  Returns its summary."""
+    from repro_torch.core.digest import evaluate
+    from repro_torch.kernels._build import LAUNCHES
+
+    label = f"train {cfg.model}/{storage}"
+    c0 = dict(LAUNCHES)
+    traj, grads, times, state = train_run(torch, cfg, data, storage, params,
+                                          epochs, lr)
+    c1 = dict(LAUNCHES)
+    launches = {k: c1[k] - c0[k] for k in c0}
+    if expect_per_epoch is not None:
+        check(launches[kernel] == expect_per_epoch * epochs,
+              f"{label}: {kernel} launched {launches[kernel]} times in "
+              f"{epochs} epochs, expected {expect_per_epoch * epochs}")
+    check(launches[kernel] > 0, f"{label}: {kernel} never launched")
+    oracle = dataclasses.replace(cfg, backend="jnp")
+    o_epochs = epochs if storage == "fp32" and cfg.model == "gcn" else 1
+    o_traj, o_grads, _, _ = train_run(torch, oracle, data, storage, params,
+                                      o_epochs, lr)
+    check(sum(LAUNCHES.values()) == sum(c1.values()),
+          f"{label}: the oracle run launched a kernel")
+    rel = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+           for a, b in zip(grads, o_grads)]
+    check(all(bool(torch.isfinite(a).all()) for a in grads),
+          f"{label}: epoch-1 gradients not finite")
+    floor = [0.0] * len(rel)
+    if max(rel) > TOL:
+        # The gradient is piecewise smooth: a (Leaky)ReLU input within an
+        # ulp of its kink takes either slope, so two fp32 summation orders
+        # can differ by a whole term.  Measure how far the oracle itself
+        # moves when the input features are scaled by one ulp, and allow
+        # twice that where it exceeds TOL.
+        for eps in (2.0 ** -23, 2.0 ** -22):
+            moved = dict(data, x_global=data["x_global"] * (1 + eps))
+            _, p_grads, _, _ = train_run(torch, oracle, moved, storage,
+                                         params, 1, lr)
+            floor = [max(f, float((p - b).abs().max())
+                         / max(float(b.abs().max()), 1e-30))
+                     for f, p, b in zip(floor, p_grads, o_grads)]
+    for i, (r, f) in enumerate(zip(rel, floor)):
+        check(r <= max(TOL, 2 * f),
+              f"{label}: epoch-1 gradient of leaf {i} differs from the "
+              f"oracle's by {r:.3e} of its max |g| (bar {TOL}, the "
+              f"oracle's own one-ulp sensitivity {f:.3e})")
+    grad_err = max(rel)
+    traj_err = 0.0
+    for e, (a, b) in enumerate(zip(traj, o_traj)):
+        d = max(abs(a[0] - b[0]), abs(a[1] - b[1]))
+        check(d <= TRAJ_TOL, f"{label}: epoch {e + 1} (loss, train F1) "
+              f"{a[:2]} differs from the oracle's {b[:2]}")
+        traj_err = max(traj_err, d)
+    check(all(math.isfinite(t[0]) for t in traj), f"{label}: loss not finite")
+    ev = evaluate(cfg, state["params"], data)
+    later = times[1:] if len(times) > 1 else times
+    return {"path": label, "model": cfg.model, "storage": storage,
+            "epochs": epochs, "epoch_ms_median": statistics.median(later),
+            "epoch_ms": times, "loss": [t[0] for t in traj],
+            "train_f1": [t[1] for t in traj],
+            "staleness_eps": [t[2] for t in traj],
+            "val_f1": float(ev["val_f1"]), "test_f1": float(ev["test_f1"]),
+            "grad_rel_err": grad_err, "grad_rel_err_by_leaf": rel,
+            "oracle_ulp_sensitivity_by_leaf": floor,
+            "oracle_epochs": o_epochs,
+            "traj_max_err": traj_err, "launches": launches}
+
+
+def training(torch, dev) -> tuple:
+    """Phases 6-7: the training kernels at the training shapes, then the
+    training main path; returns the records and the path's launches."""
+    from repro_torch.configs import digest_gcn
+    from repro_torch.core.digest import prepare_graph_data
+    from repro_torch.graph import make_dataset
+    from repro_torch.kernels import _build
+    from repro_torch.models.gnn import GNN, GNNConfig
+
+    t0 = time.perf_counter()
+    g = make_dataset("papers-sim", scale=1.0, seed=0)
+    data = prepare_graph_data(g, TRAIN_PARTS, seed=0, order="rcm",
+                              stream_chunk_rows=TRAIN_CHUNK_ROWS, device=dev)
+    wl = data["_worklist"]
+    print(f"graph: papers-sim scale 1.0: {g.num_nodes} nodes, "
+          f"{TRAIN_PARTS} parts rcm, S={data['local_ids'].shape[1]}, "
+          f"H={data['halo_ids'].shape[1]}, worklist occupancy "
+          f"{wl.occupancy:.4f} (max_chunks {wl.max_chunks} of "
+          f"{wl.n_chunks}), built in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    with torch.no_grad():
+        records = training_kernel_phase(torch, dev, data)
+    print(json.dumps({"kernel_variants": records}), flush=True)
+
+    exp = digest_gcn.CONFIG
+
+    def model(name):
+        cfg = GNNConfig(model=name, num_layers=exp.num_layers,
+                        in_dim=g.features.shape[1],
+                        hidden_dim=exp.hidden_dim,
+                        num_classes=int(g.labels.max()) + 1,
+                        heads=4 if name == "gat" else exp.heads,
+                        stream_chunk_rows=TRAIN_CHUNK_ROWS,
+                        halo_occupancy=wl.occupancy)
+        return cfg, GNN.init(cfg, torch.Generator().manual_seed(0),
+                             dev).tree()
+
+    layers = exp.num_layers - 1            # hidden layers reading the store
+    runs = (("gcn", "fp32", TRAIN_EPOCHS, "halo_spmm_skip",
+             layers * TRAIN_PARTS),
+            ("gcn", "int8", 3, "halo_spmm", layers * TRAIN_PARTS),
+            ("gcn", "bf16", 3, "spmm_bwd_table", layers * TRAIN_PARTS),
+            ("sage", "fp32", 2, "halo_spmm_skip", layers * TRAIN_PARTS),
+            ("gat", "fp32", 2, "spmm_bwd_wts", None))
+    _build.reset_launches()
+    results = []
+    for name, storage, epochs, kernel, per_epoch in runs:
+        cfg, params = model(name)
+        res = train_path(torch, cfg, data, storage, params, epochs,
+                         exp.learning_rate, kernel, per_epoch)
+        print(json.dumps(res), flush=True)
+        results.append(res)
+    launches = dict(_build.LAUNCHES)
+    check(all(launches[k] > 0 for k in TRAINING_KERNELS),
+          f"a kernel of the training path never launched: {launches}")
+    return records, launches
 
 
 def main() -> None:
@@ -469,9 +821,36 @@ def main() -> None:
               f"{info['log'].strip()}", flush=True)
 
     dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
     with torch.inference_mode():
-        kernels = run(torch, dev)
+        serve_records, serve_launches = run(torch, dev)
+    t_serve = time.perf_counter() - t0
+    train_records, train_launches = training(torch, dev)
     torch.cuda.synchronize()
+    print(f"phases: serving {t_serve:.1f} s, training "
+          f"{time.perf_counter() - t0 - t_serve:.1f} s", flush=True)
+    records = serve_records + train_records
+    kernels = []
+    for name, (title, source, replaces, variant) in KERNELS.items():
+        mine = [r for r in records if r["name"] == name]
+        rec = next(r for r in mine if r["variant"] == variant)
+        launches = {"serving": serve_launches[name] if name
+                    in SERVING_KERNELS else 0,
+                    "training": train_launches[name] if name
+                    in TRAINING_KERNELS else 0}
+        kernels.append({
+            "name": name, "title": title, "route": "cuda",
+            "source": source, "replaces": replaces,
+            "launches": sum(launches.values()),
+            "launches_by_path": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": rec["ms"], "kernel_ms": rec["kernel_ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "variant": rec["variant"], "shape": rec["shape"]})
+        check(kernels[-1]["launches"] > 0, f"{name} never launched")
+        check(kernels[-1]["max_abs_err"] <= TOL,
+              f"{name} error {kernels[-1]['max_abs_err']:.3e} above {TOL}")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,7 @@
 """HaloExchange — the stale-representation store, owner-sharded and
-precision-aware (the single-device subset the serving slice needs).
+precision-aware (the single-device subset of the reference module: the
+store, its pull and push, error feedback and the staleness probe; the
+collective forms are later work).
 
 A store is a plain dict of tensors:
 
@@ -12,6 +14,12 @@ symmetric per-row quantisation, ``scale = max|row| / 127``,
 ``q = round(row / scale)``, formula for formula as the reference
 (``src/repro/core/halo_exchange.py``), so int8 codes match it bit for bit
 on equal input.
+
+PULL (Algorithm 1 line 5) is :func:`pull_slab`: each subgraph's halo rows
+gathered into a device-local slab ``(M, L-1, H+1, hidden)`` in storage
+precision, row H the zero sentinel.  PUSH (lines 9-10) is :func:`push`, or
+:func:`push_ef` with the pusher's rounding residual carried forward.
+Theorem 1's per-layer staleness is :func:`staleness_error`.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ from repro_torch.device import resolve_device
 PRECISIONS = ("fp32", "bf16", "int8")
 
 _DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
+_VALUE_BYTES = {"fp32": 4, "bf16": 2, "int8": 1}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,6 +41,10 @@ class HaloPrecision:
     """Wire/storage precision of the halo slab (one knob for both)."""
 
     storage: str = "fp32"          # fp32 | bf16 | int8
+    # Accumulate the per-row quantisation residual at the pusher
+    # (push_ef) so repeated pushes stay unbiased.  Only meaningful for
+    # lossy storage (int8 / bf16); a no-op for fp32.
+    error_feedback: bool = False
 
     def __post_init__(self):
         if self.storage not in PRECISIONS:
@@ -44,6 +57,72 @@ class HaloPrecision:
     @property
     def has_scale(self) -> bool:
         return self.storage == "int8"
+
+    def row_bytes(self, hidden: int) -> int:
+        """Bytes to store/ship one node-layer row of width ``hidden``."""
+        extra = 4 if self.has_scale else 0       # one fp32 scale per row
+        return hidden * _VALUE_BYTES[self.storage] + extra
+
+
+@dataclasses.dataclass(frozen=True)
+class HaloSpec:
+    """Static shape/precision metadata of a compact store (accounting)."""
+
+    num_hidden_layers: int          # L-1
+    num_slots: int                  # |boundary| (excl. sentinels/padding)
+    hidden: int
+    precision: HaloPrecision = HaloPrecision()
+    # Owner-sharded layout: R = store_rows slab rows over num_shards
+    # devices.  Defaults describe the unsharded (single-sentinel) layout.
+    store_rows: Optional[int] = None
+    num_shards: int = 1
+
+    @classmethod
+    def from_partitions(cls, sp, hidden: int, num_layers: int,
+                        precision: HaloPrecision = HaloPrecision()
+                        ) -> "HaloSpec":
+        return cls(num_hidden_layers=max(num_layers - 1, 1),
+                   num_slots=sp.num_boundary, hidden=hidden,
+                   precision=precision, store_rows=sp.store_rows,
+                   num_shards=sp.num_parts)
+
+    def _rows(self) -> int:
+        return (self.store_rows if self.store_rows is not None
+                else self.num_slots + 1)
+
+    def init(self, device="cuda") -> dict:
+        return init_store(self.num_hidden_layers, self._rows() - 1,
+                          self.hidden, self.precision, device)
+
+    def store_nbytes(self) -> int:
+        """Total bytes of the slab (incl. sentinel/padding rows)."""
+        return (self.num_hidden_layers * self._rows()
+                * self.precision.row_bytes(self.hidden))
+
+    def shard_nbytes(self) -> int:
+        """Per-device resident bytes under the owner-sharded layout."""
+        return self.store_nbytes() // self.num_shards
+
+    def dense_nbytes(self, num_nodes: int) -> int:
+        """What a dense fp32 ``(L-1, N+1, hidden)`` store costs."""
+        return self.num_hidden_layers * (num_nodes + 1) * self.hidden * 4
+
+    def replicated_pull_nbytes(self) -> int:
+        """Wire bytes per sync to replicate the compact (|boundary|+1)-row
+        slab on every one of the M devices."""
+        return ((self.num_shards - 1) * self.num_hidden_layers
+                * (self.num_slots + 1)
+                * self.precision.row_bytes(self.hidden))
+
+    def comm_bytes(self, pull_rows: int, push_rows: int) -> dict:
+        """Per-sync §3.3 byte counts under the configured wire precision
+        (pull_rows = sum_m |halo(G_m)|, push_rows = sum_m |boundary ∩
+        V_m|)."""
+        rb = self.precision.row_bytes(self.hidden)
+        pull = int(pull_rows) * self.num_hidden_layers * rb
+        push = int(push_rows) * self.num_hidden_layers * rb
+        return {"pull_bytes": pull, "push_bytes": push,
+                "total_bytes": pull + push}
 
 
 def precision_of(store: dict) -> HaloPrecision:
@@ -96,12 +175,55 @@ def init_store(num_hidden_layers: int, num_slots: int, hidden: int,
     return store
 
 
+def init_slab(num_parts: int, num_hidden_layers: int, halo_size: int,
+              hidden: int, precision: HaloPrecision = HaloPrecision(),
+              device="cuda") -> dict:
+    """Zero per-subgraph halo slab — the device-local pull target:
+    {"data": (M, L-1, H+1, hidden)} with the zero sentinel row at H."""
+    dev = resolve_device(device)
+    slab = {"data": torch.zeros(
+        (num_parts, num_hidden_layers, halo_size + 1, hidden),
+        dtype=precision.dtype, device=dev)}
+    if precision.has_scale:
+        slab["scale"] = torch.ones(
+            (num_parts, num_hidden_layers, halo_size + 1, 1),
+            dtype=torch.float32, device=dev)
+    return slab
+
+
 def layer_table(store: dict, ell: int
                 ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(data, scale) slab of hidden layer ``ell`` — feeds the fused
     kernel."""
     return store["data"][ell], (store["scale"][ell] if "scale" in store
                                 else None)
+
+
+def pull(store: dict, slots: torch.Tensor) -> torch.Tensor:
+    """Gather + dequantise stale halo tables (Algorithm 1 line 5).
+
+    slots: (M, H) compact slot ids (sentinel rows at padding).
+    Returns (M, L-1, H, hidden) float32."""
+    idx = slots.long()
+    out = store["data"][:, idx, :].float()             # (L-1, M, H, h)
+    if "scale" in store:
+        out = out * store["scale"][:, idx, :]
+    return out.transpose(0, 1)
+
+
+def pull_slab(store: dict, halo_slots: torch.Tensor) -> dict:
+    """PULL, dense-gather form: each subgraph's halo rows gathered into a
+    device-local slab in storage precision, {"data": (M, L-1, H+1,
+    hidden)[, "scale"]}, slab row H the zero sentinel (scale 1)."""
+    idx = halo_slots.long()
+    data = store["data"][:, idx, :].transpose(0, 1)    # (M, L-1, H, h)
+    pad = data.new_zeros(data.shape[:2] + (1,) + data.shape[3:])
+    out = {"data": torch.cat([data, pad], dim=2).contiguous()}
+    if "scale" in store:
+        sc = store["scale"][:, idx, :].transpose(0, 1)
+        one = sc.new_ones(sc.shape[:2] + (1,) + sc.shape[3:])
+        out["scale"] = torch.cat([sc, one], dim=2).contiguous()
+    return out
 
 
 def push(store: dict, local_slots: torch.Tensor, local_valid: torch.Tensor,
@@ -143,3 +265,44 @@ def push(store: dict, local_slots: torch.Tensor, local_valid: torch.Tensor,
         new_scale[:, sentinels, :] = 1.0
         new["scale"] = new_scale
     return new
+
+
+def _ef_residual(compensated: torch.Tensor, valid_mask: torch.Tensor,
+                 precision: HaloPrecision) -> torch.Tensor:
+    """New rounding residual of an error-feedback push: what the wire
+    format lost of the (masked) compensated rows; invalid rows give 0."""
+    masked = torch.where(valid_mask, compensated,
+                         torch.zeros((), dtype=compensated.dtype,
+                                     device=compensated.device))
+    q, scale = quantize_rows(masked, precision)
+    return masked - dequantize_rows(q, scale)
+
+
+def push_ef(store: dict, local_slots: torch.Tensor,
+            local_valid: torch.Tensor, reps: torch.Tensor,
+            residual: torch.Tensor,
+            sentinels: Optional[torch.Tensor] = None
+            ) -> tuple[dict, torch.Tensor]:
+    """Error-feedback PUSH: quantise ``reps + residual`` and carry the new
+    rounding residual forward at the pusher.  ``residual`` has the shape
+    of ``reps``; returns (new_store, new_residual)."""
+    compensated = reps + residual
+    new_store = push(store, local_slots, local_valid, compensated,
+                     sentinels)
+    return new_store, _ef_residual(compensated,
+                                   local_valid[:, None, :, None],
+                                   precision_of(store))
+
+
+def staleness_error(store: dict, fresh: torch.Tensor,
+                    local_slots: torch.Tensor,
+                    served: torch.Tensor) -> torch.Tensor:
+    """ε^(ℓ) = max_v ‖h_v^(ℓ) − h̃_v^(ℓ)‖₂ over *served* (boundary) rows.
+
+    fresh: (M, L-1, S, hidden) this epoch's representations; served:
+    (M, S) bool (``StackedPartitions.local_boundary``).  Returns (L-1,)."""
+    stale = pull(store, local_slots)                   # (M, L-1, S, h)
+    diff = torch.linalg.vector_norm(fresh - stale, dim=-1)
+    diff = torch.where(served[:, None, :], diff,
+                       torch.zeros((), dtype=diff.dtype, device=diff.device))
+    return torch.amax(diff, dim=(0, 2))

@@ -28,17 +28,23 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("spmm", "halo_pull")
+SOURCES = ("spmm", "spmm_bwd", "halo_pull")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Storage dtype codes of csrc/common.cuh::StorageDtype.
 DTYPE_CODES = {"float32": 0, "bfloat16": 1, "int8": 2}
 
-LAUNCHES = {"spmm": 0, "halo_spmm": 0, "halo_spmm_stream": 0}
+LAUNCHES = {"spmm": 0, "halo_spmm": 0, "halo_spmm_stream": 0,
+            "halo_spmm_skip": 0, "spmm_bwd_table": 0, "spmm_bwd_wts": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _FNS: dict[tuple[str, str], object] = {}
+
+
+def dtype_code(dtype) -> int:
+    """Storage dtype code of a torch dtype (csrc/common.cuh)."""
+    return DTYPE_CODES[str(dtype).split(".")[-1]]
 
 
 def reset_launches() -> None:
@@ -128,6 +134,15 @@ def check(code: int, source: str, what: str) -> None:
     if code != 0:
         msg = library(source).kernel_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def launch(fn, t, *args) -> int:
+    """Call the C launch entry ``fn`` with ``args`` and the current stream
+    of tensor ``t``'s card, with that card current; returns its code."""
+    import torch
+    with torch.cuda.device(t.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        return fn(*args, ctypes.c_void_p(stream))
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -2,12 +2,12 @@
 
 ``backend`` keeps the reference package's vocabulary:
 
-  * ``"auto"`` — the kernels, through the selection ladder below.  Each kernel wrapper launches its CUDA kernel on CUDA tensors
+  * ``"auto"`` — the kernels, through the selection ladder below.  Each
+    kernel wrapper launches its CUDA kernel on CUDA tensors
     and runs its plain PyTorch version on CPU tensors.
   * ``"jnp"`` — the gather-form oracles of :mod:`.ref`.
   * ``"pallas_stream"`` — force the streamed kernel (K3).
-  * ``"pallas_skip"`` — the chunk-skipping streamed kernel (K4), which is
-    not ported yet: it raises ``NotImplementedError``.
+  * ``"pallas_skip"`` — force the chunk-skipping streamed kernel (K4).
 
 ``halo_spmm`` picks between the kernels exactly as the reference does
 (:func:`select_halo_kernel`), so the same shapes select the same kernel and
@@ -30,6 +30,7 @@ import torch
 
 from repro_torch.kernels.spmm.halo_pull import (STREAM_CHUNK_ROWS,
                                                 halo_spmm_cuda,
+                                                halo_spmm_skip_cuda,
                                                 halo_spmm_stream_cuda)
 from repro_torch.kernels.spmm.ref import halo_spmm_ref, spmm_ref
 from repro_torch.kernels.spmm.spmm import spmm_cuda
@@ -45,9 +46,6 @@ RESIDENT_STRIPE_MAX_BYTES = 4 * 1024 * 1024
 SKIP_OCCUPANCY_MAX = 0.5
 
 BACKENDS = ("auto", "jnp", "pallas_stream", "pallas_skip")
-_K4_SLICE = ("the chunk-skipping streamed kernel (K4, halo_spmm_skip) is "
-             "ported with the training slice, together with the chunk "
-             "worklists it reads")
 
 
 def _check_backend(backend: str) -> None:
@@ -56,12 +54,15 @@ def _check_backend(backend: str) -> None:
 
 
 def spmm(nbr: torch.Tensor, wts: torch.Tensor, table: torch.Tensor,
-         backend: str = "auto") -> torch.Tensor:
-    """Neighbour aggregation out[i] = sum_k wts[i,k] * table[nbr[i,k]]."""
+         backend: str = "auto", pos: torch.Tensor = None) -> torch.Tensor:
+    """Neighbour aggregation out[i] = sum_k wts[i,k] * table[nbr[i,k]],
+    differentiable in ``wts`` and ``table``; ``pos`` is the optional
+    transposed ELL of ``nbr`` the table gradient gathers through (see
+    :func:`repro_torch.kernels.spmm.spmm.spmm_cuda`)."""
     _check_backend(backend)
     if backend == "jnp":
         return spmm_ref(nbr, wts, table)
-    return spmm_cuda(nbr, wts, table)
+    return spmm_cuda(nbr, wts, table, pos)
 
 
 def halo_gather(nbr: torch.Tensor, data: torch.Tensor,
@@ -126,9 +127,8 @@ def halo_spmm(nbr: torch.Tensor, wts: torch.Tensor, data: torch.Tensor,
     out[i] = sum_k wts[i,k] * dequant(data[nbr[i,k]]), with the optional
     SAT predictor epilogue ``+ gamma * dequant(pdata[...])``.
 
-    ``wl_ids``/``wl_cnt`` (the chunk worklist) and ``occupancy`` only feed
-    the selection; a ``"skip"`` selection raises ``NotImplementedError``
-    until K4 is ported.  ``chunk_rows`` defaults to
+    ``wl_ids``/``wl_cnt`` (the chunk worklist, read by K4) and
+    ``occupancy`` feed the selection.  ``chunk_rows`` defaults to
     :data:`STREAM_CHUNK_ROWS`.
     """
     _check_backend(backend)
@@ -139,10 +139,12 @@ def halo_spmm(nbr: torch.Tensor, wts: torch.Tensor, data: torch.Tensor,
         has_worklist=wl_ids is not None and wl_cnt is not None,
         resident_max_bytes=resident_max_bytes, occupancy=occupancy,
         skip_occupancy_max=skip_occupancy_max)
+    if chunk_rows is None:
+        chunk_rows = STREAM_CHUNK_ROWS
     if kind == "skip":
-        raise NotImplementedError(_K4_SLICE)
+        return halo_spmm_skip_cuda(nbr, wts, data, scale, wl_ids, wl_cnt,
+                                   pdata, pscale, gamma, chunk_rows)
     if kind == "stream":
-        return halo_spmm_stream_cuda(
-            nbr, wts, data, scale, pdata, pscale, gamma,
-            STREAM_CHUNK_ROWS if chunk_rows is None else chunk_rows)
+        return halo_spmm_stream_cuda(nbr, wts, data, scale, pdata, pscale,
+                                     gamma, chunk_rows)
     return halo_spmm_cuda(nbr, wts, data, scale, pdata, pscale, gamma)

@@ -1,5 +1,4 @@
-"""GNN models (GCN / GraphSAGE / GAT) in DIGEST's split-aggregation form,
-forward only.
+"""GNN models (GCN / GraphSAGE / GAT) in DIGEST's split-aggregation form.
 
 Every layer implements Eq. 4/5 of the paper: the aggregation over
 neighbours is split into an **in-subgraph** ELL product (fresh
@@ -14,6 +13,9 @@ through the fused pull+aggregate kernel
 The functions take parameters as the reference's nested dict
 (``params["layer_{l}"]["w"]``, ...); :class:`GNN` holds the same tensors as
 an ``nn.Module`` whose state_dict keys are ``layer_{l}.w`` and so on.
+Autograd runs through the layers as written: the in-subgraph products are
+:func:`repro_torch.kernels.spmm.spmm`, whose backward kernels gather the
+table gradient through the struct's transposed in-ELL (``in_pos``).
 
 Shapes (single subgraph):
   x_local   (S, d)      padded local node features/reps
@@ -31,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels.spmm import halo_spmm, spmm
+from repro_torch.kernels.spmm.spmm import transpose_of
 from repro_torch.nn import ParamSpec, dense, init_params
 
 Pytree = Any
@@ -42,14 +45,21 @@ def halo_ref(data: torch.Tensor, scale: Optional[torch.Tensor],
              wl_cnt: Optional[torch.Tensor] = None,
              pdata: Optional[torch.Tensor] = None,
              pscale: Optional[torch.Tensor] = None,
-             gamma: float = 1.0) -> dict:
+             gamma: float = 1.0, pos: Optional[torch.Tensor] = None
+             ) -> dict:
     """Bundle a shared halo slab (with sentinel zero row last) + indices.
 
     ``wl_ids``/``wl_cnt`` optionally carry the (row_block x chunk)
     worklist of this adjacency against the slab; ``pdata``/``pscale``/
     ``gamma`` the SAT predictor slab in the data slab's layout (the
-    aggregation then reads ``dequant(data) + gamma * dequant(pdata)``)."""
+    aggregation then reads ``dequant(data) + gamma * dequant(pdata)``);
+    ``pos`` the transposed ELL of ``nbr`` for a GAT halo table that is
+    differentiated (layer 0's projection of raw halo features, or every
+    layer's under ``gat_halo_dedup=False``; built on demand when
+    absent)."""
     ref = {"data": data, "nbr": nbr, "wts": wts}
+    if pos is not None:
+        ref["pos"] = pos
     if scale is not None:
         ref["scale"] = scale
     if wl_ids is not None and wl_cnt is not None:
@@ -64,11 +74,15 @@ def halo_ref(data: torch.Tensor, scale: Optional[torch.Tensor],
 
 
 def projected_halo_ref(zdata: torch.Tensor, zscale: Optional[torch.Tensor],
-                       nbr: torch.Tensor, wts: torch.Tensor) -> dict:
+                       nbr: torch.Tensor, wts: torch.Tensor,
+                       pos: Optional[torch.Tensor] = None) -> dict:
     """Bundle a *pre-projected* GAT halo table: rows are ``W·h̃`` (flat
     ``heads·head_dim`` wide, sentinel zero row last), so the layer skips
-    its slab projection."""
+    its slab projection (``pos``: the transposed ELL of ``nbr``, which
+    the attention scores' gradient gathers through)."""
     ref = {"zdata": zdata, "nbr": nbr, "wts": wts}
+    if pos is not None:
+        ref["pos"] = pos
     if zscale is not None:
         ref["zscale"] = zscale
     return ref
@@ -81,7 +95,8 @@ def _as_halo_ref(table, struct: dict) -> dict:
         return table
     return halo_ref(_pad_sentinel(table), None,
                     struct["out_nbr"], struct["out_wts"],
-                    struct.get("wl_ids"), struct.get("wl_cnt"))
+                    struct.get("wl_ids"), struct.get("wl_cnt"),
+                    pos=struct.get("out_pos"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,6 +118,10 @@ class GNNConfig:
     skip_occupancy_max: Optional[float] = None  # SKIP_OCCUPANCY_MAX
     # Measured chunk-worklist occupancy; None disables the skip stream.
     halo_occupancy: Optional[float] = None
+    # GAT: project each owner shard's stale halo rows once per layer at
+    # pull time and ship projected rows (True, the dedup path) instead of
+    # re-projecting every subgraph's (H+1, d) slab every epoch (False).
+    gat_halo_dedup: bool = True
 
     @property
     def layer_dims(self) -> list[tuple[int, int]]:
@@ -174,7 +193,7 @@ def _halo_agg(cfg, ref: dict, wts: torch.Tensor) -> torch.Tensor:
 def _gcn_layer(cfg, p, x_local, x_halo, struct) -> torch.Tensor:
     ref = _as_halo_ref(x_halo, struct)
     agg = spmm(struct["in_nbr"], struct["in_wts"], _pad_sentinel(x_local),
-               backend=cfg.backend)
+               backend=cfg.backend, pos=struct.get("in_pos"))
     agg = agg + _halo_agg(cfg, ref, ref["wts"])
     return dense(agg, p["w"], p["b"])
 
@@ -187,19 +206,58 @@ def _sage_layer(cfg, p, x_local, x_halo, struct) -> torch.Tensor:
              + torch.sum(out_w, dim=1, keepdim=True))
     denom = torch.clamp_min(denom, 1e-12)
     agg = spmm(struct["in_nbr"], in_w / denom, _pad_sentinel(x_local),
-               backend=cfg.backend)
+               backend=cfg.backend, pos=struct.get("in_pos"))
     agg = agg + _halo_agg(cfg, ref, out_w / denom)
     return dense(x_local, p["w_self"]) + dense(agg, p["w_nbr"]) + p["b"]
 
 
-def _multihead_spmm(nbr, att, z_pad, backend):
+def _multihead_spmm(nbr, att, z_pad, backend, pos=None):
     """(S, D, heads) attention × (T, heads, dh) tables → (S, heads·dh):
     one K1 launch per head, each head's weights and table made
-    contiguous."""
+    contiguous (``pos``: the transposed ELL of ``nbr``, shared by the
+    heads)."""
     out = torch.stack([spmm(nbr, att[:, :, h].contiguous(),
-                            z_pad[:, h, :].contiguous(), backend=backend)
+                            z_pad[:, h, :].contiguous(), backend=backend,
+                            pos=pos)
                        for h in range(att.shape[2])], dim=1)
     return out.reshape(out.shape[0], -1)
+
+
+class _RowGather(torch.autograd.Function):
+    """``table[nbr]`` whose backward sums each table row's gradient over
+    the ELL positions listed by the transposed ELL ``pos``, in ascending
+    order, instead of autograd's scatter-add: that one serialises every
+    duplicate of an index, and the padding of an ELL points all of its
+    slots at the one sentinel row (a (5256, 56) in-ELL gives the
+    sentinel some 190k of them).  The sentinel row gets no gradient, as
+    in the SpMM backward; its gathered values are masked out of GAT's
+    scores."""
+
+    @staticmethod
+    def forward(ctx, nbr, table, pos):
+        ctx.save_for_backward(pos)
+        ctx.table_shape = table.shape
+        return table[nbr.long()]
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        pos, = ctx.saved_tensors
+        flat = g.reshape(-1, *g.shape[2:])
+        flat = torch.cat([flat, flat.new_zeros((1,) + flat.shape[1:])])
+        return None, flat[pos.long()].sum(dim=1), None
+
+
+def _gather_rows(nbr, table, pos, backend):
+    """``table[nbr]`` for GAT's attention scores; differentiated through
+    the transposed ELL (built on the host when the struct has none) except
+    on the oracle backend, which keeps autograd's own indexing."""
+    if (backend == "jnp" or not torch.is_grad_enabled()
+            or not table.requires_grad):
+        return table[nbr.long()]
+    if pos is None:
+        pos = transpose_of(nbr, table.shape[0])
+    return _RowGather.apply(nbr, table, pos)
 
 
 def _gat_layer(cfg, p, x_local, x_halo, struct) -> torch.Tensor:
@@ -232,16 +290,19 @@ def _gat_layer(cfg, p, x_local, x_halo, struct) -> torch.Tensor:
     src_loc = torch.einsum("shk,hk->sh", z_loc, p["a_src"])  # (S, heads)
     src_out = torch.einsum("shk,hk->sh", z_out, p["a_src"])  # (T, heads)
 
-    def _scores(nbr, src_table, n_cols):
-        s_src = src_table[nbr.long()]                       # (S, D, heads)
+    def _scores(nbr, src_table, n_cols, pos):
+        s_src = _gather_rows(nbr, src_table, pos, cfg.backend)  # (S,D,h)
         e = F.leaky_relu(s_dst[:, None, :] + s_src, 0.2)
         valid = (nbr < n_cols)[..., None]
         return torch.where(valid, e, -1e30), valid
 
-    e_in, v_in = _scores(struct["in_nbr"], _pad_sentinel(src_loc), S)
-    e_out, v_out = _scores(ref["nbr"], src_out, T - 1)
+    e_in, v_in = _scores(struct["in_nbr"], _pad_sentinel(src_loc), S,
+                         struct.get("in_pos"))
+    e_out, v_out = _scores(ref["nbr"], src_out, T - 1, ref.get("pos"))
 
-    m = torch.maximum(e_in.amax(dim=1), e_out.amax(dim=1))  # (S, heads)
+    # The softmax shift is a constant of the gradient, as the reference's
+    # stop_gradient makes it.
+    m = torch.maximum(e_in.amax(dim=1), e_out.amax(dim=1)).detach()
     p_in = torch.exp(e_in - m[:, None, :]) * v_in
     p_out = torch.exp(e_out - m[:, None, :]) * v_out
     denom = p_in.sum(dim=1) + p_out.sum(dim=1) + 1e-16
@@ -249,8 +310,9 @@ def _gat_layer(cfg, p, x_local, x_halo, struct) -> torch.Tensor:
     a_out = p_out / denom[:, None, :]
 
     out = _multihead_spmm(struct["in_nbr"], a_in, _pad_sentinel(z_loc),
-                          cfg.backend)
-    out = out + _multihead_spmm(ref["nbr"], a_out, z_out, cfg.backend)
+                          cfg.backend, struct.get("in_pos"))
+    out = out + _multihead_spmm(ref["nbr"], a_out, z_out, cfg.backend,
+                                ref.get("pos"))
     return out + p["b"]
 
 
@@ -307,7 +369,8 @@ class GNN(nn.Module):
     """A GNNConfig's parameters as an ``nn.Module``: one ``ParameterDict``
     per layer, so state_dict keys are the reference pytree's
     (``layer_{l}.w``, ``w_self``, ``w_nbr``, ``a_src``, ``a_dst``, ``b``).
-    Forward only in this slice: parameters do not require grad."""
+    The parameters do not require grad: training differentiates the
+    functional API over a plain tensor dict (``core/digest.py``)."""
 
     def __init__(self, cfg: GNNConfig, params: Pytree):
         super().__init__()

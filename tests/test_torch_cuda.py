@@ -15,10 +15,16 @@ torch = pytest.importorskip("torch")
 import numpy as np
 
 from repro_torch.core.halo_exchange import HaloPrecision, quantize_rows
+from repro_torch.graph import build_chunk_worklist
+from repro_torch.graph.transpose import ell_transpose
 from repro_torch.kernels import _build
 from repro_torch.kernels.spmm import (halo_spmm, halo_spmm_cuda,
-                                      halo_spmm_plain, halo_spmm_stream_cuda,
-                                      halo_spmm_stream_plain, spmm_cuda,
+                                      halo_spmm_plain, halo_spmm_skip_cuda,
+                                      halo_spmm_skip_plain,
+                                      halo_spmm_stream_cuda,
+                                      halo_spmm_stream_plain, spmm_bwd_table,
+                                      spmm_bwd_table_plain, spmm_bwd_wts,
+                                      spmm_bwd_wts_plain, spmm_cuda,
                                       spmm_plain)
 from repro_torch.launch.serving_driver import profile_serve_loop
 
@@ -96,9 +102,15 @@ def test_ladder_launches_the_selected_kernel(dev):
     halo_spmm(nbr, wts, data, scale)                         # resident
     halo_spmm(nbr, wts, table)                               # K1 delegate
     halo_spmm(nbr, wts, table, resident_max_bytes=1024)      # stream
+    wl = build_chunk_worklist(nbr.cpu().numpy(), table.shape[0], 512)
+    halo_spmm(nbr, wts, table, wl_ids=torch.from_numpy(wl.ids).to(dev),
+              wl_cnt=torch.from_numpy(wl.cnt).to(dev),
+              resident_max_bytes=1024, occupancy=wl.occupancy,
+              skip_occupancy_max=1.0)                        # skip
     torch.cuda.synchronize()
     assert _build.LAUNCHES == {"spmm": 1, "halo_spmm": 1,
-                               "halo_spmm_stream": 1}
+                               "halo_spmm_stream": 1, "halo_spmm_skip": 1,
+                               "spmm_bwd_table": 0, "spmm_bwd_wts": 0}
 
 
 def test_profile_serve_loop_splits_device_time(dev):
@@ -119,3 +131,60 @@ def test_kernels_refuse_bad_inputs(dev):
         spmm_cuda(nbr, wts, table.cpu())
     with pytest.raises(TypeError):
         spmm_cuda(nbr, wts, table.double())
+
+
+@pytest.mark.parametrize("storage", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("shape", [(17, 3, 9, 33), (300, 64, 14288, 128)])
+def test_skip_kernel(dev, storage, shape):
+    """K4 against its plain version, bit for bit equal to K3 at equal
+    chunk_rows, visiting exactly its worklist."""
+    rows, deg, ncols, feat = shape
+    nbr, wts, table = _case(11 + rows, rows, deg, ncols, feat, dev)
+    nbr = torch.sort(nbr, dim=0).values     # clustered: blocks skip chunks
+    data, scale = _slab(table, storage)
+    chunk = 256 if ncols > 256 else 4
+    wl = build_chunk_worklist(nbr.cpu().numpy(), data.shape[0], chunk)
+    ids = torch.from_numpy(wl.ids).to(dev)
+    cnt = torch.from_numpy(wl.cnt).to(dev)
+    args = (nbr, wts, data, scale, ids, cnt)
+    k4, visits = halo_spmm_skip_cuda(*args, chunk_rows=chunk,
+                                     count_visits=True)
+    torch.testing.assert_close(
+        k4, halo_spmm_skip_plain(*args, chunk_rows=chunk), **TOL)
+    k3 = halo_spmm_stream_cuda(nbr, wts, data, scale, chunk_rows=chunk)
+    assert torch.equal(k4, k3)
+    t = torch.arange(wl.max_chunks, device=dev)[None, :]
+    assert torch.equal(visits, torch.where(t < cnt[:, None], ids, -1))
+
+
+@pytest.mark.parametrize("rows,deg,ncols,feat", [
+    (17, 3, 16, 33), (384, 9, 383, 70), (5256, 56, 5256, 128)])
+def test_backward_kernels(dev, rows, deg, ncols, feat):
+    nbr, wts, table = _case(21 + rows, rows, deg, ncols, feat, dev)
+    g = torch.randn((rows, feat), device=dev)
+    pos = torch.from_numpy(ell_transpose(nbr.cpu().numpy(), ncols + 1)
+                           ).to(dev)
+    before = dict(_build.LAUNCHES)
+    dtab = spmm_bwd_table(pos, wts, g)
+    dw = spmm_bwd_wts(nbr, g, table)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["spmm_bwd_table"] == before["spmm_bwd_table"] + 1
+    assert _build.LAUNCHES["spmm_bwd_wts"] == before["spmm_bwd_wts"] + 1
+    torch.testing.assert_close(dtab, spmm_bwd_table_plain(pos, wts, g),
+                               **TOL)
+    torch.testing.assert_close(dw, spmm_bwd_wts_plain(nbr, g, table), **TOL)
+    # Through autograd: the Function's backward launches both kernels.
+    w = wts.clone().requires_grad_()
+    t = table.clone().requires_grad_()
+    spmm_cuda(nbr, w, t, pos).backward(g)
+    assert torch.equal(w.grad, dw) and torch.equal(t.grad, dtab)
+
+
+def test_halo_kernels_refuse_grad_on_the_card(dev):
+    nbr, wts, table = _case(6, 8, 2, 40, 16, dev)
+    data, scale = _slab(table, "int8")
+    with pytest.raises(RuntimeError, match="no backward"):
+        halo_spmm_cuda(nbr, wts.clone().requires_grad_(), data, scale)
+    with pytest.raises(RuntimeError, match="no backward"):
+        halo_spmm_stream_cuda(nbr, wts, table.clone().requires_grad_(),
+                              scale)

@@ -14,12 +14,20 @@ from repro.graph import make_dataset as j_make_dataset
 from repro_torch.core import serving as tserving
 from repro_torch.core.digest import prepare_graph_data as t_prepare
 from repro_torch.graph import make_dataset as t_make_dataset
+from repro_torch.graph.transpose import ell_transpose
+
+
+# Keys the port adds beside the reference's: the transposed in- and
+# out-ELLs its SpMM backward gathers through (held by
+# test_prepare_graph_data_equal).
+PORT_ONLY = {"in_pos", "out_pos"}
 
 
 def _pairs(jtree, ttree, path=""):
     """(path, reference array, port tensor) for every traced leaf."""
     if isinstance(jtree, dict):
-        assert sorted(jtree) == sorted(ttree), path
+        assert sorted(jtree) == sorted(k for k in ttree
+                                       if k not in PORT_ONLY), path
         for k in jtree:
             if not k.startswith("_"):
                 yield from _pairs(jtree[k], ttree[k], f"{path}/{k}")
@@ -57,6 +65,13 @@ def test_prepare_graph_data_equal(both):
         n += 1
     assert n >= 30
     assert tdata["_worklist"].occupancy == jdata["_worklist"].occupancy
+    for key in ("struct", "full_struct"):
+        nbr = np.asarray(jdata[key]["in_nbr"])
+        want = ell_transpose(nbr, nbr.shape[1] + 1)
+        assert np.array_equal(tdata[key]["in_pos"].numpy(), want), key
+        out = np.asarray(jdata[key]["out_nbr"])
+        want = ell_transpose(out, int(out.max()) + 1)
+        assert np.array_equal(tdata[key]["out_pos"].numpy(), want), key
 
 
 def test_build_serve_plan_equal(both):

@@ -17,6 +17,7 @@ from repro.core import halo_exchange as jhx
 from repro.kernels.spmm import halo_spmm_stream_pallas
 from repro.kernels.spmm import ops as jops
 from repro_torch.core import halo_exchange as thx
+from repro_torch.graph import build_chunk_worklist
 from repro_torch.kernels import _build
 from repro_torch.kernels.spmm import (halo_spmm, halo_spmm_cuda,
                                       halo_spmm_ref, halo_spmm_stream_cuda,
@@ -198,8 +199,9 @@ def test_select_halo_kernel_matches_reference_ladder(
 @pytest.mark.parametrize("occupancy,expect", [(0.3, "skip"),
                                               (0.7, "stream")])
 def test_select_halo_kernel_skip_rung(monkeypatch, occupancy, expect):
-    """Above the budget with a worklist, low occupancy selects K4 — which
-    the port does not have yet, so halo_spmm raises."""
+    """Above the budget with a worklist, low occupancy selects K4, and
+    halo_spmm runs it: equal to K3 bit for bit (the worklist covers every
+    referenced chunk).  Forcing ``pallas_skip`` runs it too."""
     jd = jnp.zeros((600, 128), jnp.float32)
     ids = jnp.zeros((1, 1), jnp.int32)
     want = _jax_selection(monkeypatch, jd, None, None, None,
@@ -209,18 +211,17 @@ def test_select_halo_kernel_skip_rung(monkeypatch, occupancy, expect):
     got = select_halo_kernel(td, has_worklist=True, resident_max_bytes=1024,
                              occupancy=occupancy)
     assert got == want == expect
-    if expect == "skip":
-        n = torch.zeros((8, 2), dtype=torch.int32)
-        with pytest.raises(NotImplementedError, match="K4"):
-            halo_spmm(n, torch.zeros((8, 2)), td,
-                      wl_ids=torch.zeros((1, 1), dtype=torch.int32),
-                      wl_cnt=torch.ones(1, dtype=torch.int32),
-                      resident_max_bytes=1024, occupancy=occupancy)
-    with pytest.raises(NotImplementedError, match="K4"):
-        halo_spmm(torch.zeros((8, 2), dtype=torch.int32),
-                  torch.zeros((8, 2)), td, backend="pallas_skip",
-                  wl_ids=torch.zeros((1, 1), dtype=torch.int32),
-                  wl_cnt=torch.ones(1, dtype=torch.int32))
+    rng = np.random.default_rng(3)
+    td = torch.from_numpy(rng.normal(size=(600, 128)).astype(np.float32))
+    n = torch.from_numpy(rng.integers(0, 300, size=(8, 2)).astype(np.int32))
+    w = torch.from_numpy(rng.random((8, 2)).astype(np.float32))
+    wl = build_chunk_worklist(n.numpy(), 600, 512)
+    kw = dict(wl_ids=torch.from_numpy(wl.ids), wl_cnt=torch.from_numpy(wl.cnt))
+    k3 = halo_spmm_stream_cuda(n, w, td)
+    out = halo_spmm(n, w, td, resident_max_bytes=1024, occupancy=occupancy,
+                    **kw)
+    assert torch.equal(out, k3)
+    assert torch.equal(halo_spmm(n, w, td, backend="pallas_skip", **kw), k3)
 
 
 def test_cpu_tensors_never_launch():
@@ -235,8 +236,17 @@ def test_cpu_tensors_never_launch():
     halo_spmm(n, w, _t(data), _t(scale))
     halo_spmm(n, w, _t(data), _t(scale), resident_max_bytes=64)
     halo_spmm_stream_cuda(n, w, _t(table), chunk_rows=100)
-    assert _build.LAUNCHES == {"spmm": 0, "halo_spmm": 0,
-                               "halo_spmm_stream": 0}
+    wl = build_chunk_worklist(nbr, 701, 100)
+    halo_spmm(n, w, _t(data), _t(scale), wl_ids=_t(wl.ids),
+              wl_cnt=_t(wl.cnt), backend="pallas_skip", chunk_rows=100)
+    tab = _t(table).requires_grad_()
+    wg = w.clone().requires_grad_()
+    spmm(n, wg, tab).sum().backward()
+    assert tab.grad is not None and wg.grad is not None
+    assert set(_build.LAUNCHES) == {
+        "spmm", "halo_spmm", "halo_spmm_stream", "halo_spmm_skip",
+        "spmm_bwd_table", "spmm_bwd_wts"}
+    assert all(v == 0 for v in _build.LAUNCHES.values()), _build.LAUNCHES
 
 
 def test_wrappers_check_inputs():
