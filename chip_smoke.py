@@ -60,14 +60,42 @@ Phases, each ending the run with a non-zero exit on failure:
    K2 in the int8 epochs, the table-gradient kernel 16 times per bf16
    epoch and the weight-gradient kernel in GAT's.  Epoch times (host
    clock around an epoch ending in a synchronize) and val/test F1 are
-   printed.
+   printed;
+8. K6 (flash attention) at the LM slice's shape (B 4, S 1024, H 16 over
+   KV 8, D 128, causal; and non-causal at S 512), in bf16 and fp32, on
+   (B, H, S, D) views of (B, S, H, D) tensors, against its plain
+   version: fp32 within 2e-5, bf16 within 2e-5 plus one bf16 ulp of the
+   output; K5 (GAT edge softmax) at GAT's per-head shape on subgraph 0
+   of the training partition (in-ELL 5256 x 56 over 5257 x 32, out-ELL
+   5256 x 64 over 14289 x 32) within 1e-4 on acc and 1e-5 on m and l;
+   timed as in phase 3, beside ``scaled_dot_product_attention`` for K6
+   (no PyTorch call computes K5), bounded by the bf16 tensor-core or
+   fp32 rate or the bytes;
+9. LM prefill: qwen3-0.6b at its published widths (28 layers, random
+   weights from ``torch.Generator`` seed 0), ``forward`` on 4 x 1024
+   seeded tokens with the kernel backend — K6 exactly 28 times and no
+   other kernel — against the dense-oracle backend on the same weights:
+   the bf16 error is reported, and with fp32 activations the logits must
+   agree within 1e-4 of max |logit|; timed, and one more forward traced
+   with ``torch.profiler``;
+10. LM decode serving (``launch/serve.py``'s loop): batch 4, a 1056-slot
+    cache, 32 tokens, for the full cache and the stale-KV ``long`` cache
+    (window 32, ratio 8), ms/token and p50/p99, 8 steps of each traced;
+    teacher-forced ``decode_step`` over the first 128 prompt positions
+    against the prefill logits within 2e-2 of max |logit| in bf16 and in
+    fp32; ``long`` equal to the full cache within 1e-4 while t < 32, in
+    fp32;
+11. ``gat_aggregate`` on the card (K5, twice per head) on subgraph 0 with
+    layer 1 of a GAT at the training widths (4 heads x 32), against its
+    plain version and, head by head, the port's own ``_gat_layer`` less
+    its bias, within 1e-5 of max |out|; K5 must launch 8 times.
 
 Each path's launch counters are set to 0 just before it and read just
 after; the oracle runs launch nothing.  The last lines are the card's
 ``nvidia-smi`` line, one JSON object ``{"kernels": [...]}`` (each
-kernel's launches on the two paths, its worst error and the times of its
-main-path variant) and ``{"ok": true, "device": {...}}``.  Without a
-card, or outside a checkout, it exits non-zero and prints no result.
+kernel's launches on its paths, its worst error, its bar and the times
+of its main-path variant) and ``{"ok": true, "device": {...}}``.  Without
+a card, or outside a checkout, it exits non-zero and prints no result.
 TF32 is off throughout (fp32 products run in full fp32).
 """
 from __future__ import annotations
@@ -85,11 +113,32 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth and the fp32 rate outside
-# the tensor cores (the kernels' FMAs are plain fp32).
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth, the fp32 rate outside the
+# tensor cores (the kernels' FMAs are plain fp32) and the dense bf16
+# tensor-core rate (the bound of bf16 attention's work).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 TOL = 1e-5
+# The LM slice's bars: K6 in fp32 at the reference's flash bar
+# (tests/test_kernels_attention.py), in bf16 that bar plus one bf16 ulp
+# (bf16_bar); K5 at the reference's (tests/test_kernels_gat_edge.py);
+# prefill through K6 against the dense oracle in fp32, decode against
+# prefill and long against full at the reference's decode bars
+# (tests/test_decode_consistency.py).
+K6_FP32_TOL = 2e-5
+K5_STAT_TOL = 1e-5
+K5_ACC_TOL = 1e-4
+LM_FP32_TOL = 1e-4
+DECODE_TOL = 2e-2
+LONG_TOL = 1e-4
+# The LM slice's shapes: qwen3-0.6b prefill of 4 x 1024 tokens, decode of
+# 32 tokens into a 1056-position cache, teacher forcing over 128.
+LM_BATCH = 4
+LM_SEQ = 1024
+LM_MAX_SEQ = 1056
+LM_GEN = 32
+LM_TEACHER = 128
 BATCH = 256
 BATCHES = 64
 ZIPF_SKEW = 1.1
@@ -117,10 +166,31 @@ KERNELS = {
                      "src/repro_torch/csrc/spmm_bwd.cu",
                      "src/repro/kernels/spmm/ref.py:8 (autodiff of "
                      "spmm_ref; no Pallas kernel)", "in-ELL head w32"),
+    "gat_edge_partial": ("K5 GAT edge-softmax partial",
+                         "src/repro_torch/csrc/gat_edge.cu",
+                         "src/repro/kernels/gat_edge/gat_edge.py:72",
+                         "out-ELL head w32"),
+    "flash_attention": ("K6 flash attention (LM prefill)",
+                        "src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/"
+                        "flash_attention.py:76", "bf16 causal S1024"),
+}
+# Each kernel's bar against its plain version (measure's ``allowed``).
+TOLERANCES = {
+    "spmm": "atol = rtol = 1e-5", "halo_spmm": "atol = rtol = 1e-5",
+    "halo_spmm_stream": "atol = rtol = 1e-5",
+    "halo_spmm_skip": "atol = rtol = 1e-5",
+    "spmm_bwd_table": "atol = rtol = 1e-5",
+    "spmm_bwd_wts": "atol = rtol = 1e-5",
+    "gat_edge_partial": "acc atol = rtol = 1e-4; m, l 1e-5",
+    "flash_attention": "fp32 atol = rtol = 2e-5; bf16 2e-5 + one bf16 "
+                       "ulp of the output",
 }
 SERVING_KERNELS = ("spmm", "halo_spmm", "halo_spmm_stream")
 TRAINING_KERNELS = ("spmm", "halo_spmm", "halo_spmm_skip", "spmm_bwd_table",
                     "spmm_bwd_wts")
+# The path each later kernel runs on, beside serving and training.
+PATH_OF = {"flash_attention": "prefill", "gat_edge_partial": "gat_aggregate"}
 # The training configuration: the paper's GCN widths on papers-sim, whose
 # rcm / 256-row-chunk partition has worklist occupancy 0.475, so the fp32
 # store's hidden layers select K4.
@@ -194,33 +264,43 @@ def device_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
 
 
 def measure(torch, records, name, variant, shape, got, want, run, plain,
-            bound_, library, lib_want):
+            bound_, library, lib_want, allowed=None, lib_tol=1e-4):
     """Hold a kernel's output ``got`` against its plain version's
-    ``want`` (atol = rtol = TOL), check that the library yardstick
-    computes the same function (``lib_want``, within 1e-4), time all
-    three and append the record."""
-    err = float((got.float() - want.float()).abs().max())
-    check(torch.allclose(got, want, atol=TOL, rtol=TOL),
-          f"{name} [{variant}] disagrees with its plain version: "
-          f"max |err| {err:.3e}")
-    lib = library()
-    check(torch.allclose(lib, lib_want, atol=1e-4, rtol=1e-4),
-          f"library yardstick of {name} [{variant}] computes another "
-          "function")
+    ``want``: elementwise within ``allowed(want)`` (default atol = rtol =
+    TOL, as ``allclose``); check that the library yardstick computes the
+    same function (``lib_want``, within ``lib_tol``); time all three and
+    append the record.  ``library`` None: no PyTorch call computes it."""
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    if allowed is None:
+        def allowed(w):
+            return TOL + TOL * w.float().abs()
+    ratio = float((diff / allowed(want)).max())
+    check(ratio <= 1, f"{name} [{variant}] disagrees with its plain version: "
+          f"max |err| {err:.3e}, {ratio:.3f} of its bar")
     times = {"ms": device_ms(torch, run),
              "kernel_ms": event_ms(torch, run),
              "plain_ms": event_ms(torch, plain, reps=5, warmup=1),
-             "library_ms": device_ms(torch, library)}
-    check(all(isinstance(t, float) and t > 0 for t in times.values()),
+             "library_ms": None}
+    if library is not None:
+        lib = library()
+        check(torch.allclose(lib.float(), lib_want.float(), atol=lib_tol,
+                             rtol=lib_tol),
+              f"library yardstick of {name} [{variant}] computes another "
+              "function")
+        times["library_ms"] = device_ms(torch, library)
+    check(all(isinstance(t, float) and t > 0 for t in times.values()
+              if t is not None),
           f"{name} [{variant}]: a timing is missing: {times}")
     records.append({"name": name, "variant": variant, "shape": shape,
-                    "max_abs_err": err, "bound_ms": bound_[0],
-                    "bound_by": bound_[1], **times})
+                    "max_abs_err": err, "bar_ratio": ratio,
+                    "bound_ms": bound_[0], "bound_by": bound_[1], **times})
 
 
-def roofline(nbytes: float, flops: float) -> tuple:
+def roofline(nbytes: float, flops: float,
+             flops_per_s: float = FP32_FLOPS_PER_S) -> tuple:
     """(least ms, "bytes" or "operations") on an H100 SXM."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -789,7 +869,344 @@ def training(torch, dev) -> tuple:
     launches = dict(_build.LAUNCHES)
     check(all(launches[k] > 0 for k in TRAINING_KERNELS),
           f"a kernel of the training path never launched: {launches}")
-    return records, launches
+    return records, launches, data
+
+
+# ---------------------------------------------------------------------------
+# Phases 8-11: the LM slice (K6) and GAT's split aggregation (K5)
+# ---------------------------------------------------------------------------
+
+def bf16_bar(w):
+    """K6's bf16 bar: both sides compute in fp32 and round once to bf16,
+    so they may differ by the fp32 bar plus one bf16 ulp of the output
+    (2^-7 of its binade)."""
+    import torch
+    e = torch.floor(torch.log2(w.float().abs().clamp_min(2.0 ** -126)))
+    return K6_FP32_TOL + torch.exp2(e - 7)
+
+
+def lm_kernel_phase(torch, dev, data):
+    """Phase 8: K6 at the LM slice's shape and K5 at GAT's per-head shape
+    on the training partition, each against its plain version and timed;
+    returns one record per (kernel, variant)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.gat_edge import (gat_edge_partial_cuda,
+                                              gat_edge_partial_plain)
+    gen = torch.Generator().manual_seed(3)
+    records = []
+    b, h, kv, d = LM_BATCH, 16, 8, 128
+    for dtype, causal, s in ((torch.bfloat16, True, LM_SEQ),
+                             (torch.float32, True, LM_SEQ),
+                             (torch.bfloat16, False, 512),
+                             (torch.float32, False, 512)):
+        # The main path's layout: (B, H, S, D) views of (B, S, H, D).
+        q = torch.randn((b, s, h, d), generator=gen).to(dev, dtype)
+        k = torch.randn((b, s, kv, d), generator=gen).to(dev, dtype)
+        v = torch.randn((b, s, kv, d), generator=gen).to(dev, dtype)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        got = flash_attention_cuda(qt, kt, vt, causal)
+        want = flash_attention_plain(qt, kt, vt, causal)
+        bf16 = dtype == torch.bfloat16
+        pairs = s * (s + 1) // 2 if causal else s * s
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        measure(torch, records, "flash_attention",
+                f"{'bf16' if bf16 else 'fp32'} "
+                f"{'causal' if causal else 'non-causal'} S{s}",
+                [b, s, h, kv, d], got, want,
+                lambda: flash_attention_cuda(qt, kt, vt, causal),
+                lambda: flash_attention_plain(qt, kt, vt, causal),
+                roofline(nbytes, 4 * b * h * d * pairs,
+                         BF16_FLOPS_PER_S if bf16 else FP32_FLOPS_PER_S),
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=True),
+                want, allowed=bf16_bar if bf16 else
+                (lambda w: K6_FP32_TOL + K6_FP32_TOL * w.float().abs()),
+                lib_tol=3e-2 if bf16 else 1e-4)
+
+    # K5 at GAT's per-head shape (4 heads x 32) on subgraph 0: the in-ELL
+    # over the local table and the out-ELL over the halo table.
+    st = {k_: v_[0] for k_, v_ in data["struct"].items()}
+    rows = st["in_nbr"].shape[0]
+    n_halo = int(data["halo_ids"].shape[1])
+    s_dst = torch.randn((rows,), generator=gen).to(dev)
+    for side, nbr, n_cols in (("in", st["in_nbr"], rows),
+                              ("out", st["out_nbr"], n_halo)):
+        s_src = torch.randn((n_cols + 1,), generator=gen)
+        z = torch.randn((n_cols + 1, 32), generator=gen)
+        s_src[-1], z[-1] = 0, 0
+        s_src, z = s_src.to(dev), z.to(dev)
+        valid = nbr < n_cols
+        args = (nbr, valid, s_dst, s_src, z)
+        got, want = gat_edge_partial_cuda(*args), gat_edge_partial_plain(*args)
+        for name, g_, w_ in (("m", got[1], want[1]), ("l", got[2], want[2])):
+            check(torch.allclose(g_, w_, atol=K5_STAT_TOL, rtol=K5_STAT_TOL),
+                  f"K5 [{side}]: {name} disagrees with its plain version: "
+                  f"max |err| {float((g_ - w_).abs().max()):.3e}")
+        n_valid = int(valid.sum())
+        ref_rows = int(torch.unique(nbr).numel())
+        nbytes = (nbr.numel() * 5 + rows * 4 + ref_rows * 4 * (1 + 32)
+                  + rows * 32 * 4 + 2 * rows * 4)
+        measure(torch, records, "gat_edge_partial", f"{side}-ELL head w32",
+                list(nbr.shape) + [n_cols + 1, 32], got[0], want[0],
+                lambda: gat_edge_partial_cuda(*args),
+                lambda: gat_edge_partial_plain(*args),
+                roofline(nbytes, n_valid * (3 * 32 + 6)), None, None,
+                allowed=lambda w: K5_ACC_TOL + K5_ACC_TOL * w.abs())
+    return records
+
+
+def lm_prefill(torch, dev) -> dict:
+    """Phase 9: qwen3-0.6b at its published widths, random weights from
+    ``torch.Generator`` seed 0, ``forward`` on B x S tokens through the
+    kernel backend (K6 in every layer) against the same weights through
+    the dense oracle, in bf16 and fp32 activations."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serving_driver import profile_serve_loop
+    from repro_torch.models.transformer import arch_specs, forward
+    from repro_torch.nn import init_params
+
+    cfg = dataclasses.replace(get_arch("qwen3-0.6b"), attn_backend="kernel")
+    t0 = time.perf_counter()
+    params = init_params(arch_specs(cfg), torch.Generator().manual_seed(0),
+                         dev)
+    n_params = sum(t.numel() for t in _tree_leaves(params))
+    tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ),
+                           generator=torch.Generator().manual_seed(1)
+                           ).to(dev)
+    print(f"lm: {cfg.name} {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} kv, "
+          f"head_dim {cfg.hd}, vocab {cfg.vocab_size}: {n_params} params, "
+          f"made in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    def run(c, label):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t = time.perf_counter()
+        out = forward(c, params, tokens)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        launches = dict(_build.LAUNCHES)
+        check(out.shape == (LM_BATCH, LM_SEQ, cfg.vocab_size)
+              and bool(torch.isfinite(out).all()),
+              f"prefill [{label}]: logits malformed")
+        want_k6 = cfg.num_layers if c.attn_backend == "kernel" else 0
+        check(launches["flash_attention"] == want_k6
+              and sum(launches.values()) == want_k6,
+              f"prefill [{label}]: launches {launches}, expected K6 "
+              f"{want_k6} times and nothing else")
+        return out, ms, launches
+
+    with torch.inference_mode():
+        run(cfg, "warm-up")
+        logits, ms, launches = run(cfg, "bf16 kernel")
+        _, ms2, _ = run(cfg, "bf16 kernel")
+        dense, dense_ms, _ = run(dataclasses.replace(cfg,
+                                                     attn_backend="dense"),
+                                 "bf16 dense")
+        scale = float(dense.abs().max())
+        bf16_rel = float((logits - dense).abs().max()) / scale
+        del dense
+        c32 = dataclasses.replace(cfg, dtype="float32")
+        l32, ms32, _ = run(c32, "fp32 kernel")
+        d32, _, _ = run(dataclasses.replace(c32, attn_backend="dense"),
+                        "fp32 dense")
+        fp32_rel = float((l32 - d32).abs().max()) / float(d32.abs().max())
+        check(fp32_rel <= LM_FP32_TOL,
+              f"fp32 prefill through K6 differs from the dense oracle by "
+              f"{fp32_rel:.3e} of max |logit| (bar {LM_FP32_TOL})")
+        logits32 = l32[:, :LM_TEACHER].clone()
+        del l32, d32
+        # Where a prefill's device time goes (one more bf16 forward,
+        # traced; the launch counts above were read before it).
+        prof = profile_serve_loop(
+            lambda c, _: (c, forward(cfg, params, tokens)), range(1), top=6)
+    res = {"path": "lm prefill", "arch": cfg.name, "batch": LM_BATCH,
+           "seq": LM_SEQ, "params": n_params, "prefill_ms": ms,
+           "prefill_ms_again": ms2, "dense_prefill_ms": dense_ms,
+           "fp32_prefill_ms": ms32,
+           "tokens_per_s": LM_BATCH * LM_SEQ / (min(ms, ms2) / 1e3),
+           "bf16_rel_err_vs_dense": bf16_rel,
+           "fp32_rel_err_vs_dense": fp32_rel, "launches": launches,
+           "profile": prof}
+    print(json.dumps(res), flush=True)
+    return {"cfg": cfg, "params": params, "tokens": tokens,
+            "logits": logits[:, :LM_TEACHER].clone(), "logits32": logits32,
+            "launches": launches}
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _tree_leaves(v)]
+    return [tree]
+
+
+def lm_decode(torch, dev, pre) -> dict:
+    """Phase 10: the serve loop (full and ``long`` caches), teacher-forced
+    decode against the prefill logits, and ``long`` against the full
+    cache inside the window in fp32."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import long_config, serve
+    from repro_torch.launch.serving_driver import profile_serve_loop
+    from repro_torch.models.transformer import decode_step, init_cache
+    from repro_torch.train import make_serve_step
+
+    cfg, params, tokens = pre["cfg"], pre["params"], pre["tokens"]
+    out = {"path": "lm decode", "arch": cfg.name, "batch": LM_BATCH,
+           "max_seq": LM_MAX_SEQ, "gen": LM_GEN}
+    _build.reset_launches()
+    for long in (False, True):
+        c = long_config(cfg) if long else cfg
+        stats, outs, _ = serve(c, params, LM_BATCH, LM_MAX_SEQ, LM_GEN,
+                               long=long, device=dev)
+        check(all(o.shape == (LM_BATCH, 1, cfg.vocab_size)
+                  and bool(torch.isfinite(o).all()) for o in outs),
+              f"serve [long={long}]: logits malformed")
+        key = "long" if long else "full"
+        out[key] = {"ms_per_token": stats.total_s / LM_GEN * 1e3,
+                    "p50_ms": stats.p50_ms, "p99_ms": stats.p99_ms,
+                    "tokens_per_s": stats.per_sec}
+        print(f"serve {cfg.name} long={long} batch={LM_BATCH}: "
+              f"{out[key]['ms_per_token']:.3f} ms/token (steady p50 "
+              f"{stats.p50_ms:.3f} / p99 {stats.p99_ms:.3f} ms)", flush=True)
+    out["launches"] = dict(_build.LAUNCHES)
+
+    with torch.inference_mode():
+        # Where a decode step's time goes: 8 steps of each cache, traced.
+        for long in (False, True):
+            c = long_config(cfg) if long else cfg
+            step = make_serve_step(c, long=long)
+
+            def traced(carry, _):
+                cache, toks = carry
+                logits, cache = step(params, cache, toks)
+                return (cache, torch.argmax(logits, dim=-1)), logits
+
+            out["long" if long else "full"]["profile"] = profile_serve_loop(
+                traced, range(8), top=6,
+                carry=(init_cache(c, LM_BATCH, LM_MAX_SEQ, long=long,
+                                  device=dev), tokens[:, :1]))
+
+        # Teacher forcing: decode over the prompts' first positions
+        # against the prefill's logits, in bf16 (the served dtype) and in
+        # fp32 (the reference's own test runs fp32 activations).
+        for key, c, ref in (
+                ("bf16", cfg, pre["logits"]),
+                ("fp32", dataclasses.replace(cfg, dtype="float32"),
+                 pre["logits32"])):
+            cache = init_cache(c, LM_BATCH, LM_MAX_SEQ, device=dev)
+            steps = []
+            for t in range(LM_TEACHER):
+                lg, cache = decode_step(c, params, cache, tokens[:, t:t + 1])
+                steps.append(lg)
+            dec = torch.cat(steps, dim=1)
+            rel = float((dec - ref).abs().max()) / float(ref.abs().max())
+            check(rel < DECODE_TOL, f"teacher-forced {key} decode differs "
+                  f"from the prefill logits by {rel:.3e} of max |logit| "
+                  f"(bar {DECODE_TOL})")
+            out[f"decode_vs_prefill_rel_err_{key}"] = rel
+            del cache, steps, dec
+
+        c32 = dataclasses.replace(long_config(cfg), dtype="float32")
+        cf = init_cache(c32, LM_BATCH, LM_MAX_SEQ, device=dev)
+        cl = init_cache(c32, LM_BATCH, LM_MAX_SEQ, long=True, device=dev)
+        worst = 0.0
+        for t in range(c32.long_window):
+            lf, cf = decode_step(c32, params, cf, tokens[:, t:t + 1])
+            ll, cl = decode_step(c32, params, cl, tokens[:, t:t + 1],
+                                 long=True)
+            check(torch.allclose(ll, lf, atol=LONG_TOL, rtol=LONG_TOL),
+                  f"long decode differs from the full cache at t={t}: max "
+                  f"|err| {float((ll - lf).abs().max()):.3e}")
+            worst = max(worst, float((ll - lf).abs().max()))
+        out["long_vs_full_max_abs_err"] = worst
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def gat_heads_by_k5(torch, p, x_local, x_halo, struct, partial=None):
+    """The GAT layer's aggregation through ``gat_aggregate``, one call per
+    head, with the layer's ``s_dst``, padded ``src_loc``/``src_out`` and
+    ``z_loc``/``z_out`` (models/gnn.py::_gat_layer) as K5's inputs;
+    ``partial`` replaces K5 (its plain version, for the check)."""
+    from repro_torch.kernels.gat_edge import gat_aggregate, merge_partials
+
+    def pad(x):
+        return torch.cat([x, x.new_zeros((1,) + tuple(x.shape[1:]))])
+
+    S, H = x_local.shape[0], x_halo.shape[0]
+    z_loc = pad(torch.einsum("sd,dhk->shk", x_local, p["w"]))
+    z_out = torch.einsum("sd,dhk->shk", pad(x_halo), p["w"])
+    s_dst = torch.einsum("shk,hk->sh", z_loc[:S], p["a_dst"])
+    src_loc = torch.einsum("shk,hk->sh", z_loc, p["a_src"])
+    src_out = torch.einsum("shk,hk->sh", z_out, p["a_src"])
+    in_nbr, out_nbr = struct["in_nbr"], struct["out_nbr"]
+    heads = []
+    for h in range(p["a_src"].shape[0]):
+        args = (in_nbr, in_nbr < S, out_nbr, out_nbr < H,
+                s_dst[:, h].contiguous(), src_loc[:, h].contiguous(),
+                src_out[:, h].contiguous(), z_loc[:, h].contiguous(),
+                z_out[:, h].contiguous())
+        if partial is None:
+            heads.append(gat_aggregate(*args))
+        else:
+            heads.append(merge_partials([partial(*args[0:2], args[4],
+                                                 args[5], args[7]),
+                                         partial(*args[2:4], args[4],
+                                                 args[6], args[8])]))
+    return torch.stack(heads, dim=1)
+
+
+def gat_path(torch, dev, data) -> dict:
+    """Phase 11: ``gat_aggregate`` on the card (K5 twice per head) on
+    subgraph 0 of the training partition, layer 1 of the GAT at the
+    training widths, against its plain version and, head by head, the
+    port's own ``_gat_layer`` less its bias."""
+    from repro_torch.configs import digest_gcn
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.gat_edge import gat_edge_partial_plain
+    from repro_torch.models.gnn import GNN, GNNConfig, gnn_layer
+
+    exp = digest_gcn.CONFIG
+    cfg = GNNConfig(model="gat", num_layers=exp.num_layers,
+                    in_dim=int(data["x_global"].shape[1]),
+                    hidden_dim=exp.hidden_dim, num_classes=8, heads=4)
+    p = GNN.init(cfg, torch.Generator().manual_seed(0), dev).tree()["layer_1"]
+    st = {k: v[0] for k, v in data["struct"].items()}
+    gen = torch.Generator().manual_seed(4)
+    S, H = st["in_nbr"].shape[0], int(data["halo_ids"].shape[1])
+    x_local = torch.randn((S, exp.hidden_dim), generator=gen).to(dev)
+    x_halo = torch.randn((H, exp.hidden_dim), generator=gen).to(dev)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        got = gat_heads_by_k5(torch, p, x_local, x_halo, st)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        check(launches["gat_edge_partial"] == 2 * cfg.heads,
+              f"gat_aggregate: K5 launched {launches['gat_edge_partial']} "
+              f"times for {cfg.heads} heads")
+        plain = gat_heads_by_k5(torch, p, x_local, x_halo, st,
+                                partial=gat_edge_partial_plain)
+        layer = gnn_layer(cfg, p, x_local, x_halo, st) - p["b"]
+        layer = layer.reshape(got.shape)
+    scale = float(layer.abs().max())
+    errs = {"vs_plain": float((got - plain).abs().max()) / scale,
+            "vs_gat_layer": float((got - layer).abs().max()) / scale}
+    check(bool(torch.isfinite(got).all()), "gat_aggregate: not finite")
+    for what, e in errs.items():
+        check(e <= TOL, f"gat_aggregate {what}: {e:.3e} of max |out| "
+              f"(bar {TOL})")
+    res = {"path": "gat_aggregate", "rows": S, "halo": H,
+           "heads": cfg.heads, "head_dim": exp.hidden_dim // cfg.heads,
+           "rel_err": errs, "launches": launches}
+    print(json.dumps(res), flush=True)
+    return res
 
 
 def main() -> None:
@@ -825,11 +1242,22 @@ def main() -> None:
     with torch.inference_mode():
         serve_records, serve_launches = run(torch, dev)
     t_serve = time.perf_counter() - t0
-    train_records, train_launches = training(torch, dev)
+    train_records, train_launches, data = training(torch, dev)
     torch.cuda.synchronize()
-    print(f"phases: serving {t_serve:.1f} s, training "
-          f"{time.perf_counter() - t0 - t_serve:.1f} s", flush=True)
-    records = serve_records + train_records
+    t_train = time.perf_counter() - t0 - t_serve
+    with torch.no_grad():
+        lm_records = lm_kernel_phase(torch, dev, data)
+    print(json.dumps({"kernel_variants": lm_records}), flush=True)
+    pre = lm_prefill(torch, dev)
+    lm_decode(torch, dev, pre)
+    path_launches = {"prefill": pre["launches"],
+                     "gat_aggregate": gat_path(torch, dev, data)["launches"]}
+    del pre
+    torch.cuda.synchronize()
+    print(f"phases: serving {t_serve:.1f} s, training {t_train:.1f} s, "
+          f"LM and GAT {time.perf_counter() - t0 - t_serve - t_train:.1f} s",
+          flush=True)
+    records = serve_records + train_records + lm_records
     kernels = []
     for name, (title, source, replaces, variant) in KERNELS.items():
         mine = [r for r in records if r["name"] == name]
@@ -838,19 +1266,23 @@ def main() -> None:
                     in SERVING_KERNELS else 0,
                     "training": train_launches[name] if name
                     in TRAINING_KERNELS else 0}
+        if name in PATH_OF:
+            launches[PATH_OF[name]] = path_launches[PATH_OF[name]][name]
         kernels.append({
             "name": name, "title": title, "route": "cuda",
             "source": source, "replaces": replaces,
             "launches": sum(launches.values()),
             "launches_by_path": launches,
             "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "tolerance": TOLERANCES[name],
+            "max_err_over_bar": max(r["bar_ratio"] for r in mine),
             "ms": rec["ms"], "kernel_ms": rec["kernel_ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "variant": rec["variant"], "shape": rec["shape"]})
         check(kernels[-1]["launches"] > 0, f"{name} never launched")
-        check(kernels[-1]["max_abs_err"] <= TOL,
-              f"{name} error {kernels[-1]['max_abs_err']:.3e} above {TOL}")
+        check(kernels[-1]["max_err_over_bar"] <= 1,
+              f"{name} error above its bar ({TOLERANCES[name]})")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -28,7 +28,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("spmm", "spmm_bwd", "halo_pull")
+SOURCES = ("spmm", "spmm_bwd", "halo_pull", "flash_attention",
+           "gat_edge")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -36,7 +37,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 DTYPE_CODES = {"float32": 0, "bfloat16": 1, "int8": 2}
 
 LAUNCHES = {"spmm": 0, "halo_spmm": 0, "halo_spmm_stream": 0,
-            "halo_spmm_skip": 0, "spmm_bwd_table": 0, "spmm_bwd_wts": 0}
+            "halo_spmm_skip": 0, "spmm_bwd_table": 0, "spmm_bwd_wts": 0,
+            "flash_attention": 0, "gat_edge_partial": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _FNS: dict[tuple[str, str], object] = {}

@@ -1,9 +1,10 @@
-"""Functional layer primitives of the GNN stack."""
+"""Functional layer primitives shared by the GNN and transformer stacks."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 
 def dense(x: torch.Tensor, w: torch.Tensor,
@@ -14,6 +15,49 @@ def dense(x: torch.Tensor, w: torch.Tensor,
     if b is not None:
         y = y + b
     return y
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm in fp32 with the ``1 + scale`` form (zero-initialised
+    scales), cast back to ``x``'s dtype."""
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(dtype)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    g = dense(x, w_gate)
+    u = dense(x, w_up)
+    return dense(F.silu(g) * u, w_down)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float = 10000.0,
+               device=None) -> torch.Tensor:
+    """Inverse frequencies, shape (head_dim // 2,), float32."""
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=device) / head_dim
+    return 1.0 / (theta ** exponent)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: broadcastable to
+    (..., seq).  Rotates the two halves of the head dim in fp32."""
+    inv = rope_freqs(x.shape[-1], theta, x.device)     # (hd/2,)
+    ang = positions[..., :, None].float() * inv    # (..., seq, hd/2)
+    sin = torch.sin(ang)[..., :, None, :]          # (..., seq, 1, hd/2)
+    cos = torch.cos(ang)[..., :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

@@ -1,10 +1,11 @@
 """Parameter specification and initialization.
 
-A model is described by a nested dict of :class:`ParamSpec` leaves, as in
-the reference package; :func:`init_params` turns it into a dict of tensors
-drawn from an explicit ``torch.Generator``.  Leaves are drawn in the
-reference's pytree order (sorted keys), with the same lecun / normal /
-zeros rules — but ``torch.Generator`` is not ``jax.random``, so the
+A model is described by a nested tree of dicts and lists with
+:class:`ParamSpec` leaves, as in the reference package; :func:`init_params`
+turns it into the same tree of tensors drawn from an explicit
+``torch.Generator``.  Leaves are drawn in the reference's pytree order
+(dict keys sorted, lists in order), with the same lecun / normal / zeros
+rules — but ``torch.Generator`` is not ``jax.random``, so the
 numbers differ.  Parity tests take the reference's parameters instead,
 through :func:`params_from_numpy`.
 """
@@ -61,14 +62,17 @@ def _init_leaf(spec: ParamSpec, generator: torch.Generator) -> torch.Tensor:
 
 def init_params(specs: Pytree, generator: torch.Generator,
                 device="cuda") -> Pytree:
-    """Tensor dict from a ParamSpec dict.  Values are drawn on the CPU
-    from ``generator`` and then moved to ``device``, so a seed gives the
-    same parameters on every device."""
+    """Tensor tree from a ParamSpec tree (dicts and lists, as the
+    transformer's ``pattern``/``tail`` lists of stacked block dicts).
+    Values are drawn on the CPU from ``generator`` and then moved to
+    ``device``, so a seed gives the same parameters on every device."""
     dev = resolve_device(device)
 
     def build(node):
         if isinstance(node, ParamSpec):
             return _init_leaf(node, generator).to(dev)
+        if isinstance(node, (list, tuple)):
+            return [build(v) for v in node]
         return {k: build(node[k]) for k in sorted(node)}
 
     return build(specs)
@@ -77,12 +81,20 @@ def init_params(specs: Pytree, generator: torch.Generator,
 def params_from_numpy(tree: Pytree, device="cuda") -> Pytree:
     """The reference's parameters as numpy arrays (``jax.tree.map(
     np.asarray, params)``) → the port's tensors in the same nested layout
-    and shapes (GAT's ``w`` stays (din, heads, head_dim))."""
+    and shapes: GAT's ``w`` stays (din, heads, head_dim), and each leaf
+    of a transformer's ``pattern`` list keeps its leading ``repeats``
+    dimension (the reference's stacked layout)."""
     dev = resolve_device(device)
 
     def conv(node):
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
-        return torch.from_numpy(np.array(node, copy=True)).to(dev)
+        if isinstance(node, (list, tuple)):
+            return [conv(v) for v in node]
+        arr = np.array(node, copy=True)
+        if arr.dtype.name == "bfloat16":      # ml_dtypes' bf16: exact in fp32
+            return torch.from_numpy(arr.astype(np.float32)).to(
+                dev, torch.bfloat16)
+        return torch.from_numpy(arr).to(dev)
 
     return conv(tree)

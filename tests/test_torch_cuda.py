@@ -7,6 +7,9 @@ the port is installed:
 
 Tolerance 1e-5 (atol = rtol): the kernels fuse each multiply-add (FMA),
 the plain versions round the product first; the order over k is the same.
+K5 and K6 are held to the reference's own kernel bars (K5: 1e-4 on acc,
+1e-5 on m and l; K6: 2e-5 in fp32, and in bf16 that plus one bf16 ulp of
+the output, since both sides compute in fp32 and round once).
 """
 import pytest
 
@@ -26,6 +29,12 @@ from repro_torch.kernels.spmm import (halo_spmm, halo_spmm_cuda,
                                       spmm_bwd_table_plain, spmm_bwd_wts,
                                       spmm_bwd_wts_plain, spmm_cuda,
                                       spmm_plain)
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 flash_attention_plain,
+                                                 multi_head_attention)
+from repro_torch.kernels.gat_edge import (gat_aggregate,
+                                          gat_edge_partial_cuda,
+                                          gat_edge_partial_plain)
 from repro_torch.launch.serving_driver import profile_serve_loop
 
 pytestmark = pytest.mark.cuda
@@ -110,7 +119,8 @@ def test_ladder_launches_the_selected_kernel(dev):
     torch.cuda.synchronize()
     assert _build.LAUNCHES == {"spmm": 1, "halo_spmm": 1,
                                "halo_spmm_stream": 1, "halo_spmm_skip": 1,
-                               "spmm_bwd_table": 0, "spmm_bwd_wts": 0}
+                               "spmm_bwd_table": 0, "spmm_bwd_wts": 0,
+                               "flash_attention": 0, "gat_edge_partial": 0}
 
 
 def test_profile_serve_loop_splits_device_time(dev):
@@ -188,3 +198,105 @@ def test_halo_kernels_refuse_grad_on_the_card(dev):
     with pytest.raises(RuntimeError, match="no backward"):
         halo_spmm_stream_cuda(nbr, wts, table.clone().requires_grad_(),
                               scale)
+
+
+def _bf16_bar(w):
+    e = torch.floor(torch.log2(w.float().abs().clamp_min(2.0 ** -126)))
+    return 2e-5 + torch.exp2(e - 7)
+
+
+@pytest.mark.parametrize("b,s,h,kv,d", [
+    (1, 1, 1, 1, 16), (2, 100, 4, 2, 32), (1, 256, 8, 8, 64),
+    (2, 130, 6, 2, 96), (2, 512, 16, 8, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel(dev, b, s, h, kv, d, dtype, causal):
+    """K6 on (B, H, S, D) views of (B, S, H, D) tensors (the transformer's
+    layout) against its plain version, equal bit for bit to the same
+    call on contiguous 3-D tensors with K/V rows bh // rep."""
+    gen = torch.Generator().manual_seed(b * s + d)
+    q = torch.randn((b, s, h, d), generator=gen).to(dev, dtype)
+    k = torch.randn((b, s, kv, d), generator=gen).to(dev, dtype)
+    v = torch.randn((b, s, kv, d), generator=gen).to(dev, dtype)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    before = _build.LAUNCHES["flash_attention"]
+    got = flash_attention_cuda(qt, kt, vt, causal)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.transpose(1, 2).is_contiguous()
+    want = flash_attention_plain(qt, kt, vt, causal)
+    err = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    else:
+        assert bool((err <= _bf16_bar(want)).all()), float(err.max())
+    flat = flash_attention_cuda(*(t.contiguous().reshape(-1, s, d)
+                                  for t in (qt, kt, vt)), causal)
+    assert torch.equal(flat.reshape(b, h, s, d), got)
+    mha = multi_head_attention(q, k, v, causal, backend="auto")
+    assert torch.equal(mha, got.transpose(1, 2))
+
+
+@pytest.mark.parametrize("rows,deg,ncols,feat", [
+    (17, 3, 9, 33), (128, 8, 64, 128), (5256, 64, 14288, 32)])
+def test_gat_edge_kernel(dev, rows, deg, ncols, feat):
+    rng = np.random.default_rng(rows)
+    nbr = rng.integers(0, ncols + 1, size=(rows, deg)).astype(np.int32)
+    valid = (rng.random((rows, deg)) > 0.3) & (nbr < ncols)
+    s_dst = rng.normal(size=(rows,)).astype(np.float32)
+    s_src = rng.normal(size=(ncols + 1,)).astype(np.float32)
+    z = rng.normal(size=(ncols + 1, feat)).astype(np.float32)
+    z[-1] = 0
+    args = [torch.from_numpy(a).to(dev) for a in (nbr, valid, s_dst, s_src,
+                                                   z)]
+    before = _build.LAUNCHES["gat_edge_partial"]
+    acc, m, l = gat_edge_partial_cuda(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["gat_edge_partial"] == before + 1
+    acc_p, m_p, l_p = gat_edge_partial_plain(*args)
+    torch.testing.assert_close(m, m_p, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(l, l_p, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(acc, acc_p, atol=1e-4, rtol=1e-4)
+    agg = gat_aggregate(args[0], args[1], args[0], args[1], *args[2:4],
+                        *args[3:5], args[4])
+    assert _build.LAUNCHES["gat_edge_partial"] == before + 3
+    assert bool(torch.isfinite(agg).all())
+
+
+def test_new_kernels_refuse_bad_inputs(dev):
+    q = torch.randn((2, 8, 16), device=dev)
+    with pytest.raises(ValueError):
+        flash_attention_cuda(q, q.cpu(), q)
+    with pytest.raises(TypeError):
+        flash_attention_cuda(q.double(), q.double(), q.double())
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_cuda(*(torch.randn((2, 8, 48), device=dev),) * 3)
+    nbr = torch.zeros((4, 2), dtype=torch.int32, device=dev)
+    valid = torch.ones((4, 2), dtype=torch.bool, device=dev)
+    s_dst = torch.zeros(4, device=dev)
+    s_src = torch.zeros(3, device=dev)
+    z = torch.zeros((3, 8), device=dev)
+    with pytest.raises(ValueError):
+        gat_edge_partial_cuda(nbr, valid, s_dst, s_src, z.cpu())
+    with pytest.raises(TypeError):
+        gat_edge_partial_cuda(nbr, valid, s_dst, s_src, z.double())
+
+
+def test_prefill_launches_k6_in_every_layer(dev):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_arch
+    from repro_torch.models.transformer import arch_specs, forward
+    from repro_torch.nn import init_params
+    cfg = dataclasses.replace(get_smoke_arch("qwen3-0.6b"),
+                              attn_backend="kernel")
+    params = init_params(arch_specs(cfg), torch.Generator().manual_seed(0),
+                         dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 100), device=dev)
+    before = _build.LAUNCHES["flash_attention"]
+    got = forward(cfg, params, toks)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention"] == before + cfg.num_layers
+    want = forward(dataclasses.replace(cfg, attn_backend="dense"), params,
+                   toks)
+    assert float((got - want).abs().max() / want.abs().max()) < 1e-4

@@ -243,9 +243,16 @@ def test_cpu_tensors_never_launch():
     wg = w.clone().requires_grad_()
     spmm(n, wg, tab).sum().backward()
     assert tab.grad is not None and wg.grad is not None
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.gat_edge import gat_edge_partial_cuda
+    q = torch.from_numpy(rng.normal(size=(2, 70, 16)).astype(np.float32))
+    flash_attention_cuda(q, q[:1], q[:1])
+    gat_edge_partial_cuda(n, n < 700, w[:, 0].contiguous(),
+                          _t(table[:, 0].copy()), _t(table))
     assert set(_build.LAUNCHES) == {
         "spmm", "halo_spmm", "halo_spmm_stream", "halo_spmm_skip",
-        "spmm_bwd_table", "spmm_bwd_wts"}
+        "spmm_bwd_table", "spmm_bwd_wts", "flash_attention",
+        "gat_edge_partial"}
     assert all(v == 0 for v in _build.LAUNCHES.values()), _build.LAUNCHES
 
 
