@@ -8,7 +8,9 @@ Phases, each ending the run with a non-zero exit on failure:
 
 1. the card's name and power limit (``nvidia-smi``), torch and CUDA
    versions;
-2. build the CUDA kernels from ``src/repro_torch/csrc`` (timed);
+2. build the CUDA kernels from ``src/repro_torch/csrc``: each source's
+   ``nvcc`` seconds, and ptxas's register and spill lines of the kernels
+   redesigned for Hopper (K4's warp-per-row body, K6's bf16 wgmma body);
 3. every kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it (products-sim, scale 1.0, 8 parts: K1 on
    the full-graph ELL at widths 100 and 128 and on a bf16 or fp32 query
@@ -83,8 +85,8 @@ Phases, each ending the run with a non-zero exit on failure:
     (window 32, ratio 8), ms/token and p50/p99, 8 steps of each traced;
     teacher-forced ``decode_step`` over the first 128 prompt positions
     against the prefill logits within 2e-2 of max |logit| in bf16 and in
-    fp32; ``long`` equal to the full cache within 1e-4 while t < 32, in
-    fp32;
+    fp32 (each error's ratio to that bar is printed); ``long`` equal to
+    the full cache within 1e-4 while t < 32, in fp32;
 11. ``gat_aggregate`` on the card (K5, twice per head) on subgraph 0 with
     layer 1 of a GAT at the training widths (4 heads x 32), against its
     plain version and, head by head, the port's own ``_gat_layer`` less
@@ -198,6 +200,25 @@ TRAIN_PARTS = 8
 TRAIN_CHUNK_ROWS = 256
 TRAIN_EPOCHS = 12
 TRAJ_TOL = 1e-4
+
+
+# Kernels redesigned for Hopper, by source: ptxas's register and spill
+# lines of their instantiations are printed after the build.
+REDESIGNED = {"halo_pull": "halo_skip_kernel",
+              "flash_attention": "flash_attention_wgmma"}
+
+
+def ptxas_lines(log: str, kernel: str) -> list:
+    """ptxas's ``-v`` lines (entry, stack/spills, registers) of every
+    instantiation of ``kernel`` in a build log."""
+    lines, keep = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            keep = kernel in line
+        if keep and ("Compiling entry" in line or "spill" in line
+                     or "Used" in line):
+            lines.append(line.strip())
+    return lines
 
 
 def fail(msg: str) -> None:
@@ -596,6 +617,12 @@ def training_kernel_phase(torch, dev, data):
     nbr, wts = st["out_nbr"], st["out_wts"]
     ids, cnt = st["wl_ids"], st["wl_cnt"]
     n_tab = int(data["halo_ids"].shape[1]) + 1
+    # What K4's work depends on: the real (nonzero-weight) edges of an
+    # out-ELL row and the chunks on its row block's worklist.
+    print(f"K4 input: out-ELL {tuple(nbr.shape)}, "
+          f"{float((wts != 0).sum(1).float().mean()):.3f} real edges a row, "
+          f"{float(cnt.float().mean()):.3f} worklist chunks a row block",
+          flush=True)
     slab = torch.randn((n_tab, 128), generator=gen)
     slab[-1] = 0
     slab = slab.to(dev)
@@ -1110,6 +1137,7 @@ def lm_decode(torch, dev, pre) -> dict:
                   f"from the prefill logits by {rel:.3e} of max |logit| "
                   f"(bar {DECODE_TOL})")
             out[f"decode_vs_prefill_rel_err_{key}"] = rel
+            out[f"decode_vs_prefill_bar_ratio_{key}"] = rel / DECODE_TOL
             del cache, steps, dec
 
         c32 = dataclasses.replace(long_config(cfg), dtype="float32")
@@ -1233,9 +1261,14 @@ def main() -> None:
     built = _build.build()
     print(f"build: {sorted(built)} in {time.perf_counter() - t0:.2f} s",
           flush=True)
-    for name, info in built.items():
-        print(f"--- nvcc {name}.cu ({info['seconds']:.2f} s)\n"
-              f"{info['log'].strip()}", flush=True)
+    print(json.dumps({"nvcc_seconds": {
+        f"{name}.cu": info["seconds"] for name, info in built.items()}}),
+        flush=True)
+    for name, kernel in REDESIGNED.items():
+        if name in built:
+            print(f"--- ptxas, {name}.cu::{kernel}\n"
+                  + "\n".join(ptxas_lines(built[name]["log"], kernel)),
+                  flush=True)
 
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()

@@ -75,8 +75,9 @@ def _target(name: str) -> Path:
 def build(names=SOURCES) -> dict:
     """Compile every source of ``names`` whose library is missing, all in
     parallel.  Returns ``{name: {"path", "seconds", "log"}}`` for the
-    sources it compiled (``log`` holds ptxas's register and spill report);
-    raises with the compiler's output if any build fails."""
+    sources it compiled (``seconds`` is that source's own ``nvcc`` wall
+    time; ``log`` holds ptxas's register and spill report); raises with the
+    compiler's output if any build fails."""
     todo = {n: _target(n) for n in names if not _target(n).exists()}
     if not todo:
         return {}
@@ -86,21 +87,28 @@ def build(names=SOURCES) -> dict:
     t0 = time.perf_counter()
     for name, target in todo.items():
         tmp = target.with_suffix(f".tmp{os.getpid()}.so")
+        log = tmp.with_suffix(".log")
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
-        procs[name] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
-    out, failed = {}, []
-    for name, (tmp, proc) in procs.items():
-        log, _ = proc.communicate()
+        with open(log, "w") as f:
+            procs[name] = (tmp, log, subprocess.Popen(
+                cmd, stdout=f, stderr=subprocess.STDOUT, text=True))
+    out, failed, seconds = {}, [], {}
+    while len(seconds) < len(procs):
+        for name, (_, _, proc) in procs.items():
+            if name not in seconds and proc.poll() is not None:
+                seconds[name] = time.perf_counter() - t0
+        time.sleep(0.02)
+    for name, (tmp, log_path, proc) in procs.items():
+        log = log_path.read_text()
+        log_path.unlink()
         if proc.returncode != 0:
             failed.append(f"--- {name}.cu (exit {proc.returncode})\n{log}")
             tmp.unlink(missing_ok=True)
             continue
         os.replace(tmp, todo[name])
-        out[name] = {"path": str(todo[name]),
-                     "seconds": time.perf_counter() - t0, "log": log}
+        out[name] = {"path": str(todo[name]), "seconds": seconds[name],
+                     "log": log}
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return out

@@ -9,10 +9,17 @@ tensor launches the kernel or raises.
 
 Replaces the TPU kernel
 ``src/repro/kernels/flash_attention/flash_attention.py::flash_attention_pallas``.
-It computes what that kernel's ``_attn_kernel`` computes: Q scaled by
-``sm_scale`` (default ``head_dim ** -0.5``), fp32 running max, normaliser
-and accumulator, causal masking with -1e30, K/V tiles strictly above the
-diagonal skipped, ``acc / max(l, 1e-30)`` cast back to the input dtype.
+It computes what that kernel's ``_attn_kernel`` computes: fp32 running
+max, normaliser and accumulator, causal masking with -1e30, K/V tiles
+strictly above the diagonal skipped, ``acc / max(l, 1e-30)`` cast back to
+the input dtype (``sm_scale`` defaults to ``head_dim ** -0.5``).  fp32
+inputs take the reference's arithmetic (Q scaled by ``sm_scale`` first,
+every product fp32).  bf16 inputs run on the tensor cores, which take
+bf16 operands, so their arithmetic keeps the reference's as closely as
+those allow: S is the product of the unscaled bf16 Q and K (exact
+products, fp32 sums) scaled by ``sm_scale`` in fp32, and P is split into
+``P_hi = bf16(P)`` and ``P_lo = bf16(P - P_hi)`` (:func:`split_bf16`)
+before ``acc += P_hi V + P_lo V``, which carries P to about 16 bits.
 
 Two differences of layout, neither of arithmetic:
 
@@ -28,7 +35,8 @@ Two differences of layout, neither of arithmetic:
 The wrappers also take ``(B, H, S, D)`` tensors with any strides over the
 first three dims (a ``transpose(1, 2)`` view of the transformer's
 ``(B, S, H, D)`` activations): the kernel reads and writes through the
-strides, so no copy is made.
+strides, so no copy is made.  On the card bf16 tensors are read by TMA,
+which needs 16-byte aligned bases and strides (:func:`check_tma`).
 """
 from __future__ import annotations
 
@@ -82,6 +90,28 @@ def _check(q, k, v) -> None:
         raise ValueError(f"unsupported device {q.device}")
 
 
+def split_bf16(p: torch.Tensor) -> tuple:
+    """``(P_hi, P_lo)`` of fp32 ``p``, as fp32 tensors holding bf16 values:
+    ``P_hi = bf16(p)``, ``P_lo = bf16(p - P_hi)``.  ``P_hi + P_lo`` is
+    within about 2^-17 of ``p`` relative (16 significant bits)."""
+    hi = p.to(torch.bfloat16).float()
+    return hi, (p - hi).to(torch.bfloat16).float()
+
+
+def check_tma(t: torch.Tensor) -> None:
+    """Raise unless bf16 ``t`` (4-D) can be read by the kernel's TMA
+    copies: a 16-byte aligned base, 16-byte aligned strides over its first
+    three dims (where the extent exceeds 1) and a unit stride over D."""
+    step = 16 // t.element_size()
+    if t.stride(3) != 1 or t.data_ptr() % 16 or any(
+            t.stride(i) % step for i in range(3) if t.shape[i] > 1):
+        raise ValueError(
+            f"bf16 tensor of shape {tuple(t.shape)}, strides {t.stride()} "
+            f"at byte offset {t.data_ptr() % 16} mod 16: the kernel's TMA "
+            "copies need a 16-byte aligned base, strides that are multiples "
+            f"of {step} elements and a unit stride over D")
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, causal: bool = True,
                           sm_scale: float | None = None,
@@ -89,15 +119,18 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
                           block_k: int = BLOCK_K) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch: for each ``block_q`` Q
     tile, an online softmax over ``block_k`` K/V tiles in order, tiles
-    strictly above the diagonal skipped.  Shapes as
-    :func:`flash_attention_cuda`; returns a contiguous tensor."""
+    strictly above the diagonal skipped; bf16 inputs take the tensor-core
+    arithmetic of the module note (unscaled product, P split in two).
+    Shapes as :func:`flash_attention_cuda`; returns a contiguous
+    tensor."""
     shape = q.shape
     q4, k4, v4 = _as_bhsd(q, k, v)
     _check(q4, k4, v4)
     b, h, s, d = q4.shape
     rep = h // k4.shape[1]
     scale = d ** -0.5 if sm_scale is None else sm_scale
-    qf = q4.float() * scale
+    bf16 = q.dtype == torch.bfloat16
+    qf = q4.float() if bf16 else q4.float() * scale
     kf = k4.float().repeat_interleave(rep, dim=1)
     vf = v4.float().repeat_interleave(rep, dim=1)
     out = torch.empty((b, h, s, d), dtype=torch.float32, device=q.device)
@@ -111,6 +144,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
         for k0 in range(0, q1 if causal else s, block_k):
             k1 = min(k0 + block_k, s)
             sc = torch.matmul(qt, kf[:, :, k0:k1].transpose(-1, -2))
+            if bf16:
+                sc = sc * scale
             if causal:
                 k_pos = torch.arange(k0, k1, device=q.device)[None, :]
                 sc = torch.where(q_pos >= k_pos, sc, NEG_INF)
@@ -118,7 +153,13 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
             p = torch.exp(sc - m_new[..., None])
             alpha = torch.exp(m - m_new)
             l = alpha * l + p.sum(dim=-1)
-            acc = acc * alpha[..., None] + torch.matmul(p, vf[:, :, k0:k1])
+            vt = vf[:, :, k0:k1]
+            if bf16:
+                p_hi, p_lo = split_bf16(p)
+                pv = torch.matmul(p_hi, vt) + torch.matmul(p_lo, vt)
+            else:
+                pv = torch.matmul(p, vt)
+            acc = acc * alpha[..., None] + pv
             m = m_new
         out[:, :, q0:q1] = acc / torch.clamp_min(l, 1e-30)[..., None]
     return out.to(q.dtype).reshape(shape)
@@ -153,6 +194,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for t in (q4, k4, v4):
         if t.stride(3) != 1:
             raise ValueError("q, k and v need a unit stride over D")
+        if t.dtype == torch.bfloat16:
+            check_tma(t)
     if max(b * h, s) >= 2 ** 31 or (s + BLOCK_Q - 1) // BLOCK_Q > 65535:
         raise ValueError(f"shape {tuple(q4.shape)} too large for the grid")
     out = torch.empty_like(q4)     # q4's strides where q4 is dense

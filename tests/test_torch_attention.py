@@ -7,7 +7,9 @@ Tolerances: 2e-5 (atol = rtol) in fp32, the reference's kernel bar —
 the same online softmax, with products of another library.  In bf16
 the inputs are the same bf16 values and both sides compute in fp32 and
 round once: the outputs may then differ by the fp32 bar plus one bf16
-ulp of the output (2^-7 of its binade).
+ulp of the output (2^-7 of its binade).  The port's bf16 arithmetic
+(the tensor cores': unscaled product, P split into two bf16 halves)
+keeps P to about 16 bits, so it stays inside that bar.
 """
 import pytest
 
@@ -21,10 +23,11 @@ from repro.kernels.flash_attention import flash_attention_pallas
 from repro.kernels.flash_attention import \
     multi_head_attention as jmulti_head_attention
 from repro.models import attention as jattn
-from repro_torch.kernels.flash_attention import (attention_ref,
+from repro_torch.kernels.flash_attention import (attention_ref, check_tma,
                                                  flash_attention_cuda,
                                                  flash_attention_plain,
-                                                 multi_head_attention)
+                                                 multi_head_attention,
+                                                 split_bf16)
 from repro_torch.models import attention as tattn
 
 TOL = dict(atol=2e-5, rtol=2e-5)
@@ -122,6 +125,54 @@ def test_flash_plain_bf16_within_one_ulp():
     assert got.dtype == torch.bfloat16
     err = (got.float() - want).abs()
     assert bool((err <= 2e-5 + bf16_ulp(want)).all()), float(err.max())
+
+
+@pytest.mark.parametrize("seq,hd", [(1, 16), (64, 16), (100, 32),
+                                    (130, 96), (256, 64), (192, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_bf16_tensor_core_arithmetic(seq, hd, causal):
+    """The bf16 plain version (the kernel's tensor-core arithmetic)
+    against the Pallas kernel on the same bf16 inputs, ragged S included
+    (one Pallas tile where 64 does not divide S)."""
+    rng = np.random.default_rng(seq * hd + causal)
+    q, k, v = _qkv(rng, (3, seq, hd), (3, seq, hd))
+    tq, tk, tv = (t.to(torch.bfloat16) for t in _t(q, k, v))
+    j = [jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+         for t in (tq, tk, tv)]
+    block = 64 if seq % 64 == 0 else seq
+    want = torch.from_numpy(np.array(flash_attention_pallas(
+        *j, causal=causal, block_q=block, block_k=block,
+        interpret=True).astype(jnp.float32)))
+    got = flash_attention_plain(tq, tk, tv, causal)
+    assert got.dtype == torch.bfloat16 and got.shape == tq.shape
+    err = (got.float() - want).abs()
+    assert bool((err <= 2e-5 + bf16_ulp(want)).all()), float(err.max())
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_split_bf16_carries_16_bits(seed):
+    """P_hi + P_lo reproduces P within 2^-16 relative, each half a bf16
+    value, over softmax weights spanning many binades."""
+    rng = np.random.default_rng(seed)
+    p = torch.from_numpy(np.exp(-rng.random(4096) * 60).astype(np.float32))
+    hi, lo = split_bf16(p)
+    for half in (hi, lo):
+        assert torch.equal(half.to(torch.bfloat16).float(), half)
+    assert bool(((hi + lo - p).abs() <= 2.0 ** -16 * p).all())
+    # One bf16 alone misses that by far: 8 bits.
+    assert float(((hi - p).abs() / p).max()) > 2.0 ** -10
+
+
+def test_check_tma_refuses_unaligned_strides():
+    """bf16 views the kernel's TMA copies cannot read are refused."""
+    x = torch.zeros((2, 64, 4, 36), dtype=torch.bfloat16)
+    check_tma(x[..., :32].transpose(1, 2).contiguous())
+    check_tma(torch.zeros((2, 64, 4, 32), dtype=torch.bfloat16
+                          ).transpose(1, 2))
+    with pytest.raises(ValueError, match="TMA"):
+        check_tma(x[..., :32].transpose(1, 2))       # head stride 36
+    with pytest.raises(ValueError, match="TMA"):
+        check_tma(x.view(-1)[1:1 + 2 * 4 * 64 * 32].view(2, 4, 64, 32))
 
 
 def test_flash_wrapper_refuses_bad_inputs():

@@ -167,6 +167,76 @@ def test_skip_kernel(dev, storage, shape):
     assert torch.equal(visits, torch.where(t < cnt[:, None], ids, -1))
 
 
+def _skip_case(seed, rows, deg, ncols, feat, storage, pred, dev):
+    """A clustered ELL (sorted per column, so row blocks skip chunks) over
+    a quantised slab, optionally with a SAT predictor slab, and its
+    worklist at 64-row chunks."""
+    nbr, wts, table = _case(seed, rows, deg, ncols, feat, dev)
+    nbr = torch.sort(nbr, dim=0).values
+    data, scale = _slab(table, storage)
+    pdata = pscale = None
+    if pred:
+        pdata, pscale = _slab(torch.randn_like(table), storage)
+    wl = build_chunk_worklist(nbr.cpu().numpy(), data.shape[0], 64)
+    return (nbr, wts, data, scale, pdata, pscale), wl
+
+
+@pytest.mark.parametrize("storage", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("pred", [False, True])
+@pytest.mark.parametrize("shape", [
+    (300, 64, 2000, 128),      # two ballot segments, vector gathers
+    (200, 100, 3000, 64),      # four segments, all held in registers
+    (150, 200, 3000, 33),      # segments past the register cache, scalar
+    (140, 20, 500, 9)])        # feat < 32: lanes past feat idle
+def test_skip_kernel_one_pass(dev, storage, pred, shape):
+    """K4's warp-per-row body: with the SAT predictor terms, degrees past
+    two ballot segments and past the register cache, and feat not a
+    multiple of 4 — against its plain version, equal to K3 bit for bit,
+    and equal to itself across calls."""
+    rows, deg, ncols, feat = shape
+    (nbr, wts, data, scale, pdata, pscale), wl = _skip_case(
+        31 + deg, rows, deg, ncols, feat, storage, pred, dev)
+    ids = torch.from_numpy(wl.ids).to(dev)
+    cnt = torch.from_numpy(wl.cnt).to(dev)
+    kw = dict(pdata=pdata, pscale=pscale, gamma=0.7, chunk_rows=64)
+    args = (nbr, wts, data, scale, ids, cnt)
+    before = _build.LAUNCHES["halo_spmm_skip"]
+    k4 = halo_spmm_skip_cuda(*args, **kw)
+    again = halo_spmm_skip_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["halo_spmm_skip"] == before + 2
+    assert torch.equal(k4, again)
+    torch.testing.assert_close(k4, halo_spmm_skip_plain(*args, **kw), **TOL)
+    k3 = halo_spmm_stream_cuda(nbr, wts, data, scale, pdata, pscale, 0.7,
+                               chunk_rows=64)
+    assert torch.equal(k4, k3)
+
+
+@pytest.mark.parametrize("storage", ["fp32", "bf16", "int8"])
+def test_skip_kernel_truncated_worklist(dev, storage):
+    """Chunks dropped from the worklists drop their edges, as in the plain
+    version: K4 then differs from K3 in the truncated blocks only."""
+    (nbr, wts, data, scale, pdata, pscale), wl = _skip_case(
+        41, 384, 72, 2000, 128, storage, True, dev)
+    cnt = wl.cnt.copy()
+    cnt[0] -= 1
+    cnt[2] = 0
+    ids = torch.from_numpy(wl.ids).to(dev)
+    cnt = torch.from_numpy(cnt).to(dev)
+    kw = dict(pdata=pdata, pscale=pscale, gamma=0.7, chunk_rows=64)
+    args = (nbr, wts, data, scale, ids, cnt)
+    k4, visits = halo_spmm_skip_cuda(*args, count_visits=True, **kw)
+    torch.testing.assert_close(k4, halo_spmm_skip_plain(*args, **kw), **TOL)
+    assert torch.equal(k4, halo_spmm_skip_cuda(*args, **kw))
+    k3 = halo_spmm_stream_cuda(nbr, wts, data, scale, pdata, pscale, 0.7,
+                               chunk_rows=64)
+    assert not torch.allclose(k4[:128], k3[:128])
+    assert torch.equal(k4[128:256], k3[128:256])
+    assert not bool(k4[256:].any())
+    t = torch.arange(wl.max_chunks, device=dev)[None, :]
+    assert torch.equal(visits, torch.where(t < cnt[:, None], ids, -1))
+
+
 @pytest.mark.parametrize("rows,deg,ncols,feat", [
     (17, 3, 16, 33), (384, 9, 383, 70), (5256, 56, 5256, 128)])
 def test_backward_kernels(dev, rows, deg, ncols, feat):
@@ -235,6 +305,30 @@ def test_flash_attention_kernel(dev, b, s, h, kv, d, dtype, causal):
     assert torch.equal(flat.reshape(b, h, s, d), got)
     mha = multi_head_attention(q, k, v, causal, backend="auto")
     assert torch.equal(mha, got.transpose(1, 2))
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 128])
+@pytest.mark.parametrize("s", [64, 200, 1000])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bf16_tensor_cores(dev, d, s, causal):
+    """K6's bf16 path (wgmma on TMA-fed tiles) at every head dim, ragged
+    and whole tiles, with two query heads a KV head (two warpgroups a
+    block) and with three (one): within the bar of its plain version, and
+    bit-identical across calls."""
+    for b, h, kv in ((2, 4, 2), (1, 3, 1)):
+        gen = torch.Generator().manual_seed(s * d + h)
+        q = torch.randn((b, s, h, d), generator=gen).to(dev, torch.bfloat16)
+        k = torch.randn((b, s, kv, d), generator=gen).to(dev, torch.bfloat16)
+        v = torch.randn((b, s, kv, d), generator=gen).to(dev, torch.bfloat16)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        got = flash_attention_cuda(qt, kt, vt, causal)
+        again = flash_attention_cuda(qt, kt, vt, causal)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        want = flash_attention_plain(qt, kt, vt, causal)
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= _bf16_bar(want)).all()), (b, h, kv,
+                                                      float(err.max()))
 
 
 @pytest.mark.parametrize("rows,deg,ncols,feat", [
