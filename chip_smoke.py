@@ -10,13 +10,17 @@ Phases, each ending the run with a non-zero exit on failure:
    versions;
 2. build the CUDA kernels from ``src/repro_torch/csrc``: each source's
    ``nvcc`` seconds, and ptxas's register and spill lines of the kernels
-   redesigned for Hopper (K4's warp-per-row body, K6's bf16 wgmma body);
+   redesigned for Hopper (the warp-per-row bodies of K2, K3 and K4, K6's
+   bf16 wgmma body);
 3. every kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it (products-sim, scale 1.0, 8 parts: K1 on
    the full-graph ELL at widths 100 and 128 and on a bf16 or fp32 query
    batch, K2/K3 on a 256-query batch over the 12616-row serving store with
-   the store's own scales), within atol = rtol = 1e-5, and K3 == K2 (K1
-   for an unscaled slab) exactly when one chunk covers the slab; each
+   the store's own scales; the batch's real edges and distinct chunks a
+   row are printed), within atol = rtol = 1e-5, K3 == K2 (K1 for an
+   unscaled slab) exactly when one chunk covers the slab, and K3's chunk
+   walk (``walk_ms``, the body it takes for rows too long for its edge
+   list) == K3; each
    timed (``ms``: device time per call, 20 calls queued behind a spin
    kernel between two CUDA events; ``kernel_ms``: the median of 20 single
    calls between CUDA events, host launch gap included) beside its plain
@@ -27,7 +31,9 @@ Phases, each ending the run with a non-zero exit on failure:
    128, 8 parts, random weights from ``torch.Generator`` seed 0), for an
    int8, a bf16 and an fp32 serving store: top-layer representations, two
    in-place store refreshes, then 64 Zipf batches of 256 queries behind a
-   2048-row 4-way hot-row cache.  The refresh forward's h^(L-1) is held
+   2048-row 4-way hot-row cache, and 8 more batches traced with
+   ``torch.profiler`` (device ms a batch, busy share, top device ops).
+   The refresh forward's h^(L-1) is held
    against a forward through the gather-form oracles, and the first and
    last batches' logits against the top layer recomputed from the store's
    own (dequantised) rows, all within 1e-5; the launch counters must show
@@ -39,7 +45,8 @@ Phases, each ending the run with a non-zero exit on failure:
    1.0, 8 parts, rcm order, 256-row chunks; subgraph 0): K4 on the out-ELL
    (5256 x 64) over a (14289, 128) fp32, bf16 and int8 slab with its
    worklist, held against its plain version within 1e-5, equal to K3 bit
-   for bit, and visiting exactly its worklist; ``spmm_bwd_table`` on the
+   for bit (K3 and its walk timed there too: ``k3_ms``, ``k3_walk_ms``),
+   and visiting exactly its worklist; ``spmm_bwd_table`` on the
    in-ELL (5256 x 56) into the (5257, 128) table and ``spmm_bwd_wts`` at
    GAT's per-head shape (over a (5257, 32) table), each also held against
    autograd of the gather oracle; timed as in phase 3, beside
@@ -96,7 +103,8 @@ Each path's launch counters are set to 0 just before it and read just
 after; the oracle runs launch nothing.  The last lines are the card's
 ``nvidia-smi`` line, one JSON object ``{"kernels": [...]}`` (each
 kernel's launches on its paths, its worst error, its bar and the times
-of its main-path variant) and ``{"ok": true, "device": {...}}``.  Without
+of its main-path variant; K3's also its chunk walk's and its times at
+the training shape) and ``{"ok": true, "device": {...}}``.  Without
 a card, or outside a checkout, it exits non-zero and prints no result.
 TF32 is off throughout (fp32 products run in full fp32).
 """
@@ -143,6 +151,7 @@ LM_GEN = 32
 LM_TEACHER = 128
 BATCH = 256
 BATCHES = 64
+TRACED = 8          # query batches traced after the timed loop
 ZIPF_SKEW = 1.1
 
 # name: (title, source, the TPU kernel it replaces, the variant whose
@@ -204,8 +213,9 @@ TRAJ_TOL = 1e-4
 
 # Kernels redesigned for Hopper, by source: ptxas's register and spill
 # lines of their instantiations are printed after the build.
-REDESIGNED = {"halo_pull": "halo_skip_kernel",
-              "flash_attention": "flash_attention_wgmma"}
+REDESIGNED = {"halo_pull": ("halo_list_kernel", "halo_walk_kernel",
+                            "halo_skip_kernel"),
+              "flash_attention": ("flash_attention_wgmma",)}
 
 
 def ptxas_lines(log: str, kernel: str) -> list:
@@ -358,11 +368,12 @@ def kernel_phase(torch, dev, data, plan, queries):
     from repro_torch.core.halo_exchange import (HaloPrecision,
                                                 dequantize_rows,
                                                 quantize_rows)
-    from repro_torch.kernels.spmm import (halo_spmm_cuda,
+    from repro_torch.kernels.spmm import (STREAM_CHUNK_ROWS, halo_spmm_cuda,
                                           halo_spmm_plain,
                                           halo_spmm_stream_cuda,
-                                          halo_spmm_stream_plain, spmm_cuda,
-                                          spmm_plain)
+                                          halo_spmm_stream_plain,
+                                          halo_spmm_stream_walk_cuda,
+                                          spmm_cuda, spmm_plain)
     gen = torch.Generator().manual_seed(1)
 
     def randn(rows, feat):
@@ -401,6 +412,17 @@ def kernel_phase(torch, dev, data, plan, queries):
     q = torch.from_numpy(queries[0]).to(dev).long()
     qnbr = qdata["serve_map"][qdata["nbr"][q].long()]
     qwts = qdata["wts"][q]
+    # What K2's and K3's work depends on: the real (nonzero-weight) edges
+    # of a query row and the distinct slab chunks its ELL slots read.
+    chunks = torch.sort(torch.div(qnbr, STREAM_CHUNK_ROWS,
+                                  rounding_mode="floor"), dim=1).values
+    distinct = 1 + (chunks[:, 1:] != chunks[:, :-1]).sum(1)
+    print(f"K2/K3 input: query batch {tuple(qnbr.shape)} over "
+          f"{plan.store_rows} store rows, "
+          f"{float((qwts != 0).sum(1).float().mean()):.3f} real edges a row, "
+          f"{float(distinct.float().mean()):.3f} distinct "
+          f"{STREAM_CHUNK_ROWS}-row chunks a row (of "
+          f"{-(-plan.store_rows // STREAM_CHUNK_ROWS)})", flush=True)
     slab = randn(plan.store_rows, 128)
     pslab = randn(plan.store_rows, 128)
     gamma = 0.5
@@ -442,6 +464,11 @@ def kernel_phase(torch, dev, data, plan, queries):
                    lambda: halo_spmm_stream_cuda(*args),
                    lambda: halo_spmm_stream_plain(*args), qnbr, qwts, slabs,
                    scl, deq)
+            # K3's other body, the chunk walk, on the same call.
+            check(torch.equal(halo_spmm_stream_walk_cuda(*args), k3),
+                  f"K3's chunk walk [{variant}] is not equal to K3")
+            records[-1]["walk_ms"] = device_ms(
+                torch, lambda: halo_spmm_stream_walk_cuda(*args))
     return records
 
 
@@ -455,7 +482,8 @@ def serve_path(torch, dev, cfg, params, data, plan, storage, refreshes,
                                                 dequantize_rows,
                                                 layer_table)
     from repro_torch.kernels._build import LAUNCHES
-    from repro_torch.launch.serving_driver import run_serve_loop
+    from repro_torch.launch.serving_driver import (profile_serve_loop,
+                                                   run_serve_loop)
     from repro_torch.models.gnn import gnn_layer
 
     n = plan.num_nodes
@@ -485,6 +513,8 @@ def serve_path(torch, dev, cfg, params, data, plan, storage, refreshes,
     cache, outs, stats = run_serve_loop(
         step, queries, carry=serving.init_cache(scfg, cfg.num_classes, dev),
         warmup=4, items_per_call=BATCH)
+    # Where a batch's device time goes: TRACED more batches, traced.
+    trace = profile_serve_loop(step, queries[:TRACED], carry=cache, top=4)
     c2 = dict(LAUNCHES)
 
     # References, through the gather-form oracles (backend "jnp"), which
@@ -528,6 +558,8 @@ def serve_path(torch, dev, cfg, params, data, plan, storage, refreshes,
             "refresh_ms": refresh_ms, "p50_ms": stats.p50_ms,
             "p99_ms": stats.p99_ms, "per_sec": stats.per_sec,
             "hit_rate": serving.hit_rate(cache), "max_abs_err": err,
+            "device_ms_per_batch": trace["device_ms"] / TRACED,
+            "busy_share": trace["busy_share"], "device_top": trace["top"],
             "reps_max_abs_err": reps_err,
             "launches_refresh": {k: c1[k] - c0[k] for k in c0},
             "launches_queries": {k: c2[k] - c1[k] for k in c0}}
@@ -578,10 +610,10 @@ def run(torch, dev) -> tuple:
         print(json.dumps(res), flush=True)
         check(res["launches_refresh"]["spmm"] > 0,
               f"{res['path']}: K1 not launched in the refresh forward")
-        check(res["launches_queries"][expect[storage]] == BATCHES,
+        check(res["launches_queries"][expect[storage]] == BATCHES + TRACED,
               f"{res['path']}: {expect[storage]} launched "
               f"{res['launches_queries'][expect[storage]]} times in "
-              f"{BATCHES} batches")
+              f"{BATCHES + TRACED} batches")
     main_launches = dict(_build.LAUNCHES)
     check(all(main_launches[k] > 0 for k in SERVING_KERNELS),
           f"a kernel of the serving path never launched: {main_launches}")
@@ -608,6 +640,7 @@ def training_kernel_phase(torch, dev, data):
     from repro_torch.kernels.spmm import (halo_spmm_skip_cuda,
                                           halo_spmm_skip_plain,
                                           halo_spmm_stream_cuda,
+                                          halo_spmm_stream_walk_cuda,
                                           spmm_bwd_table,
                                           spmm_bwd_table_plain, spmm_bwd_wts,
                                           spmm_bwd_wts_plain, spmm_ref)
@@ -635,6 +668,9 @@ def training_kernel_phase(torch, dev, data):
         check(torch.equal(k4, k3),
               f"K4 [{storage}] is not equal to K3 at chunk_rows "
               f"{TRAIN_CHUNK_ROWS}")
+        check(torch.equal(halo_spmm_stream_walk_cuda(nbr, wts, sdata, scale,
+                                                     **kw), k3),
+              f"K3's chunk walk [{storage}] is not equal to K3")
         t = torch.arange(ids.shape[1], device=dev)[None, :]
         check(torch.equal(visits, torch.where(t < cnt[:, None], ids, -1)),
               f"K4 [{storage}] did not visit exactly its worklist")
@@ -647,11 +683,14 @@ def training_kernel_phase(torch, dev, data):
                 lambda: halo_spmm_skip_plain(*args, **kw),
                 bound(torch, nbr, wts, [sdata], [scale], 128),
                 lambda: torch.sparse.mm(csr, deq), k4)
-        # K3 on the same call: what skipping the worklist's empty chunks
-        # saves.
+        # K3 and its chunk walk on the same call: what skipping the
+        # worklist's empty chunks saves.
         records[-1]["k3_ms"] = device_ms(
             torch, lambda: halo_spmm_stream_cuda(nbr, wts, sdata, scale,
                                                  **kw))
+        records[-1]["k3_walk_ms"] = device_ms(
+            torch, lambda: halo_spmm_stream_walk_cuda(nbr, wts, sdata, scale,
+                                                      **kw))
 
     # Table gradient of an in-subgraph product: in-ELL (5256 x 56) into
     # the (5257, 128) local table, through the transposed in-ELL.
@@ -1264,11 +1303,12 @@ def main() -> None:
     print(json.dumps({"nvcc_seconds": {
         f"{name}.cu": info["seconds"] for name, info in built.items()}}),
         flush=True)
-    for name, kernel in REDESIGNED.items():
-        if name in built:
-            print(f"--- ptxas, {name}.cu::{kernel}\n"
-                  + "\n".join(ptxas_lines(built[name]["log"], kernel)),
-                  flush=True)
+    for name, names in REDESIGNED.items():
+        for kernel in names:
+            if name in built:
+                print(f"--- ptxas, {name}.cu::{kernel}\n"
+                      + "\n".join(ptxas_lines(built[name]["log"], kernel)),
+                      flush=True)
 
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
@@ -1313,6 +1353,15 @@ def main() -> None:
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "variant": rec["variant"], "shape": rec["shape"]})
+        if name == "halo_spmm_stream":
+            # K3 at the training shape (phase 6, fp32) beside its serving
+            # shape, and its chunk walk at both.
+            train = next(r for r in train_records
+                         if r["name"] == "halo_spmm_skip"
+                         and r["variant"] == "fp32")
+            kernels[-1].update(walk_ms=rec["walk_ms"],
+                               train_ms=train["k3_ms"],
+                               train_walk_ms=train["k3_walk_ms"])
         check(kernels[-1]["launches"] > 0, f"{name} never launched")
         check(kernels[-1]["max_err_over_bar"] <= 1,
               f"{name} error above its bar ({TOLERANCES[name]})")

@@ -17,6 +17,8 @@ into the same loop.
   ``halo_pull.py::halo_spmm_stream_pallas``: the same sum, accumulated
   per ``chunk_rows``-row slab chunk and added chunk by chunk in ascending
   order.  With one chunk covering the slab it equals K2.
+  :func:`halo_spmm_stream_walk_cuda` runs K3 on the body it takes for
+  rows too long for its edge list, at any degree.
 * :func:`halo_spmm_skip_cuda` (K4) replaces
   ``halo_pull.py::halo_spmm_skip_pallas``: K3 taking, for each 128-row
   block of output rows, only the chunks on that block's worklist
@@ -255,6 +257,24 @@ def halo_spmm_stream_cuda(nbr, wts, data, scale=None, pdata=None,
                           ) -> torch.Tensor:
     """K3: K2's contract, summed chunk by chunk over ``chunk_rows``-row
     slab chunks (the last one ragged) in ascending order."""
+    return _stream("halo_spmm_stream_launch", nbr, wts, data, scale, pdata,
+                   pscale, gamma, chunk_rows)
+
+
+def halo_spmm_stream_walk_cuda(nbr, wts, data, scale=None, pdata=None,
+                               pscale=None, gamma: float = 1.0,
+                               chunk_rows: int = STREAM_CHUNK_ROWS
+                               ) -> torch.Tensor:
+    """K3 on its chunk-walk body at any degree: the body K3 takes for rows
+    too long for its shared-memory edge list, here forced so that it can
+    be held against the plain version and timed at every shape.  K3's
+    contract and launch count; equal to K3 bit for bit."""
+    return _stream("halo_spmm_stream_walk_launch", nbr, wts, data, scale,
+                   pdata, pscale, gamma, chunk_rows)
+
+
+def _stream(symbol, nbr, wts, data, scale, pdata, pscale, gamma,
+            chunk_rows):
     if chunk_rows < 1:
         raise ValueError(f"chunk_rows {chunk_rows} < 1")
     _check_slab(nbr, wts, data, scale, pdata, pscale)
@@ -263,9 +283,8 @@ def halo_spmm_stream_cuda(nbr, wts, data, scale=None, pdata=None,
     if data.device.type == "cpu":
         return halo_spmm_stream_plain(nbr, wts, data, scale, pdata, pscale,
                                       gamma, chunk_rows)
-    return _launch("halo_spmm_stream_launch", "halo_spmm_stream", nbr, wts,
-                   data, scale, pdata, pscale, gamma, (int(chunk_rows),),
-                   (ctypes.c_int,))
+    return _launch(symbol, "halo_spmm_stream", nbr, wts, data, scale, pdata,
+                   pscale, gamma, (int(chunk_rows),), (ctypes.c_int,))
 
 
 def halo_spmm_skip_cuda(nbr, wts, data, scale=None, wl_ids=None,

@@ -25,7 +25,9 @@ from repro_torch.kernels.spmm import (halo_spmm, halo_spmm_cuda,
                                       halo_spmm_plain, halo_spmm_skip_cuda,
                                       halo_spmm_skip_plain,
                                       halo_spmm_stream_cuda,
-                                      halo_spmm_stream_plain, spmm_bwd_table,
+                                      halo_spmm_stream_plain,
+                                      halo_spmm_stream_walk_cuda,
+                                      spmm_bwd_table,
                                       spmm_bwd_table_plain, spmm_bwd_wts,
                                       spmm_bwd_wts_plain, spmm_cuda,
                                       spmm_plain)
@@ -102,6 +104,77 @@ def test_halo_kernels(dev, storage, pred, shape):
     # One chunk covering the slab: the very same FMAs as K2.
     one = halo_spmm_stream_cuda(*args, chunk_rows=data.shape[0])
     assert torch.equal(one, k2)
+
+
+@pytest.mark.parametrize("storage", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("pred", [False, True])
+@pytest.mark.parametrize("shape", [
+    (150, 200, 3000, 33, 64),     # past the register segments, scalar
+    (140, 20, 500, 9, 64),        # feat < 32: lanes past feat idle
+    (100, 40, 2000, 300, 64),     # feat > 128: three vector stripes
+    (64, 24, 299, 64, 1),         # chunk_rows 1: every slot a chunk
+    (256, 80, 12615, 128, 512)])  # the serving query batch's shape
+def test_halo_row_bodies(dev, storage, pred, shape):
+    """K2's and K3's warp-per-row bodies on unsorted rows (a row's chunks
+    interleave in k): each against its plain version, equal to itself
+    across calls; K3's edge list equal to its chunk walk, K3 over one
+    chunk to K2, and K4 on the row blocks' own worklists to K3, all bit
+    for bit."""
+    rows, deg, ncols, feat, chunk = shape
+    nbr, wts, table = _case(51 + deg, rows, deg, ncols, feat, dev)
+    data, scale = _slab(table, storage)
+    if scale is None:
+        scale = torch.ones((data.shape[0], 1), device=dev)  # reach K2
+    pdata = pscale = None
+    if pred:
+        pdata, pscale = _slab(torch.randn_like(table), storage)
+    args = (nbr, wts, data, scale, pdata, pscale, 0.7)
+    before = dict(_build.LAUNCHES)
+    k2 = halo_spmm_cuda(*args)
+    k3 = halo_spmm_stream_cuda(*args, chunk_rows=chunk)
+    walk = halo_spmm_stream_walk_cuda(*args, chunk_rows=chunk)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["halo_spmm"] == before["halo_spmm"] + 1
+    assert (_build.LAUNCHES["halo_spmm_stream"]
+            == before["halo_spmm_stream"] + 2)
+    assert torch.equal(k2, halo_spmm_cuda(*args))
+    assert torch.equal(k3, halo_spmm_stream_cuda(*args, chunk_rows=chunk))
+    torch.testing.assert_close(k2, halo_spmm_plain(*args), **TOL)
+    torch.testing.assert_close(
+        k3, halo_spmm_stream_plain(*args, chunk_rows=chunk), **TOL)
+    assert torch.equal(walk, k3)
+    one = halo_spmm_stream_cuda(*args, chunk_rows=data.shape[0])
+    assert torch.equal(one, k2)
+    wl = build_chunk_worklist(nbr.cpu().numpy(), data.shape[0], chunk)
+    k4 = halo_spmm_skip_cuda(nbr, wts, data, scale,
+                             torch.from_numpy(wl.ids).to(dev),
+                             torch.from_numpy(wl.cnt).to(dev), pdata,
+                             pscale, 0.7, chunk_rows=chunk)
+    assert torch.equal(k4, k3)
+
+
+@pytest.mark.parametrize("storage", ["fp32", "int8"])
+@pytest.mark.parametrize("deg", [2800, 3400])
+def test_halo_long_rows(dev, storage, deg):
+    """Long rows: 2800 edges take one row a block and 56 KB of shared
+    memory (past the 48 KB default), 3400 (68 KB) go to the chunk walk.
+    Against the plain version, equal to the walk, and K3 over one chunk
+    equal to K2.  The rounding of a sum of thousands of terms scales with
+    the sum of |terms|, not with the result, which cancels: the kernel's
+    fused and the plain version's rounded products are held within 1e-5
+    of the sum of |terms| (a dropped edge moves a result by ~0.4, that bar
+    by ~0.01)."""
+    nbr, wts, table = _case(61, 6, deg, 100, 40, dev)
+    data, scale = _slab(table, storage)
+    args = (nbr, wts, data, scale, None, None, 1.0)
+    k3 = halo_spmm_stream_cuda(*args, chunk_rows=32)
+    want = halo_spmm_stream_plain(*args, chunk_rows=32)
+    mag = halo_spmm_plain(nbr, wts.abs(), data.abs(), scale)
+    assert bool(((k3 - want).abs() <= 1e-5 * mag).all())
+    assert torch.equal(k3, halo_spmm_stream_walk_cuda(*args, chunk_rows=32))
+    if scale is not None:
+        assert torch.equal(halo_spmm_stream_cuda(*args, chunk_rows=101),
+                           halo_spmm_cuda(*args))
 
 
 def test_ladder_launches_the_selected_kernel(dev):
