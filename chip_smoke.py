@@ -10,8 +10,8 @@ Phases, each ending the run with a non-zero exit on failure:
    versions;
 2. build the CUDA kernels from ``src/repro_torch/csrc``: each source's
    ``nvcc`` seconds, and ptxas's register and spill lines of the kernels
-   redesigned for Hopper (the warp-per-row bodies of K2, K3 and K4, K6's
-   bf16 wgmma body);
+   redesigned for Hopper (the warp-per-row bodies of K1, K2, K3, K4 and
+   the table gradient, K6's bf16 wgmma body);
 3. every kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it (products-sim, scale 1.0, 8 parts: K1 on
    the full-graph ELL at widths 100 and 128 and on a bf16 or fp32 query
@@ -46,12 +46,16 @@ Phases, each ending the run with a non-zero exit on failure:
    (5256 x 64) over a (14289, 128) fp32, bf16 and int8 slab with its
    worklist, held against its plain version within 1e-5, equal to K3 bit
    for bit (K3 and its walk timed there too: ``k3_ms``, ``k3_walk_ms``),
-   and visiting exactly its worklist; ``spmm_bwd_table`` on the
-   in-ELL (5256 x 56) into the (5257, 128) table and ``spmm_bwd_wts`` at
-   GAT's per-head shape (over a (5257, 32) table), each also held against
-   autograd of the gather oracle; timed as in phase 3, beside
-   ``torch.sparse.mm`` on the CSR (K4) or transposed CSR (table gradient)
-   and ``torch.sparse.sampled_addmm`` (weight gradient);
+   and visiting exactly its worklist; K1 on the in-ELL (5256 x 56, its
+   real edges a row printed) over a (5257, 128) fp32 table and GAT's
+   per-head (5257, 32) one, and on the out-ELL over the (14289, 128) bf16
+   slab; ``spmm_bwd_table`` on the in-ELL into the (5257, 128) and
+   (5257, 32) tables (its live positions a row printed) and
+   ``spmm_bwd_wts`` at GAT's per-head shape (over a (5257, 32) table),
+   both also held against autograd of the gather oracle; timed as in
+   phase 3, beside ``torch.sparse.mm`` on the CSR (K1, K4) or transposed
+   CSR (table gradient) and ``torch.sparse.sampled_addmm`` (weight
+   gradient);
 7. the training main path: full-batch DIGEST (Algorithm 1, N = 10, Adam
    5e-3) of the paper's GCN widths (``repro_torch.configs.digest_gcn``,
    3 x 128) on that partition, random weights from ``torch.Generator``
@@ -68,8 +72,8 @@ Phases, each ending the run with a non-zero exit on failure:
    epochs.  K4 must launch exactly 2 layers x 8 subgraphs per fp32 epoch,
    K2 in the int8 epochs, the table-gradient kernel 16 times per bf16
    epoch and the weight-gradient kernel in GAT's.  Epoch times (host
-   clock around an epoch ending in a synchronize) and val/test F1 are
-   printed;
+   clock around an epoch ending in a synchronize), val/test F1 and K1's
+   launches per epoch by (rows, deg, feat, dtype) are printed;
 8. K6 (flash attention) at the LM slice's shape (B 4, S 1024, H 16 over
    KV 8, D 128, causal; and non-causal at S 512), in bf16 and fp32, on
    (B, H, S, D) views of (B, S, H, D) tensors, against its plain
@@ -84,9 +88,10 @@ Phases, each ending the run with a non-zero exit on failure:
    weights from ``torch.Generator`` seed 0), ``forward`` on 4 x 1024
    seeded tokens with the kernel backend — K6 exactly 28 times and no
    other kernel — against the dense-oracle backend on the same weights:
-   the bf16 error is reported, and with fp32 activations the logits must
-   agree within 1e-4 of max |logit|; timed, and one more forward traced
-   with ``torch.profiler``;
+   in bf16 within twice the oracle's own change when every input
+   embedding moves by one bf16 ulp (error, sensitivity and their ratio
+   printed), and with fp32 activations within 1e-4 of max |logit|;
+   timed, and one more forward traced with ``torch.profiler``;
 10. LM decode serving (``launch/serve.py``'s loop): batch 4, a 1056-slot
     cache, 32 tokens, for the full cache and the stale-KV ``long`` cache
     (window 32, ratio 8), ms/token and p50/p99, 8 steps of each traced;
@@ -110,6 +115,7 @@ TF32 is off throughout (fp32 products run in full fp32).
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
@@ -140,6 +146,15 @@ K6_FP32_TOL = 2e-5
 K5_STAT_TOL = 1e-5
 K5_ACC_TOL = 1e-4
 LM_FP32_TOL = 1e-4
+# The bf16 prefill through K6 against the bf16 dense oracle.  Both compute
+# attention in fp32 and round its output to bf16 once, in different
+# orders, so each layer's attention output may differ by about one bf16
+# ulp, and the 28 layers after carry that on.  The oracle's own change
+# when every input embedding moves by one bf16 ulp (the same rounding,
+# injected once at the input) measures how far such a difference travels;
+# the K6 path is held within LM_BF16_SENS_FACTOR times that, relative to
+# max |logit|, the rule GAT's gradients follow (PERF.md section 2).
+LM_BF16_SENS_FACTOR = 2.0
 DECODE_TOL = 2e-2
 LONG_TOL = 1e-4
 # The LM slice's shapes: qwen3-0.6b prefill of 4 x 1024 tokens, decode of
@@ -215,7 +230,29 @@ TRAJ_TOL = 1e-4
 # lines of their instantiations are printed after the build.
 REDESIGNED = {"halo_pull": ("halo_list_kernel", "halo_walk_kernel",
                             "halo_skip_kernel"),
-              "flash_attention": ("flash_attention_wgmma",)}
+              "flash_attention": ("flash_attention_wgmma",),
+              "spmm": ("spmm_kernel",), "spmm_bwd": ("bwd_table_kernel",)}
+
+# K1's launches by (rows, deg, feat, dtype), tallied by tally_k1_shapes.
+K1_SHAPES = collections.Counter()
+
+
+def tally_k1_shapes() -> None:
+    """Make K1's launching function also tally each launch's (rows, deg,
+    feat, table dtype) in K1_SHAPES, beside the wrapper's own count."""
+    import importlib
+
+    k1 = importlib.import_module("repro_torch.kernels.spmm.spmm")
+    inner = k1._spmm_forward
+
+    def counted(nbr, wts, table):
+        if table.device.type == "cuda" and nbr.shape[0] * table.shape[1]:
+            K1_SHAPES[(int(nbr.shape[0]), int(nbr.shape[1]),
+                       int(table.shape[1]),
+                       str(table.dtype).split(".")[-1])] += 1
+        return inner(nbr, wts, table)
+
+    k1._spmm_forward = counted
 
 
 def ptxas_lines(log: str, kernel: str) -> list:
@@ -643,7 +680,8 @@ def training_kernel_phase(torch, dev, data):
                                           halo_spmm_stream_walk_cuda,
                                           spmm_bwd_table,
                                           spmm_bwd_table_plain, spmm_bwd_wts,
-                                          spmm_bwd_wts_plain, spmm_ref)
+                                          spmm_bwd_wts_plain, spmm_cuda,
+                                          spmm_plain, spmm_ref)
     gen = torch.Generator().manual_seed(2)
     records = []
     st = {k: v[0] for k, v in data["struct"].items()}
@@ -692,19 +730,38 @@ def training_kernel_phase(torch, dev, data):
             torch, lambda: halo_spmm_stream_walk_cuda(nbr, wts, sdata, scale,
                                                       **kw))
 
+    # K1 at the training shapes: the in-subgraph product (in-ELL over the
+    # local table, fp32; GAT's per-head w32 tables), and the out-ELL over
+    # the halo slab of the bf16 store, which the ladder hands to K1.
+    n_in, n_out = st["in_nbr"].shape[0] + 1, n_tab
+    in_real = (st["in_wts"] != 0).sum(1).float()
+    print(f"K1 input: in-ELL {tuple(st['in_nbr'].shape)}, "
+          f"{float(in_real.mean()):.3f} real edges a row (max "
+          f"{int(in_real.max())}), out-ELL "
+          f"{float((wts != 0).sum(1).float().mean()):.3f}", flush=True)
+    for side, dtype, width, n_rows in (("in", torch.float32, 128, n_in),
+                                       ("in", torch.float32, 32, n_in),
+                                       ("out", torch.bfloat16, 128, n_out)):
+        knbr, kwts = st[f"{side}_nbr"], st[f"{side}_wts"]
+        tab = torch.randn((n_rows, width), generator=gen)
+        tab[-1] = 0
+        tab = tab.to(dev, dtype)
+        csr = csr_of(torch, knbr, kwts, n_rows)
+        measure(torch, records, "spmm",
+                f"train {side}-ELL {str(dtype).split('.')[-1]} w{width}",
+                list(knbr.shape) + [n_rows, width],
+                spmm_cuda(knbr, kwts, tab), spmm_plain(knbr, kwts, tab),
+                lambda: spmm_cuda(knbr, kwts, tab),
+                lambda: spmm_plain(knbr, kwts, tab),
+                bound(torch, knbr, kwts, [tab], [None], width),
+                lambda: torch.sparse.mm(csr, tab.float()),
+                spmm_plain(knbr, kwts, tab))
+
     # Table gradient of an in-subgraph product: in-ELL (5256 x 56) into
-    # the (5257, 128) local table, through the transposed in-ELL.
+    # the (5257, 128) local table (and GAT's per-head (5257, 32) ones),
+    # through the transposed in-ELL.
     nbr, wts, pos = st["in_nbr"], st["in_wts"], st["in_pos"]
     rows, deg = nbr.shape
-    g = torch.randn((rows, 128), generator=gen).to(dev)
-    got = spmm_bwd_table(pos, wts, g)
-    tab = torch.zeros((rows + 1, 128), device=dev, requires_grad=True)
-    with torch.enable_grad():
-        spmm_ref(nbr, wts, tab).backward(g)
-    oracle = tab.grad.clone()
-    oracle[-1] = 0                         # the sentinel gets no gradient
-    check(torch.allclose(got, oracle, atol=TOL, rtol=TOL),
-          "spmm_bwd_table disagrees with autograd of the gather oracle")
     keep = (wts != 0) & (nbr < rows)
     r = torch.arange(rows, device=dev)[:, None].expand(rows, deg)
     with warnings.catch_warnings():
@@ -713,14 +770,27 @@ def training_kernel_phase(torch, dev, data):
             torch.stack([nbr[keep].long(), r[keep]]), wts[keep],
             (rows + 1, rows)).coalesce().to_sparse_csr()
     live = int((pos < rows * deg).sum())
-    measure(torch, records, "spmm_bwd_table", "in-ELL w128",
-            [rows, deg, rows + 1, 128], got,
-            spmm_bwd_table_plain(pos, wts, g),
-            lambda: spmm_bwd_table(pos, wts, g),
-            lambda: spmm_bwd_table_plain(pos, wts, g),
-            roofline(pos.numel() * 4 + wts.numel() * 4 + g.numel() * 4
-                     + (rows + 1) * 128 * 4, 2 * live * 128),
-            lambda: torch.sparse.mm(csr_t, g), got)
+    print(f"table-gradient input: transposed in-ELL {tuple(pos.shape)}, "
+          f"{live / pos.shape[0]:.3f} live positions a row", flush=True)
+    for width in (128, 32):
+        g = torch.randn((rows, width), generator=gen).to(dev)
+        got = spmm_bwd_table(pos, wts, g)
+        tab = torch.zeros((rows + 1, width), device=dev, requires_grad=True)
+        with torch.enable_grad():
+            spmm_ref(nbr, wts, tab).backward(g)
+        oracle = tab.grad.clone()
+        oracle[-1] = 0                     # the sentinel gets no gradient
+        check(torch.allclose(got, oracle, atol=TOL, rtol=TOL),
+              f"spmm_bwd_table [w{width}] disagrees with autograd of the "
+              "gather oracle")
+        measure(torch, records, "spmm_bwd_table", f"in-ELL w{width}",
+                [rows, deg, rows + 1, width], got,
+                spmm_bwd_table_plain(pos, wts, g),
+                lambda: spmm_bwd_table(pos, wts, g),
+                lambda: spmm_bwd_table_plain(pos, wts, g),
+                roofline(pos.numel() * 4 + wts.numel() * 4 + g.numel() * 4
+                         + (rows + 1) * width * 4, 2 * live * width),
+                lambda: torch.sparse.mm(csr_t, g), got)
 
     # Weight gradient at GAT's per-head shape: the same in-ELL over a
     # (5257, 32) head table.
@@ -819,11 +889,15 @@ def train_path(torch, cfg, data, storage, params, epochs, lr, kernel,
     from repro_torch.kernels._build import LAUNCHES
 
     label = f"train {cfg.model}/{storage}"
-    c0 = dict(LAUNCHES)
+    c0, k1_0 = dict(LAUNCHES), collections.Counter(K1_SHAPES)
     traj, grads, times, state = train_run(torch, cfg, data, storage, params,
                                           epochs, lr)
     c1 = dict(LAUNCHES)
     launches = {k: c1[k] - c0[k] for k in c0}
+    k1_shapes = K1_SHAPES - k1_0
+    check(sum(k1_shapes.values()) == launches["spmm"],
+          f"{label}: K1's shape tally {dict(k1_shapes)} does not add up to "
+          f"its {launches['spmm']} launches")
     if expect_per_epoch is not None:
         check(launches[kernel] == expect_per_epoch * epochs,
               f"{label}: {kernel} launched {launches[kernel]} times in "
@@ -877,7 +951,10 @@ def train_path(torch, cfg, data, storage, params, epochs, lr, kernel,
             "grad_rel_err": grad_err, "grad_rel_err_by_leaf": rel,
             "oracle_ulp_sensitivity_by_leaf": floor,
             "oracle_epochs": o_epochs,
-            "traj_max_err": traj_err, "launches": launches}
+            "traj_max_err": traj_err, "launches": launches,
+            "spmm_per_epoch_by_shape": {
+                f"{r}x{d} w{f} {dt}": n / epochs
+                for (r, d, f, dt), n in sorted(k1_shapes.items())}}
 
 
 def training(torch, dev) -> tuple:
@@ -1048,11 +1125,11 @@ def lm_prefill(torch, dev) -> dict:
           f"head_dim {cfg.hd}, vocab {cfg.vocab_size}: {n_params} params, "
           f"made in {time.perf_counter() - t0:.2f} s", flush=True)
 
-    def run(c, label):
+    def run(c, label, p=params):
         torch.cuda.synchronize()
         _build.reset_launches()
         t = time.perf_counter()
-        out = forward(c, params, tokens)
+        out = forward(c, p, tokens)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t) * 1e3
         launches = dict(_build.LAUNCHES)
@@ -1070,12 +1147,30 @@ def lm_prefill(torch, dev) -> dict:
         run(cfg, "warm-up")
         logits, ms, launches = run(cfg, "bf16 kernel")
         _, ms2, _ = run(cfg, "bf16 kernel")
-        dense, dense_ms, _ = run(dataclasses.replace(cfg,
-                                                     attn_backend="dense"),
-                                 "bf16 dense")
+        dense_cfg = dataclasses.replace(cfg, attn_backend="dense")
+        dense, dense_ms, _ = run(dense_cfg, "bf16 dense")
         scale = float(dense.abs().max())
         bf16_rel = float((logits - dense).abs().max()) / scale
-        del dense
+        # The oracle's one-ulp sensitivity: every input embedding one bf16
+        # ulp larger in magnitude (the bf16 bit pattern plus one), the
+        # bf16 forward's own rounding of the fp32 table otherwise kept.
+        emb = params["embed"].to(torch.bfloat16)
+        bumped = (emb.view(torch.int16) + 1).view(torch.bfloat16).float()
+        moved, _, _ = run(dense_cfg, "bf16 dense, embeddings + 1 ulp",
+                          dict(params, embed=bumped))
+        del emb, bumped
+        bf16_sens = float((moved - dense).abs().max()) / scale
+        del dense, moved
+        bf16_ratio = bf16_rel / max(bf16_sens, 1e-30)
+        print(f"prefill bf16: K6 path vs dense oracle {bf16_rel:.4e} of max "
+              f"|logit|; the oracle's one-ulp sensitivity {bf16_sens:.4e}; "
+              f"error / sensitivity {bf16_ratio:.3f} (bar "
+              f"{LM_BF16_SENS_FACTOR})", flush=True)
+        check(bf16_rel <= LM_BF16_SENS_FACTOR * bf16_sens,
+              f"bf16 prefill through K6 differs from the dense oracle by "
+              f"{bf16_rel:.3e} of max |logit|, more than "
+              f"{LM_BF16_SENS_FACTOR} x the oracle's own one-ulp "
+              f"sensitivity {bf16_sens:.3e}")
         c32 = dataclasses.replace(cfg, dtype="float32")
         l32, ms32, _ = run(c32, "fp32 kernel")
         d32, _, _ = run(dataclasses.replace(c32, attn_backend="dense"),
@@ -1096,6 +1191,8 @@ def lm_prefill(torch, dev) -> dict:
            "fp32_prefill_ms": ms32,
            "tokens_per_s": LM_BATCH * LM_SEQ / (min(ms, ms2) / 1e3),
            "bf16_rel_err_vs_dense": bf16_rel,
+           "bf16_oracle_ulp_sensitivity": bf16_sens,
+           "bf16_err_over_sensitivity": bf16_ratio,
            "fp32_rel_err_vs_dense": fp32_rel, "launches": launches,
            "profile": prof}
     print(json.dumps(res), flush=True)
@@ -1311,6 +1408,7 @@ def main() -> None:
                       flush=True)
 
     dev = torch.device("cuda", 0)
+    tally_k1_shapes()
     t0 = time.perf_counter()
     with torch.inference_mode():
         serve_records, serve_launches = run(torch, dev)
@@ -1353,6 +1451,10 @@ def main() -> None:
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "variant": rec["variant"], "shape": rec["shape"]})
+        if name in ("spmm", "spmm_bwd_table"):
+            # Its device times at every main-path shape (phases 3 and 6).
+            kernels[-1]["ms_by_variant"] = {r["variant"]: r["ms"]
+                                            for r in mine}
         if name == "halo_spmm_stream":
             # K3 at the training shape (phase 6, fp32) beside its serving
             # shape, and its chunk walk at both.

@@ -99,7 +99,6 @@
 // except when the slab holds inf or NaN, where the TPU's 0 * inf term is
 // NaN and the skipped edge is nothing.
 #include <climits>
-#include <type_traits>
 
 #include "common.cuh"
 
@@ -116,7 +115,6 @@ constexpr int kSkipBatch = 4;
 // Chunk id of an edge past the row's degree or, in K4, off the worklist
 // (it matches no chunk the warp visits).
 constexpr int kNoChunk = 0x7fffffff;
-constexpr unsigned kFullMask = 0xffffffffu;
 // K2 and K3: rows (one warp each) per block, fewer where a row's edge
 // list would not fit.
 constexpr int kRowWarps = 4;
@@ -446,39 +444,6 @@ __device__ __forceinline__ int4 list_entry(const SkipEdge& e) {
   return make_int4(e.s, e.c, __float_as_int(e.ws), __float_as_int(e.wp));
 }
 
-// The raw bits of kVec consecutive slab elements: one 16-, 8- or 4-byte
-// load of fp32, bf16 or int8 when kVec is 4 (int8 as one 32-bit word).
-// The list body gathers a batch of these before it converts any (unpack),
-// so that no gather waits on the one before it.
-template <typename T, int kVec>
-using Raw = std::conditional_t<
-    kVec == 1, T,
-    std::conditional_t<std::is_same_v<T, float>, float4,
-                       std::conditional_t<std::is_same_v<T, __nv_bfloat16>,
-                                          uint2, int>>>;
-
-template <typename T, int kVec>
-__device__ __forceinline__ void unpack(const Raw<T, kVec>& u,
-                                       float (&x)[kVec]) {
-  if constexpr (kVec == 1) {
-    x[0] = to_float(u);
-  } else if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    // A bf16 is the upper half of the fp32 of the same value.
-    x[0] = __uint_as_float(u.x << 16);
-    x[1] = __uint_as_float(u.x & 0xffff0000u);
-    x[2] = __uint_as_float(u.y << 16);
-    x[3] = __uint_as_float(u.y & 0xffff0000u);
-  } else if constexpr (std::is_same_v<T, float>) {
-    x[0] = u.x; x[1] = u.y; x[2] = u.z; x[3] = u.w;
-  } else {
-    // Four int8 codes, lowest address in the low byte, sign-extended.
-    x[0] = static_cast<float>((u << 24) >> 24);
-    x[1] = static_cast<float>((u << 16) >> 24);
-    x[2] = static_cast<float>((u << 8) >> 24);
-    x[3] = static_cast<float>(u >> 24);
-  }
-}
-
 // K2 and K3 (module note): one warp per row.  Dynamic shared memory: each
 // warp's edge list (deg int4 entries {s, c, ws, wp}) for all the block's
 // warps, then each warp's deg sort keys.  `chunked` false (K2): the list
@@ -616,14 +581,6 @@ halo_list_kernel(const int32_t* __restrict__ nbr,
   }
 }
 
-// Vector gathers where every gathered row starts on a vector boundary.
-template <typename T>
-static bool vec_gathers(const T* d, const T* pd, int feat) {
-  const uintptr_t align = 4 * sizeof(T);
-  return feat % 4 == 0 && reinterpret_cast<uintptr_t>(d) % align == 0
-         && reinterpret_cast<uintptr_t>(pd) % align == 0;
-}
-
 // Which body a launch asks for: K2 or K3 (the edge list where the row
 // fits, else the walk), or K3 on the walk.
 enum HaloBody { kResident, kStream, kStreamWalk };
@@ -673,7 +630,7 @@ static cudaError_t launch_typed(HaloBody body, const int32_t* n,
                                 int chunk_rows, cudaStream_t s) {
   const T* d = static_cast<const T*>(data);
   const T* pd = static_cast<const T*>(pdata);
-  const auto run = vec_gathers(d, pd, feat)
+  const auto run = vec_rows(d, feat) && vec_rows(pd, feat)
                    ? (pd != nullptr ? launch_rows<T, 4, true>
                                     : launch_rows<T, 4, false>)
                    : (pd != nullptr ? launch_rows<T, 1, true>
@@ -726,7 +683,7 @@ static cudaError_t launch_skip(const int32_t* n, const float* w,
                                cudaStream_t s) {
   const T* d = static_cast<const T*>(data);
   const T* pd = static_cast<const T*>(pdata);
-  const bool vec = vec_gathers(d, pd, feat);
+  const bool vec = vec_rows(d, feat) && vec_rows(pd, feat);
   const int n_chunks = (n_tab + chunk_rows - 1) / chunk_rows;
   const dim3 grid((rows + kSkipWarps - 1) / kSkipWarps);
   const dim3 block(kSkipWarps * 32);

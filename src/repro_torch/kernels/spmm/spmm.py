@@ -90,7 +90,7 @@ def _spmm_forward(nbr: torch.Tensor, wts: torch.Tensor,
     if table.device.type == "cpu":
         return spmm_plain(nbr, wts, table)
     rows, deg = nbr.shape
-    feat = table.shape[1]
+    n_tab, feat = table.shape
     out = torch.empty((rows, feat), dtype=torch.float32,
                       device=table.device)
     if out.numel() == 0:
@@ -98,10 +98,10 @@ def _spmm_forward(nbr: torch.Tensor, wts: torch.Tensor,
     fn = _build.kernel_fn("spmm", "spmm_launch", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p])
+        ctypes.c_int, ctypes.c_void_p])
     code = _build.launch(fn, table, _build.ptr(nbr), _build.ptr(wts),
                          _build.ptr(table), _build.dtype_code(table.dtype),
-                         _build.ptr(out), rows, deg, feat)
+                         _build.ptr(out), rows, deg, n_tab, feat)
     _build.check(code, "spmm", "spmm_launch")
     _build.LAUNCHES["spmm"] += 1
     return out
@@ -263,7 +263,9 @@ def spmm_cuda(nbr: torch.Tensor, wts: torch.Tensor, table: torch.Tensor,
       nbr:   (rows, deg) int32 row ids into ``table``; padding slots point
              at the zero sentinel row (the last).  Every id must be
              < n_tab: the kernel does not check.
-      wts:   (rows, deg) float32, 0 at padding slots.
+      wts:   (rows, deg) float32, 0 at padding slots.  The kernel skips
+             every slot with weight 0 on the sentinel row, which changes
+             the sum only by the sign of a zero while that row is finite.
       table: (n_tab, feat) float32, bfloat16 or int8, sentinel row
              included; as a constant of the layout the sentinel row gets
              no gradient.

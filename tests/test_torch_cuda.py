@@ -67,18 +67,151 @@ def _slab(table, storage):
     return data, scale
 
 
+def _table_as(table, dtype):
+    """The fp32 test table in a storage dtype (int8: codes of an int8
+    store, up to 127 in magnitude; the zero sentinel row stays zero)."""
+    if dtype == torch.int8:
+        return (table * 30).round().clamp(-127, 127).to(torch.int8)
+    return table.to(dtype)
+
+
+def _assert_spmm_close(got, nbr, wts, table):
+    """K1 against its plain version within 1e-5 (atol = rtol).  For int8
+    codes the relative part is taken of the sum of |terms| instead of
+    |sum|: a code's product with a weight is up to 127 times an fp32
+    table's, and the plain version rounds each product before it adds it
+    while the kernel fuses it, so a cancelling sum of 80 such terms
+    differs by more than 1e-5 of its result (measured: 6.6e-5)."""
+    want = spmm_plain(nbr, wts, table)
+    if table.dtype != torch.int8:
+        torch.testing.assert_close(got, want, **TOL)
+        return
+    mag = spmm_plain(nbr, wts.abs(), table.float().abs())
+    err = (got - want).abs()
+    assert bool((err <= 1e-5 + 1e-5 * mag).all()), float(err.max())
+
+
 @pytest.mark.parametrize("rows,deg,ncols,feat", [
     (17, 3, 9, 33), (384, 9, 57, 70), (1000, 80, 12000, 128),
-    (300, 5, 40, 300)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    (300, 5, 40, 300), (3000, 12, 400, 32), (2000, 9, 700, 100)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
 def test_spmm_kernel(dev, rows, deg, ncols, feat, dtype):
     nbr, wts, table = _case(rows, rows, deg, ncols, feat, dev)
-    table = table.to(dtype)
+    table = _table_as(table, dtype)
     before = _build.LAUNCHES["spmm"]
     got = spmm_cuda(nbr, wts, table)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["spmm"] == before + 1
-    torch.testing.assert_close(got, spmm_plain(nbr, wts, table), **TOL)
+    _assert_spmm_close(got, nbr, wts, table)
+
+
+def _padded_case(seed, rows, deg, ncols, feat, live, layout, dev):
+    """An ELL whose rows hold 0 .. 2 * live real edges (at most deg; mean
+    about ``live``) and pad the rest with weight 0 on the sentinel row
+    ``ncols``: the padding ``scattered`` through the row, ``trailing``, or
+    every slot padding (``empty``).  Returns nbr, wts, the table (zero
+    sentinel row) and each row's real-edge count."""
+    rng = np.random.default_rng(seed)
+    n = np.minimum(rng.integers(0, 2 * live + 1, size=rows), deg)
+    if layout == "empty":
+        n[:] = 0
+    if layout == "scattered":
+        rank = np.argsort(np.argsort(rng.random((rows, deg)), axis=1),
+                          axis=1)
+    else:
+        rank = np.broadcast_to(np.arange(deg), (rows, deg))
+    real = rank < n[:, None]
+    nbr = np.where(real, rng.integers(0, ncols, size=(rows, deg)),
+                   ncols).astype(np.int32)
+    wts = np.where(real, rng.random((rows, deg)) + 0.1, 0).astype(np.float32)
+    table = rng.normal(size=(ncols + 1, feat)).astype(np.float32)
+    table[-1] = 0
+    return (torch.from_numpy(nbr).to(dev), torch.from_numpy(wts).to(dev),
+            torch.from_numpy(table).to(dev), torch.from_numpy(n).to(dev))
+
+
+@pytest.mark.parametrize("layout", ["scattered", "trailing", "empty"])
+@pytest.mark.parametrize("rows,deg,ncols,live", [
+    (256, 80, 12615, 69),       # the serving query batch
+    (5256, 56, 5256, 3),        # the training in-ELL, three real edges
+    (300, 40, 900, 20),         # two segments
+    (200, 150, 3000, 60),       # past the four segments held in registers
+    (120, 300, 3000, 140)])     # ten segments, most re-read
+@pytest.mark.parametrize("feat", [32, 33, 100, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+def test_spmm_kernel_skips_padding(dev, layout, rows, deg, ncols, live, feat,
+                                   dtype):
+    """K1 on ELLs mostly padding (the slots it skips), wherever the padding
+    lies, over both launch layouts (few rows: warps split a row's
+    stripes; many: a warp a row): against its plain version, rows with no
+    real edge exactly 0, equal to itself across calls."""
+    nbr, wts, table, n = _padded_case(rows * feat + deg, rows, deg, ncols,
+                                      feat, live, layout, dev)
+    table = _table_as(table, dtype)
+    before = _build.LAUNCHES["spmm"]
+    got = spmm_cuda(nbr, wts, table)
+    again = spmm_cuda(nbr, wts, table)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["spmm"] == before + 2
+    assert torch.equal(got, again)
+    _assert_spmm_close(got, nbr, wts, table)
+    assert torch.equal(got[n == 0], torch.zeros_like(got[n == 0]))
+
+
+@pytest.mark.parametrize("feat", [33, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+def test_spmm_kernel_layouts_agree(dev, feat, dtype):
+    """The first 256 rows alone (warps splitting each row's stripes) give
+    the same bits as those rows of a 4000-row launch (a warp a row): each
+    element keeps its FMA chain."""
+    nbr, wts, table, _ = _padded_case(7, 4000, 80, 12615, feat, 40,
+                                      "scattered", dev)
+    table = _table_as(table, dtype)
+    whole = spmm_cuda(nbr, wts, table)
+    part = spmm_cuda(nbr[:256].contiguous(), wts[:256].contiguous(), table)
+    assert torch.equal(part, whole[:256])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [64, 3000])
+def test_spmm_kernel_zero_weights_on_real_rows(dev, dtype, rows):
+    """Only a zero weight on the sentinel is skipped: zero weights on real
+    rows stay, so 0 * inf is NaN exactly where the plain version has NaN;
+    a finite nonzero sentinel row changes nothing for its zero-weight
+    slots and counts for its nonzero ones."""
+    nbr, wts, table, _ = _padded_case(rows, rows, 40, 500, 64, 10,
+                                      "scattered", dev)
+    table[-1] = torch.linspace(-2, 2, table.shape[1], device=dev)
+    table[5, 3] = float("inf")
+    wts[wts.shape[0] // 3:, 5] = 0          # zero weights on real rows
+    nbr[:3][nbr[:3] == 5] = 6               # row 5 only where set below
+    nbr[0, 1], wts[0, 1] = 5, 0.0           # 0 * inf
+    nbr[1, 0], wts[1, 0] = 5, 0.5           # 0.5 * inf
+    nbr[2, 3], wts[2, 3] = 500, 0.25        # a weight on the sentinel
+    table = table.to(dtype)
+    got = spmm_cuda(nbr, wts, table)
+    want = spmm_plain(nbr, wts, table)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(got[0, 3])) and bool(torch.isinf(got[1, 3]))
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    torch.testing.assert_close(got, want, equal_nan=True, **TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [256, 3000])
+def test_k3_over_one_chunk_equals_k1(dev, dtype, rows):
+    """K3 over one chunk on an unscaled slab takes K1's FMAs (K3 keeps the
+    padding terms, each + 0): equal bit for bit, as chip_smoke.py holds at
+    the query shape."""
+    nbr, wts, table, _ = _padded_case(rows + 1, rows, 80, 12615, 128, 60,
+                                      "scattered", dev)
+    table = table.to(dtype)
+    k1 = spmm_cuda(nbr, wts, table)
+    one = halo_spmm_stream_cuda(nbr, wts, table, chunk_rows=table.shape[0])
+    assert torch.equal(one, k1)
 
 
 @pytest.mark.parametrize("storage", ["fp32", "bf16", "int8"])
@@ -331,6 +464,39 @@ def test_backward_kernels(dev, rows, deg, ncols, feat):
     t = table.clone().requires_grad_()
     spmm_cuda(nbr, w, t, pos).backward(g)
     assert torch.equal(w.grad, dw) and torch.equal(t.grad, dtab)
+
+
+@pytest.mark.parametrize("hub", [0, 40, 200])
+@pytest.mark.parametrize("feat", [32, 33, 128])
+@pytest.mark.parametrize("rows", [256, 5256])
+def test_backward_table_kernel_segments(dev, hub, feat, rows):
+    """The table gradient's warp-per-row body: table row 0 is a hub with
+    ``hub`` more positions (t_deg past one and past four 32-position
+    segments), most rows one to three positions, many rows none (all
+    padding), at w32/w33/w128 over both launch layouts: against its plain
+    version, padding rows and the sentinel row exactly 0, equal to itself
+    and to the autograd backward."""
+    ncols = 2 * rows            # about 1.5 positions a table row
+    nbr, wts, table, _ = _padded_case(hub + rows, rows, 56, ncols, feat, 3,
+                                      "trailing", dev)
+    nbr[:hub, -1], wts[:hub, -1] = 0, 0.75       # the hub's positions
+    pos = torch.from_numpy(ell_transpose(nbr.cpu().numpy(), ncols + 1)
+                           ).to(dev)
+    g = torch.randn((rows, feat), device=dev)
+    before = _build.LAUNCHES["spmm_bwd_table"]
+    dtab = spmm_bwd_table(pos, wts, g)
+    again = spmm_bwd_table(pos, wts, g)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["spmm_bwd_table"] == before + 2
+    assert torch.equal(dtab, again)
+    torch.testing.assert_close(dtab, spmm_bwd_table_plain(pos, wts, g),
+                               **TOL)
+    empty = (pos >= nbr.numel()).all(dim=1)
+    assert bool(empty[-1]) and int(empty.sum()) > rows // 4
+    assert torch.equal(dtab[empty], torch.zeros_like(dtab[empty]))
+    t = table.clone().requires_grad_()
+    spmm_cuda(nbr, wts, t, pos).backward(g)
+    assert torch.equal(t.grad, dtab)
 
 
 def test_halo_kernels_refuse_grad_on_the_card(dev):
