@@ -11,7 +11,7 @@ Phases, each ending the run with a non-zero exit on failure:
 2. build the CUDA kernels from ``src/repro_torch/csrc``: each source's
    ``nvcc`` seconds, and ptxas's register and spill lines of the kernels
    redesigned for Hopper (the warp-per-row bodies of K1, K2, K3, K4 and
-   the table gradient, K6's bf16 wgmma body);
+   both SpMM gradients, K6's bf16 wgmma and fp32 bodies);
 3. every kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it (products-sim, scale 1.0, 8 parts: K1 on
    the full-graph ELL at widths 100 and 128 and on a bf16 or fp32 query
@@ -51,8 +51,10 @@ Phases, each ending the run with a non-zero exit on failure:
    per-head (5257, 32) one, and on the out-ELL over the (14289, 128) bf16
    slab; ``spmm_bwd_table`` on the in-ELL into the (5257, 128) and
    (5257, 32) tables (its live positions a row printed) and
-   ``spmm_bwd_wts`` at GAT's per-head shape (over a (5257, 32) table),
-   both also held against autograd of the gather oracle; timed as in
+   ``spmm_bwd_wts`` at every shape GAT's training gives it (the in-ELL
+   over a (5257, w) and the out-ELL over a (14289, w) head table, w 32
+   and 8; its dot products a row printed; two launches bit for bit
+   equal), both also held against autograd of the gather oracle; timed as in
    phase 3, beside ``torch.sparse.mm`` on the CSR (K1, K4) or transposed
    CSR (table gradient) and ``torch.sparse.sampled_addmm`` (weight
    gradient);
@@ -72,8 +74,9 @@ Phases, each ending the run with a non-zero exit on failure:
    epochs.  K4 must launch exactly 2 layers x 8 subgraphs per fp32 epoch,
    K2 in the int8 epochs, the table-gradient kernel 16 times per bf16
    epoch and the weight-gradient kernel in GAT's.  Epoch times (host
-   clock around an epoch ending in a synchronize), val/test F1 and K1's
-   launches per epoch by (rows, deg, feat, dtype) are printed;
+   clock around an epoch ending in a synchronize), val/test F1, and K1's and
+   the weight gradient's launches per epoch by (rows, deg, feat, dtype)
+   are printed;
 8. K6 (flash attention) at the LM slice's shape (B 4, S 1024, H 16 over
    KV 8, D 128, causal; and non-causal at S 512), in bf16 and fp32, on
    (B, H, S, D) views of (B, S, H, D) tensors, against its plain
@@ -91,7 +94,8 @@ Phases, each ending the run with a non-zero exit on failure:
    in bf16 within twice the oracle's own change when every input
    embedding moves by one bf16 ulp (error, sensitivity and their ratio
    printed), and with fp32 activations within 1e-4 of max |logit|;
-   timed, and one more forward traced with ``torch.profiler``;
+   timed, and one more forward of each traced with ``torch.profiler``
+   (K6's device time and share in the fp32 one);
 10. LM decode serving (``launch/serve.py``'s loop): batch 4, a 1056-slot
     cache, 32 tokens, for the full cache and the stale-KV ``long`` cache
     (window 32, ratio 8), ms/token and p50/p99, 8 steps of each traced;
@@ -109,7 +113,8 @@ after; the oracle runs launch nothing.  The last lines are the card's
 ``nvidia-smi`` line, one JSON object ``{"kernels": [...]}`` (each
 kernel's launches on its paths, its worst error, its bar and the times
 of its main-path variant; K3's also its chunk walk's and its times at
-the training shape) and ``{"ok": true, "device": {...}}``.  Without
+the training shape; K6 one entry a body, the fp32 body's launches those
+of the fp32 prefill) and ``{"ok": true, "device": {...}}``.  Without
 a card, or outside a checkout, it exits non-zero and prints no result.
 TF32 is off throughout (fp32 products run in full fp32).
 """
@@ -196,11 +201,19 @@ KERNELS = {
                          "src/repro_torch/csrc/gat_edge.cu",
                          "src/repro/kernels/gat_edge/gat_edge.py:72",
                          "out-ELL head w32"),
-    "flash_attention": ("K6 flash attention (LM prefill)",
+    "flash_attention": ("K6 flash attention (LM prefill), bf16 body",
                         "src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/"
                         "flash_attention.py:76", "bf16 causal S1024"),
+    "flash_attention_fp32": ("K6 flash attention (LM prefill), fp32 body",
+                             "src/repro_torch/csrc/flash_attention.cu",
+                             "src/repro/kernels/flash_attention/"
+                             "flash_attention.py:76", "fp32 causal S1024"),
 }
+# Entries of KERNELS that report one body of another entry's kernel: its
+# records carry that kernel's name and its launches are the wrapper's
+# count over the path that runs only this body (the fp32 prefill).
+BODY_OF = {"flash_attention_fp32": "flash_attention"}
 # Each kernel's bar against its plain version (measure's ``allowed``).
 TOLERANCES = {
     "spmm": "atol = rtol = 1e-5", "halo_spmm": "atol = rtol = 1e-5",
@@ -211,12 +224,14 @@ TOLERANCES = {
     "gat_edge_partial": "acc atol = rtol = 1e-4; m, l 1e-5",
     "flash_attention": "fp32 atol = rtol = 2e-5; bf16 2e-5 + one bf16 "
                        "ulp of the output",
+    "flash_attention_fp32": "atol = rtol = 2e-5",
 }
 SERVING_KERNELS = ("spmm", "halo_spmm", "halo_spmm_stream")
 TRAINING_KERNELS = ("spmm", "halo_spmm", "halo_spmm_skip", "spmm_bwd_table",
                     "spmm_bwd_wts")
 # The path each later kernel runs on, beside serving and training.
-PATH_OF = {"flash_attention": "prefill", "gat_edge_partial": "gat_aggregate"}
+PATH_OF = {"flash_attention": "prefill", "flash_attention_fp32": "fp32 prefill",
+           "gat_edge_partial": "gat_aggregate"}
 # The training configuration: the paper's GCN widths on papers-sim, whose
 # rcm / 256-row-chunk partition has worklist occupancy 0.475, so the fp32
 # store's hidden layers select K4.
@@ -230,29 +245,42 @@ TRAJ_TOL = 1e-4
 # lines of their instantiations are printed after the build.
 REDESIGNED = {"halo_pull": ("halo_list_kernel", "halo_walk_kernel",
                             "halo_skip_kernel"),
-              "flash_attention": ("flash_attention_wgmma",),
-              "spmm": ("spmm_kernel",), "spmm_bwd": ("bwd_table_kernel",)}
+              "flash_attention": ("flash_attention_wgmma",
+                                  "flash_attention_f32"),
+              "spmm": ("spmm_kernel",),
+              "spmm_bwd": ("bwd_table_kernel", "bwd_wts_kernel")}
 
-# K1's launches by (rows, deg, feat, dtype), tallied by tally_k1_shapes.
+# K1's and the weight gradient's launches by (rows, deg, feat, dtype),
+# tallied by tally_shapes.
 K1_SHAPES = collections.Counter()
+WTS_SHAPES = collections.Counter()
 
 
-def tally_k1_shapes() -> None:
-    """Make K1's launching function also tally each launch's (rows, deg,
-    feat, table dtype) in K1_SHAPES, beside the wrapper's own count."""
+def tally_shapes() -> None:
+    """Make K1's launching function and the weight gradient's wrapper (as
+    the SpMM's backward calls it) also tally each launch's (rows, deg,
+    feat, table dtype) in K1_SHAPES and WTS_SHAPES, beside the wrappers'
+    own counts."""
     import importlib
 
     k1 = importlib.import_module("repro_torch.kernels.spmm.spmm")
-    inner = k1._spmm_forward
 
-    def counted(nbr, wts, table):
-        if table.device.type == "cuda" and nbr.shape[0] * table.shape[1]:
-            K1_SHAPES[(int(nbr.shape[0]), int(nbr.shape[1]),
+    def counted(inner, tally, out_cols):
+        # out_cols: the output's columns, so that an empty output (which
+        # the wrapper does not launch for) is not tallied.
+        def fn(nbr, x, table):
+            if (table.device.type == "cuda"
+                    and nbr.shape[0] * out_cols(nbr, table)):
+                tally[(int(nbr.shape[0]), int(nbr.shape[1]),
                        int(table.shape[1]),
                        str(table.dtype).split(".")[-1])] += 1
-        return inner(nbr, wts, table)
+            return inner(nbr, x, table)
+        return fn
 
-    k1._spmm_forward = counted
+    k1._spmm_forward = counted(k1._spmm_forward, K1_SHAPES,
+                               lambda nbr, table: table.shape[1])
+    k1.spmm_bwd_wts = counted(k1.spmm_bwd_wts, WTS_SHAPES,
+                              lambda nbr, table: nbr.shape[1])
 
 
 def ptxas_lines(log: str, kernel: str) -> list:
@@ -792,41 +820,64 @@ def training_kernel_phase(torch, dev, data):
                          + (rows + 1) * width * 4, 2 * live * width),
                 lambda: torch.sparse.mm(csr_t, g), got)
 
-    # Weight gradient at GAT's per-head shape: the same in-ELL over a
-    # (5257, 32) head table.
-    head = torch.randn((rows + 1, 32), generator=gen)
-    head[-1] = 0
-    head = head.to(dev)
-    g = torch.randn((rows, 32), generator=gen).to(dev)
-    got = spmm_bwd_wts(nbr, g, head)
-    w = wts.clone().requires_grad_()
-    with torch.enable_grad():
-        spmm_ref(nbr, w, head).backward(g)
-    check(torch.allclose(got, w.grad, atol=TOL, rtol=TOL),
-          "spmm_bwd_wts disagrees with autograd of the gather oracle")
-    csr = csr_of(torch, nbr, wts, rows + 1)
-    dense = torch.zeros((rows, rows + 1), device=dev)
-    dense[r[keep], nbr[keep].long()] = got[keep]
-    referenced = int(torch.unique(nbr).numel())
+    # Weight gradient at every shape GAT's training gives it: the in-ELL
+    # over the local head table and the out-ELL over the halo head table,
+    # at the hidden layers' per-head width 32 and the output layer's 8.
+    for side, n_rows in (("in", rows + 1), ("out", n_tab)):
+        knbr, kwts = st[f"{side}_nbr"], st[f"{side}_wts"]
+        krows, kdeg = knbr.shape
+        kr = torch.arange(krows, device=dev)[:, None].expand(krows, kdeg)
+        kkeep = kwts != 0
+        csr = csr_of(torch, knbr, kwts, n_rows)
+        referenced = int(torch.unique(knbr).numel())
+        sent = knbr == n_rows - 1
+        # The dot products the data needs: each non-sentinel slot, and the
+        # sentinel row once a row that has one.
+        dots = int((~sent).sum()) + int(sent.any(1).sum())
+        print(f"weight-gradient input: {side}-ELL {tuple(knbr.shape)} over "
+              f"{n_rows} rows, {dots / krows:.3f} dot products a row",
+              flush=True)
+        for width in (32, 8):
+            head = torch.randn((n_rows, width), generator=gen)
+            head[-1] = 0
+            head = head.to(dev)
+            g = torch.randn((krows, width), generator=gen).to(dev)
+            got = spmm_bwd_wts(knbr, g, head)
+            variant = (f"{side}-ELL head w{width}" if width == 32
+                       else f"{side}-ELL w{width}")
+            check(torch.equal(got, spmm_bwd_wts(knbr, g, head)),
+                  f"spmm_bwd_wts [{variant}]: two launches differ")
+            w = kwts.clone().requires_grad_()
+            with torch.enable_grad():
+                spmm_ref(knbr, w, head).backward(g)
+            check(torch.allclose(got, w.grad, atol=TOL, rtol=TOL),
+                  f"spmm_bwd_wts [{variant}] disagrees with autograd of the "
+                  "gather oracle")
+            dense = torch.zeros((krows, n_rows), device=dev)
+            dense[kr[kkeep], knbr[kkeep].long()] = got[kkeep]
 
-    def library():
-        return torch.sparse.sampled_addmm(csr, g, head.t(), beta=0.0)
+            def library():
+                return torch.sparse.sampled_addmm(csr, g, head.t(), beta=0.0)
 
-    lib = library()
-    lib_vals = lib.values()
-    crow, col = lib.crow_indices(), lib.col_indices()
-    lib_rows = torch.repeat_interleave(
-        torch.arange(rows, device=dev), crow[1:] - crow[:-1])
-    check(torch.allclose(lib_vals, dense[lib_rows, col], atol=1e-4,
-                         rtol=1e-4),
-          "library yardstick of spmm_bwd_wts computes another function")
-    measure(torch, records, "spmm_bwd_wts", "in-ELL head w32",
-            [rows, deg, rows + 1, 32], got, spmm_bwd_wts_plain(nbr, g, head),
-            lambda: spmm_bwd_wts(nbr, g, head),
-            lambda: spmm_bwd_wts_plain(nbr, g, head),
-            roofline(nbr.numel() * 4 + g.numel() * 4 + referenced * 32 * 4
-                     + rows * deg * 4, 2 * rows * deg * 32),
-            lambda: library().values(), lib_vals)
+            lib = library()
+            lib_vals = lib.values()
+            crow, col = lib.crow_indices(), lib.col_indices()
+            lib_rows = torch.repeat_interleave(
+                torch.arange(krows, device=dev), crow[1:] - crow[:-1])
+            check(torch.allclose(lib_vals, dense[lib_rows, col], atol=1e-4,
+                                 rtol=1e-4),
+                  f"library yardstick of spmm_bwd_wts [{variant}] computes "
+                  "another function")
+            del dense
+            measure(torch, records, "spmm_bwd_wts", variant,
+                    [krows, kdeg, n_rows, width], got,
+                    spmm_bwd_wts_plain(knbr, g, head),
+                    lambda: spmm_bwd_wts(knbr, g, head),
+                    lambda: spmm_bwd_wts_plain(knbr, g, head),
+                    roofline(knbr.numel() * 4 + g.numel() * 4
+                             + referenced * width * 4 + krows * kdeg * 4,
+                             2 * dots * width),
+                    lambda: library().values(), lib_vals)
     return records
 
 
@@ -890,14 +941,18 @@ def train_path(torch, cfg, data, storage, params, epochs, lr, kernel,
 
     label = f"train {cfg.model}/{storage}"
     c0, k1_0 = dict(LAUNCHES), collections.Counter(K1_SHAPES)
+    w_0 = collections.Counter(WTS_SHAPES)
     traj, grads, times, state = train_run(torch, cfg, data, storage, params,
                                           epochs, lr)
     c1 = dict(LAUNCHES)
     launches = {k: c1[k] - c0[k] for k in c0}
-    k1_shapes = K1_SHAPES - k1_0
+    k1_shapes, w_shapes = K1_SHAPES - k1_0, WTS_SHAPES - w_0
     check(sum(k1_shapes.values()) == launches["spmm"],
           f"{label}: K1's shape tally {dict(k1_shapes)} does not add up to "
           f"its {launches['spmm']} launches")
+    check(sum(w_shapes.values()) == launches["spmm_bwd_wts"],
+          f"{label}: the weight gradient's shape tally {dict(w_shapes)} "
+          f"does not add up to its {launches['spmm_bwd_wts']} launches")
     if expect_per_epoch is not None:
         check(launches[kernel] == expect_per_epoch * epochs,
               f"{label}: {kernel} launched {launches[kernel]} times in "
@@ -954,7 +1009,10 @@ def train_path(torch, cfg, data, storage, params, epochs, lr, kernel,
             "traj_max_err": traj_err, "launches": launches,
             "spmm_per_epoch_by_shape": {
                 f"{r}x{d} w{f} {dt}": n / epochs
-                for (r, d, f, dt), n in sorted(k1_shapes.items())}}
+                for (r, d, f, dt), n in sorted(k1_shapes.items())},
+            "spmm_bwd_wts_per_epoch_by_shape": {
+                f"{r}x{d} w{f} {dt}": n / epochs
+                for (r, d, f, dt), n in sorted(w_shapes.items())}}
 
 
 def training(torch, dev) -> tuple:
@@ -1172,33 +1230,49 @@ def lm_prefill(torch, dev) -> dict:
               f"{LM_BF16_SENS_FACTOR} x the oracle's own one-ulp "
               f"sensitivity {bf16_sens:.3e}")
         c32 = dataclasses.replace(cfg, dtype="float32")
-        l32, ms32, _ = run(c32, "fp32 kernel")
-        d32, _, _ = run(dataclasses.replace(c32, attn_backend="dense"),
-                        "fp32 dense")
+        l32, ms32, launches32 = run(c32, "fp32 kernel")
+        d32, dense32_ms, _ = run(dataclasses.replace(c32,
+                                                     attn_backend="dense"),
+                                 "fp32 dense")
         fp32_rel = float((l32 - d32).abs().max()) / float(d32.abs().max())
         check(fp32_rel <= LM_FP32_TOL,
               f"fp32 prefill through K6 differs from the dense oracle by "
               f"{fp32_rel:.3e} of max |logit| (bar {LM_FP32_TOL})")
         logits32 = l32[:, :LM_TEACHER].clone()
         del l32, d32
-        # Where a prefill's device time goes (one more bf16 forward,
-        # traced; the launch counts above were read before it).
+        # Where a prefill's device time goes (one more bf16 and one more
+        # fp32 forward, traced; the launch counts above were read before),
+        # and K6's share of the fp32 one.
         prof = profile_serve_loop(
             lambda c, _: (c, forward(cfg, params, tokens)), range(1), top=6)
+        prof32 = profile_serve_loop(
+            lambda c, _: (c, forward(c32, params, tokens)), range(1),
+            top=200)
+        k6_32 = [e for e in prof32["top"] if "flash_attention" in e["op"]]
+        check(sum(e["calls"] for e in k6_32) == cfg.num_layers,
+              f"fp32 prefill trace: K6 ops {k6_32}, expected "
+              f"{cfg.num_layers} calls")
+        prof32["k6_device_ms"] = sum(e["device_ms"] for e in k6_32)
+        prof32["k6_share"] = prof32["k6_device_ms"] / prof32["device_ms"]
+        prof32["top"] = prof32["top"][:6]
+        print(f"prefill fp32: {ms32:.2f} ms wall, traced device "
+              f"{prof32['device_ms']:.2f} ms, K6 {prof32['k6_device_ms']:.3f} "
+              f"ms ({100 * prof32['k6_share']:.1f}%)", flush=True)
     res = {"path": "lm prefill", "arch": cfg.name, "batch": LM_BATCH,
            "seq": LM_SEQ, "params": n_params, "prefill_ms": ms,
            "prefill_ms_again": ms2, "dense_prefill_ms": dense_ms,
-           "fp32_prefill_ms": ms32,
+           "fp32_prefill_ms": ms32, "fp32_dense_prefill_ms": dense32_ms,
            "tokens_per_s": LM_BATCH * LM_SEQ / (min(ms, ms2) / 1e3),
            "bf16_rel_err_vs_dense": bf16_rel,
            "bf16_oracle_ulp_sensitivity": bf16_sens,
            "bf16_err_over_sensitivity": bf16_ratio,
            "fp32_rel_err_vs_dense": fp32_rel, "launches": launches,
-           "profile": prof}
+           "fp32_launches": launches32, "profile": prof,
+           "fp32_profile": prof32}
     print(json.dumps(res), flush=True)
     return {"cfg": cfg, "params": params, "tokens": tokens,
             "logits": logits[:, :LM_TEACHER].clone(), "logits32": logits32,
-            "launches": launches}
+            "launches": launches, "fp32_launches": launches32}
 
 
 def _tree_leaves(tree):
@@ -1408,7 +1482,7 @@ def main() -> None:
                       flush=True)
 
     dev = torch.device("cuda", 0)
-    tally_k1_shapes()
+    tally_shapes()
     t0 = time.perf_counter()
     with torch.inference_mode():
         serve_records, serve_launches = run(torch, dev)
@@ -1422,6 +1496,7 @@ def main() -> None:
     pre = lm_prefill(torch, dev)
     lm_decode(torch, dev, pre)
     path_launches = {"prefill": pre["launches"],
+                     "fp32 prefill": pre["fp32_launches"],
                      "gat_aggregate": gat_path(torch, dev, data)["launches"]}
     del pre
     torch.cuda.synchronize()
@@ -1431,14 +1506,18 @@ def main() -> None:
     records = serve_records + train_records + lm_records
     kernels = []
     for name, (title, source, replaces, variant) in KERNELS.items():
-        mine = [r for r in records if r["name"] == name]
+        kernel = BODY_OF.get(name, name)
+        mine = [r for r in records if r["name"] == kernel]
+        if kernel == "flash_attention":         # one entry a body
+            body = variant.split()[0]
+            mine = [r for r in mine if r["variant"].split()[0] == body]
         rec = next(r for r in mine if r["variant"] == variant)
-        launches = {"serving": serve_launches[name] if name
+        launches = {"serving": serve_launches[kernel] if kernel
                     in SERVING_KERNELS else 0,
-                    "training": train_launches[name] if name
+                    "training": train_launches[kernel] if kernel
                     in TRAINING_KERNELS else 0}
         if name in PATH_OF:
-            launches[PATH_OF[name]] = path_launches[PATH_OF[name]][name]
+            launches[PATH_OF[name]] = path_launches[PATH_OF[name]][kernel]
         kernels.append({
             "name": name, "title": title, "route": "cuda",
             "source": source, "replaces": replaces,
@@ -1451,10 +1530,8 @@ def main() -> None:
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "variant": rec["variant"], "shape": rec["shape"]})
-        if name in ("spmm", "spmm_bwd_table"):
-            # Its device times at every main-path shape (phases 3 and 6).
-            kernels[-1]["ms_by_variant"] = {r["variant"]: r["ms"]
-                                            for r in mine}
+        # Its device times at every shape timed (phases 3, 6 and 8).
+        kernels[-1]["ms_by_variant"] = {r["variant"]: r["ms"] for r in mine}
         if name == "halo_spmm_stream":
             # K3 at the training shape (phase 6, fp32) beside its serving
             # shape, and its chunk walk at both.

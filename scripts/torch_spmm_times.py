@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Device time of the port's K1 (``spmm_cuda``) and SpMM table gradient
-(``spmm_bwd_table``) at every shape the main paths give them, on one
-NVIDIA card.
+"""Device time of the port's K1 (``spmm_cuda``) and SpMM backward kernels
+(``spmm_bwd_table``, ``spmm_bwd_wts``) at every shape the main paths give
+them, on one NVIDIA card.
 
     PYTHONPATH=src python3 scripts/torch_spmm_times.py [--label NAME]
 
@@ -12,8 +12,11 @@ sim at scale 1.0 in 8 parts (the full-graph in-ELL at widths 128 fp32,
 128 bf16 and 100 fp32; a 256-query batch over the serving store in fp32
 and bf16) and papers-sim at scale 1.0 in 8 rcm parts with 256-row chunks,
 subgraph 0 (the in-ELL over the local table at widths 128 and 32 fp32,
-the out-ELL over the bf16 halo slab, and the table gradient through the
-transposed in-ELL at widths 128 and 32).  Each time is
+the out-ELL over the bf16 halo slab, the table gradient through the
+transposed in-ELL at widths 128 and 32, and the weight gradient at GAT's
+shapes: the in-ELL over the local table and the out-ELL over the halo
+table, at the hidden layers' per-head width 32 and the output layer's
+8).  Each time is
 ``chip_smoke.device_ms``: 20 calls queued behind a spin kernel between two
 CUDA events.  Prints the card's ``nvidia-smi`` name and power limit and
 one JSON line ``{"label", "card", "ms": {shape: ms}}``.
@@ -40,7 +43,8 @@ def main() -> None:
     from repro_torch.core import serving
     from repro_torch.core.digest import prepare_graph_data
     from repro_torch.graph import make_dataset
-    from repro_torch.kernels.spmm import spmm_bwd_table, spmm_cuda
+    from repro_torch.kernels.spmm import (spmm_bwd_table, spmm_bwd_wts,
+                                          spmm_cuda)
 
     if not torch.cuda.is_available():
         chip_smoke.fail("torch.cuda.is_available() is false")
@@ -103,6 +107,14 @@ def main() -> None:
             ms[f"table grad {pos.shape[0]}x{pos.shape[1]} w{width}"] = (
                 chip_smoke.device_ms(torch,
                                      lambda: spmm_bwd_table(pos, wts, gr)))
+        for side, rows in (("in", n_in), ("out", n_out)):
+            knbr = st[f"{side}_nbr"]
+            for width in (32, 8):
+                tab = table(rows, width, torch.float32)
+                gr = table(knbr.shape[0], width, torch.float32)
+                ms[f"wts grad {side} {knbr.shape[0]}x{knbr.shape[1]} "
+                   f"w{width}"] = chip_smoke.device_ms(
+                       torch, lambda: spmm_bwd_wts(knbr, gr, tab))
     import repro_torch
     print(card, flush=True)
     print(json.dumps({"label": args.label, "card": card,

@@ -25,24 +25,6 @@ __device__ __forceinline__ float to_float(int8_t x) {
   return static_cast<float>(x);
 }
 
-// Thread layout of the one-thread-per-element ELL kernels (K5 and the
-// SpMM weight gradient): one thread per (row, feature) pair.  Consecutive
-// threads take consecutive features, so a gathered table row is read
-// coalesced and the row's nbr/wts entries are one broadcast load per k.
-// blockDim = (feature threads, rows per block).
-constexpr int kThreadsPerBlock = 256;
-
-inline dim3 ell_block(int feat) {
-  int bx = ((feat + 31) / 32) * 32;
-  if (bx > 128) bx = 128;
-  return dim3(bx, kThreadsPerBlock / bx);
-}
-
-inline dim3 ell_grid(int rows, int feat, dim3 block) {
-  return dim3((rows + block.y - 1) / block.y,
-              (feat + block.x - 1) / block.x);
-}
-
 // The raw bits of kVec consecutive table elements: one 16-, 8- or 4-byte
 // load of fp32, bf16 or int8 when kVec is 4 (int8 as one 32-bit word).
 // The warp-per-row bodies gather a batch of these before they convert any

@@ -20,18 +20,33 @@
 // of inputs and output: 17 us at the bf16 tensor-core rate, 257 us at
 // the fp32 rate of the CUDA cores.
 //
-// fp32 inputs (flash_attention_kernel): Q is scaled by sm_scale in fp32
-// first, as in the reference, and every product is an fp32 FMA on the
-// CUDA cores, fed from shared memory: it runs at 3.5x its fp32-rate bound
-// and beats SDPA's fp32 path.  One block of 256 threads per (batch *
-// head, 64-row Q tile), the heaviest (last) causal tiles scheduled first.
-// The scaled Q tile, one 64-row K tile and one V tile are staged in
-// shared memory as fp32 (K and Q rows padded to D + 1 floats, so a warp's
-// column reads hit distinct banks).  Thread (tx, ty) of the 16 x 16 grid
-// owns rows ty + 16 i (i < 4) of the tile: it computes S at columns
-// tx + 16 j (j < 4), the row max and sum by shuffles across the 16
-// threads of the row, writes P to shared memory, and accumulates acc at
-// head dims tx + 16 j (j < D / 16).
+// fp32 inputs (flash_attention_f32) keep the reference's arithmetic on
+// the CUDA cores: Q is scaled by sm_scale in fp32 first, each S element is
+// one fp32 FMA chain over d in ascending order, the online softmax runs per
+// 64-key tile, and O takes one FMA per key in ascending order.  No TF32.
+// What held the first body (one 64-row tile, a 4 x 4 micro-tile a thread)
+// to 3.5x its bound was shared memory: scalar reads fed 2-2.7 FMAs a word,
+// 115 KB a block left one block of 8 warps an SM, and loads did not overlap
+// the math.  This body, per block of 256 threads and one 128-row Q tile
+// (the heaviest causal tiles scheduled first):
+// - Register-blocked micro-tiles fed by 16-byte shared reads.  Thread
+//   (rg, cg) owns rows rg + 16 u (u < 8): an 8 x 4 tile of S (columns
+//   cg + 16 v), Q and K read as float4 along d (12 reads a 128 FMAs), and
+//   8 x D/16 of O, P read as float4 along the keys and V as float4 along d
+//   (16 reads a 256 FMAs at D 128).  Q and K rows are padded to D + 4
+//   floats, P rows to 80, so no read or write of a warp conflicts beyond
+//   its bytes.
+// - K double-buffered and V single-buffered by cp.async (16-byte .cg
+//   copies; a view that is not 16-byte aligned takes 4-byte copies in the
+//   same kernel): K tile t + 1 and V tile t are in flight while tile t's
+//   S and softmax run.  Three barriers a tile.  Rows past the sequence
+//   arrive as zeros.
+// - 204 KB of shared memory at D 128 (Q, two K stages, V, P): one block
+//   of 8 warps an SM, each warp with 64 independent FMA chains.  A 128-row
+//   Q tile halves the K/V traffic and the barriers per FMA of a 64-row
+//   one; two 64-row blocks an SM would not fit K's two stages.
+// The row max and sum reduce over the 16 lanes of a half-warp by shuffles,
+// in the order of the first body, whose results this body repeats.
 //
 // bf16 inputs (flash_attention_wgmma) run on the tensor cores: fp32 FMAs
 // fed from shared memory reach about 20 TFLOP/s, 50x the bf16 bound.
@@ -73,12 +88,6 @@
 
 namespace {
 
-constexpr int kBQ = 64;           // Q rows per block
-constexpr int kBK = 64;           // K/V rows per tile
-constexpr int kThreads = 256;     // 16 x 16
-constexpr int kRows = kBQ / 16;   // rows per thread
-constexpr int kCols = kBK / 16;   // S columns per thread
-constexpr int kLdP = kBK + 1;     // padded row stride of the P tile
 constexpr float kNegInf = -1e30f;
 
 struct Strides {
@@ -88,172 +97,343 @@ struct Strides {
   int64_t o_b, o_h, o_s;
 };
 
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// ---------------------------------------------------------------------------
+// fp32: register-blocked CUDA-core tiles, K/V fed by cp.async
+// ---------------------------------------------------------------------------
+
+constexpr int kF32Q = 128;              // Q rows per block
+constexpr int kF32K = 64;               // K/V rows per tile
+constexpr int kF32Threads = 256;        // 16 row groups x 16 column groups
+constexpr int kF32Rows = kF32Q / 16;    // rows a thread: rg + 16 u
+constexpr int kF32Cols = kF32K / 16;    // S columns a thread: cg + 16 v
+// P row stride: the two row groups of a warp write and read 16 banks
+// apart.
+constexpr int kLdP = kF32K + 16;
+
+// Shared-memory geometry of the fp32 body at head dim D (sizes in
+// floats).  Q and K rows are padded by 4 floats, so the rows a warp reads
+// at one d start 4 banks apart and keep 16-byte alignment.
 template <int D>
-constexpr int smem_floats() {
-  return kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * kLdP;
+struct F32Geo {
+  static constexpr int kLd = D + 4;      // Q and K row stride
+  static constexpr int kTn = D / 16;     // O columns a thread
+  static constexpr int kVw = kTn % 4 == 0 ? 4 : kTn % 2 == 0 ? 2 : 1;
+  static constexpr int kQ = kF32Q * kLd;
+  static constexpr int kK = kF32K * kLd;  // one of two stages
+  static constexpr int kV = kF32K * D;
+  static constexpr int kP = kF32Q * kLdP;
+  static constexpr size_t kBytes = sizeof(float) * (kQ + 2 * kK + kV + kP);
+};
+
+// cp.async of kBytes (16: .cg, 4: .ca) from src to shared dst; `valid`
+// false writes zeros and reads nothing.
+template <int kBytes>
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         bool valid) {
+  const int n = valid ? kBytes : 0;
+  if constexpr (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(n) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(n) : "memory");
+  }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int H,
-                       int KV, int S, Strides st, int causal,
-                       float sm_scale) {
-  constexpr int kLd = D + 1;
-  constexpr int kDims = D / 16;   // head dims per thread
-  extern __shared__ float smem[];
-  float* qs = smem;                  // [kBQ][kLd]
-  float* ks = qs + kBQ * kLd;        // [kBK][kLd]
-  float* vs = ks + kBK * kLd;        // [kBK][D]
-  float* ps = vs + kBK * D;          // [kBQ][kLdP]
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's newest cp.async groups are in
+// flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Starts copying rows r0 .. r0 + kRowsT - 1 of a head's (S, D) view (row
+// stride ld_g elements) into shared rows of stride ld_s; rows at or past S
+// arrive as zeros.  kVec: 16-byte copies (aligned views), else 4-byte.
+template <int D, int kRowsT, bool kVec>
+__device__ __forceinline__ void load_tile(float* dst, int ld_s,
+                                          const float* __restrict__ src,
+                                          int64_t ld_g, int r0, int S) {
+  constexpr int kW = kVec ? 4 : 1;
+  constexpr int kPerRow = D / kW;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < kRowsT * kPerRow; e += kF32Threads) {
+    const int r = e / kPerRow;
+    const int c = (e - r * kPerRow) * kW;
+    const bool ok = r0 + r < S;
+    cp_async<4 * kW>(dst + r * ld_s + c,
+                     ok ? src + (r0 + r) * ld_g + c : src, ok);
+  }
+}
+
+// How far the S and P V loops are unrolled (4-wide steps): measured
+// best of 1-32 and 1-16 on the card (PERF.md, section 6).
+constexpr int kUnrollS = 8;
+constexpr int kUnrollPV = 4;
+
+// One K/V tile of the fp32 body, from K tile t landed to O updated: S,
+// the masked online softmax, P to shared memory, then O += P V once V
+// tile t has landed.  kUpper: the tile lies wholly above the diagonal for
+// the Q tile's first 64 rows (u < kF32Rows / 2), so those rows are left
+// as they are (each would add p = 0 at alpha = 1: exactly nothing).
+template <int D, bool kUpper>
+__device__ __forceinline__ void f32_tile(
+    const float* qs, const float* kt, const float* vs, float* ps, int rg,
+    int cg, int q0, int k0, int S, int causal, float (&m)[kF32Rows],
+    float (&l)[kF32Rows], float (&o)[kF32Rows][F32Geo<D>::kTn]) {
+  using G = F32Geo<D>;
+  constexpr int u0 = kUpper ? kF32Rows / 2 : 0;
+
+  // S = Q K^T: one FMA chain over d in ascending order per element,
+  // operands read as float4 along d.
+  float s[kF32Rows][kF32Cols];
+#pragma unroll
+  for (int u = u0; u < kF32Rows; ++u)
+#pragma unroll
+    for (int c = 0; c < kF32Cols; ++c) s[u][c] = 0.f;
+#pragma unroll (kUnrollS)
+  for (int d = 0; d < D; d += 4) {
+    float4 kk[kF32Cols];
+#pragma unroll
+    for (int c = 0; c < kF32Cols; ++c) {
+      kk[c] = *reinterpret_cast<const float4*>(kt + (cg + 16 * c) * G::kLd
+                                               + d);
+    }
+#pragma unroll
+    for (int u = u0; u < kF32Rows; ++u) {
+      const float4 qq = *reinterpret_cast<const float4*>(
+          qs + (rg + 16 * u) * G::kLd + d);
+#pragma unroll
+      for (int c = 0; c < kF32Cols; ++c) {
+        s[u][c] = fmaf(qq.x, kk[c].x, s[u][c]);
+        s[u][c] = fmaf(qq.y, kk[c].y, s[u][c]);
+        s[u][c] = fmaf(qq.z, kk[c].z, s[u][c]);
+        s[u][c] = fmaf(qq.w, kk[c].w, s[u][c]);
+      }
+    }
+  }
+
+  // Mask, the online softmax of each row (its 64 columns lie in the 16
+  // lanes of a half-warp), and P into shared memory.
+#pragma unroll
+  for (int u = u0; u < kF32Rows; ++u) {
+    const int r = q0 + rg + 16 * u;
+    float mx = kNegInf;
+#pragma unroll
+    for (int c = 0; c < kF32Cols; ++c) {
+      const int col = k0 + cg + 16 * c;
+      if (col >= S || (causal && col > r)) s[u][c] = kNegInf;
+      mx = fmaxf(mx, s[u][c]);
+    }
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(kFullMask, mx, off));
+    const float m_new = fmaxf(m[u], mx);
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < kF32Cols; ++c) {
+      const float p = expf(s[u][c] - m_new);
+      ps[(rg + 16 * u) * kLdP + cg + 16 * c] = p;
+      sum += p;
+    }
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(kFullMask, sum, off);
+    const float alpha = expf(m[u] - m_new);
+    l[u] = alpha * l[u] + sum;
+    m[u] = m_new;
+#pragma unroll
+    for (int c = 0; c < G::kTn; ++c) o[u][c] *= alpha;
+  }
+  cp_async_wait<1>();        // V tile t has landed
+  __syncthreads();           // ... and every row's P is in place
+
+  // O += P V: for each key in ascending order one FMA per element; P read
+  // as float4 along the keys, V as kVw-wide vectors along d.
+#pragma unroll (kUnrollPV)
+  for (int j = 0; j < kF32K; j += 4) {
+    float4 pp[kF32Rows];
+#pragma unroll
+    for (int u = u0; u < kF32Rows; ++u) {
+      pp[u] = *reinterpret_cast<const float4*>(ps + (rg + 16 * u) * kLdP
+                                               + j);
+    }
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const float* vr = vs + (j + jj) * D + G::kVw * cg;
+      float vv[G::kTn];
+#pragma unroll
+      for (int w = 0; w < G::kTn / G::kVw; ++w) {
+        if constexpr (G::kVw == 4) {
+          const float4 x = *reinterpret_cast<const float4*>(vr + 64 * w);
+          vv[4 * w] = x.x; vv[4 * w + 1] = x.y;
+          vv[4 * w + 2] = x.z; vv[4 * w + 3] = x.w;
+        } else if constexpr (G::kVw == 2) {
+          const float2 x = *reinterpret_cast<const float2*>(vr + 32 * w);
+          vv[2 * w] = x.x; vv[2 * w + 1] = x.y;
+        } else {
+          vv[w] = vr[16 * w];
+        }
+      }
+#pragma unroll
+      for (int u = u0; u < kF32Rows; ++u) {
+        const float p = jj == 0 ? pp[u].x : jj == 1 ? pp[u].y
+                        : jj == 2 ? pp[u].z : pp[u].w;
+#pragma unroll
+        for (int c = 0; c < G::kTn; ++c) o[u][c] = fmaf(p, vv[c], o[u][c]);
+      }
+    }
+  }
+}
+
+// Block (blockIdx.x, blockIdx.y): batch * head bh, and the 128-row Q tile
+// counted from the last one (the heaviest under causal masking first).
+// Thread (rg, cg) = (tid / 16, tid % 16) owns rows rg + 16 u (u < 8) of
+// the tile; of S its columns cg + 16 v (v < 4) and of O its columns
+// kVw cg + 16 kVw w + x (x < kVw, w < kTn / kVw).
+template <int D, bool kVec>
+__global__ void __launch_bounds__(kF32Threads, 1)
+flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ out,
+                    int H, int KV, int S, Strides st, int causal,
+                    float sm_scale) {
+  using G = F32Geo<D>;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                  // [kF32Q][kLd], scaled by sm_scale
+  float* ks = qs + G::kQ;            // two stages of [kF32K][kLd]
+  float* vs = ks + 2 * G::kK;        // [kF32K][D]
+  float* ps = vs + G::kV;            // [kF32Q][kLdP]
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
+  const int rg = tid >> 4;
+  const int cg = tid & 15;
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
   const int kvh = h / (H / KV);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;   // heaviest first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kF32Q;
+  const float* qb = q + b * st.q_b + h * st.q_h;
+  const float* kb = k + b * st.k_b + kvh * st.k_h;
+  const float* vb = v + b * st.v_b + kvh * st.v_h;
+  const int k_end = causal ? min(S, q0 + kF32Q) : S;
+  const int n_tiles = (k_end + kF32K - 1) / kF32K;
 
-  const T* qb = q + b * st.q_b + h * st.q_h;
-  const T* kb = k + b * st.k_b + kvh * st.k_h;
-  const T* vb = v + b * st.v_b + kvh * st.v_h;
+  // Group 0: the Q tile and K tile 0.
+  load_tile<D, kF32Q, kVec>(qs, G::kLd, qb, st.q_s, q0, S);
+  load_tile<D, kF32K, kVec>(ks, G::kLd, kb, st.k_s, 0, S);
+  cp_async_commit();
 
-  for (int e = tid; e < kBQ * D; e += kThreads) {
-    const int r = e / D;
-    const int c = e - r * D;
-    float x = 0.f;
-    if (q0 + r < S) x = to_float(qb[(q0 + r) * st.q_s + c]) * sm_scale;
-    qs[r * kLd + c] = x;
+  float m[kF32Rows], l[kF32Rows], o[kF32Rows][G::kTn];
+#pragma unroll
+  for (int u = 0; u < kF32Rows; ++u) {
+    m[u] = kNegInf;
+    l[u] = 0.f;
+#pragma unroll
+    for (int c = 0; c < G::kTn; ++c) o[u][c] = 0.f;
   }
 
-  float m[kRows], l[kRows], acc[kRows][kDims];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kDims; ++j) acc[i][j] = 0.f;
-  }
-
-  const int k_end = causal ? min(S, q0 + kBQ) : S;
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
-    __syncthreads();   // the previous tile's readers are done
-    for (int e = tid; e < kBK * D; e += kThreads) {
-      const int r = e / D;
-      const int c = e - r * D;
-      float kx = 0.f, vx = 0.f;
-      if (k0 + r < S) {
-        kx = to_float(kb[(k0 + r) * st.k_s + c]);
-        vx = to_float(vb[(k0 + r) * st.v_s + c]);
-      }
-      ks[r * kLd + c] = kx;
-      vs[r * D + c] = vx;
-    }
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kF32K;
+    // P V of tile t - 1 is done: V, P and K stage (t + 1) & 1 are free.
     __syncthreads();
-
-    float s[kRows][kCols];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
-#pragma unroll 16
-    for (int d = 0; d < D; ++d) {
-      float qa[kRows], kc[kCols];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) qa[i] = qs[(ty + 16 * i) * kLd + d];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) kc[j] = ks[(tx + 16 * j) * kLd + d];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) s[i][j] = fmaf(qa[i], kc[j], s[i][j]);
+    // Two more groups: V tile t, then K tile t + 1 (empty past the last).
+    load_tile<D, kF32K, kVec>(vs, D, vb, st.v_s, k0, S);
+    cp_async_commit();
+    if (t + 1 < n_tiles) {
+      load_tile<D, kF32K, kVec>(ks + ((t + 1) & 1) * G::kK, G::kLd, kb,
+                                st.k_s, k0 + kF32K, S);
     }
-
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int r = q0 + ty + 16 * i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int c = k0 + tx + 16 * j;
-        if (c >= S || (causal && c > r)) s[i][j] = kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        ps[(ty + 16 * i) * kLdP + tx + 16 * j] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      const float alpha = expf(m[i] - m_new);
-      l[i] = alpha * l[i] + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < kDims; ++j) acc[i][j] *= alpha;
-    }
+    cp_async_commit();
+    cp_async_wait<2>();        // K tile t (and the Q tile) have landed
     __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      float pv[kRows], vv[kDims];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) pv[i] = ps[(ty + 16 * i) * kLdP + c];
-#pragma unroll
-      for (int j = 0; j < kDims; ++j) vv[j] = vs[c * D + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kDims; ++j)
-          acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+    if (t == 0) {
+      // Q is scaled by sm_scale first, as in the reference.
+      for (int e = tid; e < kF32Q * D; e += kF32Threads) {
+        const int r = e / D;
+        qs[r * G::kLd + e - r * D] *= sm_scale;
+      }
+      __syncthreads();
+    }
+    const float* kt = ks + (t & 1) * G::kK;
+    if (causal && k0 >= q0 + kF32Q / 2) {
+      f32_tile<D, true>(qs, kt, vs, ps, rg, cg, q0, k0, S, causal, m, l, o);
+    } else {
+      f32_tile<D, false>(qs, kt, vs, ps, rg, cg, q0, k0, S, causal, m, l,
+                         o);
     }
   }
 
-  T* ob = out + b * st.o_b + h * st.o_h;
+  float* ob = out + b * st.o_b + h * st.o_h;
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int r = q0 + ty + 16 * i;
+  for (int u = 0; u < kF32Rows; ++u) {
+    const int r = q0 + rg + 16 * u;
     if (r >= S) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
+    const float denom = fmaxf(l[u], 1e-30f);
+    float* orow = ob + r * st.o_s + G::kVw * cg;
 #pragma unroll
-    for (int j = 0; j < kDims; ++j)
-      ob[r * st.o_s + tx + 16 * j] = from_float<T>(acc[i][j] / denom);
+    for (int w = 0; w < G::kTn / G::kVw; ++w) {
+      const float* x = o[u] + G::kVw * w;
+      float* dst = orow + 16 * G::kVw * w;
+      if constexpr (G::kVw == 4) {
+        *reinterpret_cast<float4*>(dst) = make_float4(
+            x[0] / denom, x[1] / denom, x[2] / denom, x[3] / denom);
+      } else if constexpr (G::kVw == 2) {
+        *reinterpret_cast<float2*>(dst) = make_float2(x[0] / denom,
+                                                      x[1] / denom);
+      } else {
+        dst[0] = x[0] / denom;
+      }
+    }
   }
 }
 
-template <typename T, int D>
-cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* out,
-                   int B, int H, int KV, int S, const Strides& st,
-                   int causal, float sm_scale, cudaStream_t stream) {
-  const size_t smem = smem_floats<D>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, D>,
+// Whether a (B, heads, S, D) fp32 view can be copied 16 bytes at a time:
+// a 16-byte aligned base and strides of whole vectors (over dims of
+// extent above 1).
+inline bool vec16(const void* p, int B, int heads, int S, int64_t sb,
+                  int64_t sh, int64_t ss) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (B == 1 || sb % 4 == 0)
+         && (heads == 1 || sh % 4 == 0) && (S == 1 || ss % 4 == 0);
+}
+
+template <int D, bool kVec>
+cudaError_t run_fp32(const void* q, const void* k, const void* v, void* out,
+                     int B, int H, int KV, int S, const Strides& st,
+                     int causal, float sm_scale, cudaStream_t stream) {
+  constexpr size_t smem = F32Geo<D>::kBytes;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_f32<D, kVec>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
-  flash_attention_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), H, KV, S, st, causal,
-      sm_scale);
+  const dim3 grid(B * H, (S + kF32Q - 1) / kF32Q);
+  flash_attention_f32<D, kVec><<<grid, kF32Threads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), H, KV, S, st,
+      causal, sm_scale);
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_fp32(const void* q, const void* k, const void* v,
+                        void* out, int B, int H, int KV, int S,
+                        const Strides& st, int causal, float sm_scale,
+                        cudaStream_t stream) {
+  const bool vec = vec16(q, B, H, S, st.q_b, st.q_h, st.q_s)
+                   && vec16(k, B, KV, S, st.k_b, st.k_h, st.k_s)
+                   && vec16(v, B, KV, S, st.v_b, st.v_h, st.v_s);
+  return vec ? run_fp32<D, true>(q, k, v, out, B, H, KV, S, st, causal,
+                                 sm_scale, stream)
+             : run_fp32<D, false>(q, k, v, out, B, H, KV, S, st, causal,
+                                  sm_scale, stream);
+}
 
 // ---------------------------------------------------------------------------
 // bf16: warpgroup MMA on TMA-fed tiles
@@ -281,10 +461,6 @@ struct Geo {
       kSwz == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
       : kSwz == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
@@ -826,8 +1002,8 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
 #define FA_CASE(DIM)                                                        \
   case DIM:                                                                 \
     return dtype == kFloat32                                                \
-               ? launch_fp32<float, DIM>(q, k, v, out, B, H, KV, S, st,    \
-                                         causal, sm_scale, s)              \
+               ? launch_fp32<DIM>(q, k, v, out, B, H, KV, S, st, causal,   \
+                                  sm_scale, s)                             \
                : launch_wgmma<DIM>(q, k, v, out, B, H, KV, S, st, causal,  \
                                    sm_scale, s);
   switch (D) {

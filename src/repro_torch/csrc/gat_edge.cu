@@ -18,9 +18,9 @@
 // nbr, valid, s_dst, the referenced s_src and z rows, acc, m and l, each
 // once: about 5 MB at GAT's per-head shape on the papers-sim partition.
 //
-// Design: one thread per (row, feature), the layout of the ELL SpMM
-// (common.cuh): a warp reads consecutive features of one gathered z row,
-// and the row's nbr/valid/s_src entries are broadcast loads.  Every thread
+// Design: one thread per (row, feature): a warp reads consecutive
+// features of one gathered z row, and the row's nbr/valid/s_src entries
+// are broadcast loads.  Every thread
 // of a row repeats the scalar score and softmax update (cheap next to the
 // gather) so no thread waits on another; the thread of feature 0 writes m
 // and l.  No atomics: the result is the same run to run.
@@ -30,6 +30,21 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLeakySlope = 0.2f;
+
+// Thread layout: one thread per (row, feature) pair, consecutive threads
+// on consecutive features.  blockDim = (feature threads, rows per block).
+constexpr int kThreadsPerBlock = 256;
+
+dim3 ell_block(int feat) {
+  int bx = ((feat + 31) / 32) * 32;
+  if (bx > 128) bx = 128;
+  return dim3(bx, kThreadsPerBlock / bx);
+}
+
+dim3 ell_grid(int rows, int feat, dim3 block) {
+  return dim3((rows + block.y - 1) / block.y,
+              (feat + block.x - 1) / block.x);
+}
 
 __global__ void __launch_bounds__(kThreadsPerBlock)
 gat_edge_kernel(const int32_t* __restrict__ nbr,

@@ -17,7 +17,8 @@
 // weights, g and dtable, about 9 MB (2.3 us at the HBM rate), but each row
 // is a chain of dependent round trips: the positions, then the weights and
 // g rows they name.  That latency bounds it.  spmm_bwd_wts at GAT's
-// per-head shape (5256 x 56 over 5257 x 32) moves about 5 MB.
+// per-head shape (5256 x 56 over 5257 x 32) moves about 3.7 MB (1.1 us at
+// the HBM rate): nbr, g, the referenced table rows and dwts, each once.
 //
 // spmm_bwd_table.  The scatter-add of dtable would need float atomics,
 // whose order changes from run to run; the kernel gathers instead,
@@ -40,9 +41,29 @@
 // are not in the transpose (it is a constant of the layout), so its dtable
 // row is 0.
 //
-// spmm_bwd_wts takes one thread per (row, slot) and sums the feature dot
-// product in ascending f with fp32 FMAs.  Neither kernel uses atomics, so
-// both results are deterministic.
+// spmm_bwd_wts.  One warp owns an ELL row i (8 a block), as K1 does.  It
+// reads the row's nbr 64 slots at a time (two coalesced loads in flight
+// with g[i]'s first 128 features), and a __ballot_sync per 32-slot
+// segment appends the live slots, those whose index is not the sentinel
+// n_tab - 1, to the warp's list in shared memory in ascending k, and
+// notes each slot's list position; the sentinel row gets one entry of its
+// own, once a row.  g[i] is staged in shared memory.  Lane e % 32 then
+// takes list entry e: it gathers its table row, 4 vectors (8 elements) in
+// flight before it converts any, and sums <g[i], table[s]> from +0.0 with
+// one __fmaf_rn a feature in ascending f, g read by broadcast: the chain
+// of the one-thread-per-slot kernel this replaces, so each value is bit
+// for bit the same.  The warp writes dwts[i, :] in one coalesced pass,
+// every sentinel slot taking the sentinel's value.  That equals the
+// slot-by-slot result for any contents of the sentinel row (zero,
+// nonzero or NaN) and any weights, so unlike K1's skip it needs no
+// precondition.  At GAT's in-ELL (5256 x 56, 3.0 real edges a row) a warp
+// computes four dot products where the old kernel ran 56 threads, each
+// re-reading g[i] and walking its own row with uncoalesced scalar loads.
+// What remains is latency, the nbr round trip and then one of gathers,
+// and instruction issue: registers are capped at 48 so that all 5256
+// rows are in flight at once (two or four rows a warp measured slower
+// over the four GAT shapes, PERF.md, section 6).  Neither kernel uses
+// atomics, so both results are deterministic.
 #include "common.cuh"
 
 namespace {
@@ -195,25 +216,191 @@ cudaError_t run_table(const int32_t* pos, const float* wts, const float* g,
   return cudaGetLastError();
 }
 
-}  // namespace
 
-template <typename T>
-__global__ void __launch_bounds__(kThreadsPerBlock)
+// ---------------------------------------------------------------------------
+// spmm_bwd_wts: a warp per ELL row, a lane per live slot
+// ---------------------------------------------------------------------------
+
+constexpr int kWtsSlots = 64;    // slots a list round reads: two segments
+constexpr int kGChunk = 128;     // features of g[i] staged at a time
+// Table elements a lane gathers together before their FMAs (vectors of 4,
+// or single elements), and the blocks an SM must hold: a cap of 48
+// registers a thread, so that the 5256 rows of the training ELLs are all
+// in flight at once (40 warps an SM; a cap of 64 left a second wave).
+template <int kVec>
+constexpr int kWtsBatch = kVec == 4 ? 4 : 8;
+constexpr int kWtsMinBlocks = 5;
+
+// acc + sum_f gs[f] * row[f] over f < nf: one __fmaf_rn a feature in
+// ascending f, kWtsBatch gathers issued before any is converted.  gs is
+// the warp's staged chunk of g[i], read by broadcast.
+template <typename T, int kVec>
+__device__ __forceinline__ float dot_chunk(const float* gs,
+                                           const T* __restrict__ row, int nf,
+                                           float acc) {
+  constexpr int kB = kWtsBatch<kVec>;
+  for (int f = 0; f < nf; f += kB * kVec) {
+    Raw<T, kVec> x[kB];
+#pragma unroll
+    for (int u = 0; u < kB; ++u) {
+      if (f + u * kVec < nf) {
+        x[u] = *reinterpret_cast<const Raw<T, kVec>*>(row + f + u * kVec);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kB; ++u) {
+      if (f + u * kVec < nf) {
+        float a[kVec], gv[kVec];
+        unpack<T, kVec>(x[u], a);
+        if constexpr (kVec == 4) {
+          const float4 q = *reinterpret_cast<const float4*>(gs + f + 4 * u);
+          gv[0] = q.x; gv[1] = q.y; gv[2] = q.z; gv[3] = q.w;
+        } else {
+          gv[0] = gs[f + u];
+        }
+#pragma unroll
+        for (int v = 0; v < kVec; ++v) acc = __fmaf_rn(gv[v], a[v], acc);
+      }
+    }
+  }
+  return acc;
+}
+
+// g[i, f0 + lane + 32 m] for m < kGChunk / 32 (0 past the row).
+__device__ __forceinline__ void load_g(const float* __restrict__ gi, int f0,
+                                       int feat,
+                                       float (&x)[kGChunk / 32]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int m = 0; m < kGChunk / 32; ++m) {
+    const int f = f0 + lane + 32 * m;
+    x[m] = f < feat ? gi[f] : 0.f;
+  }
+}
+
+__device__ __forceinline__ void store_g(float* gs,
+                                        const float (&x)[kGChunk / 32]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int m = 0; m < kGChunk / 32; ++m) gs[lane + 32 * m] = x[m];
+}
+
+template <typename T, int kVec>
+__global__ void __launch_bounds__(kWarps * 32, kWtsMinBlocks)
 bwd_wts_kernel(const int32_t* __restrict__ nbr, const float* __restrict__ g,
                const T* __restrict__ table, float* __restrict__ dwts,
-               int rows, int deg, int feat) {
-  const int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.x
-                    + threadIdx.x;
-  if (p >= static_cast<int64_t>(rows) * deg) return;
-  const int64_t i = p / deg;
-  const T* row = table + static_cast<int64_t>(nbr[p]) * feat;
+               int rows, int deg, int feat, int sentinel) {
+  __shared__ __align__(16) float g_s[kWarps][kGChunk];
+  __shared__ int list_s[kWarps][kWtsSlots + 1];
+  __shared__ float val_s[kWarps][kWtsSlots + 1];
+  __shared__ int at_s[kWarps][kWtsSlots];
+  constexpr int kSeg = kWtsSlots / 32;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
+  if (i >= rows) return;                      // the whole warp leaves
+  const int32_t* nr = nbr + i * deg;
   const float* gi = g + i * feat;
-  float acc = 0.f;
-  for (int f = 0; f < feat; ++f) {
-    acc = __fmaf_rn(gi[f], to_float(row[f]), acc);
+  float* out = dwts + i * deg;
+  float* gs = g_s[warp];
+  int* list = list_s[warp];
+  float* val = val_s[warp];
+  int* at = at_s[warp];
+  float sent = 0.f;          // <g[i], table[sentinel]> once computed
+  bool have_sent = false;    // warp-uniform
+  for (int k0 = 0; k0 < deg; k0 += kWtsSlots) {
+    // The round's slots and g's first chunk: all loads in flight at once.
+    int s[kSeg];
+#pragma unroll
+    for (int j = 0; j < kSeg; ++j) {
+      const int k = k0 + 32 * j + lane;
+      s[j] = k < deg ? nr[k] : sentinel;
+    }
+    float gx[kGChunk / 32];
+    load_g(gi, 0, feat, gx);
+    __syncwarp();            // the warp is done with the last round
+    // The live slots (not the sentinel) in ascending k, each slot's list
+    // position in `at` (-1: the sentinel), then one entry for the
+    // sentinel row if the round has a sentinel slot and no earlier round
+    // computed it.
+    int n = 0;
+    bool any_sent = false;
+#pragma unroll
+    for (int j = 0; j < kSeg; ++j) {
+      const bool in = k0 + 32 * j + lane < deg;
+      const bool live = in && s[j] != sentinel;
+      const unsigned m = __ballot_sync(kFullMask, live);
+      const int rank = n + __popc(m & ((1u << lane) - 1));
+      if (live) list[rank] = s[j];
+      at[32 * j + lane] = live ? rank : -1;
+      n += __popc(m);
+      any_sent |= __any_sync(kFullMask, in && s[j] == sentinel);
+    }
+    int sent_at = -1;
+    if (any_sent && !have_sent) {
+      if (lane == 0) list[n] = sentinel;
+      sent_at = n++;
+    }
+    store_g(gs, gx);
+    __syncwarp();
+    // Lane e % 32 computes entry e over g's chunks in ascending f.
+    for (int f0 = 0; f0 < feat; f0 += kGChunk) {
+      if (f0 > 0) {
+        load_g(gi, f0, feat, gx);
+        __syncwarp();        // every lane is done with the last chunk
+        store_g(gs, gx);
+        __syncwarp();
+      }
+      const int nf = min(kGChunk, feat - f0);
+      for (int e = lane; e < n; e += 32) {
+        val[e] = dot_chunk<T, kVec>(
+            gs, table + static_cast<int64_t>(list[e]) * feat + f0, nf,
+            f0 == 0 ? 0.f : val[e]);
+      }
+    }
+    __syncwarp();
+    if (sent_at >= 0) {
+      sent = val[sent_at];
+      have_sent = true;
+    }
+    // The round's values in one coalesced pass.
+#pragma unroll
+    for (int j = 0; j < kSeg; ++j) {
+      const int k = k0 + 32 * j + lane;
+      if (k < deg) {
+        const int a = at[32 * j + lane];
+        out[k] = a < 0 ? sent : val[a];
+      }
+    }
   }
-  dwts[p] = acc;
 }
+
+template <typename T, int kVec>
+cudaError_t run_wts(const int32_t* nbr, const float* g, const T* table,
+                    float* dwts, int rows, int deg, int feat, int sentinel,
+                    cudaStream_t stream) {
+  bwd_wts_kernel<T, kVec><<<(rows + kWarps - 1) / kWarps, kWarps * 32, 0,
+                            stream>>>(nbr, g, table, dwts, rows, deg, feat,
+                                      sentinel);
+  return cudaGetLastError();
+}
+
+// Vector lanes where every table row and every g row starts on a vector
+// boundary.
+template <typename T>
+cudaError_t launch_wts(const void* nbr, const void* g, const void* table,
+                       void* dwts, int rows, int deg, int n_tab, int feat,
+                       cudaStream_t stream) {
+  const auto* n = static_cast<const int32_t*>(nbr);
+  const auto* gp = static_cast<const float*>(g);
+  const auto* t = static_cast<const T*>(table);
+  auto* d = static_cast<float*>(dwts);
+  return vec_rows(t, feat) && vec_rows(gp, feat)
+             ? run_wts<T, 4>(n, gp, t, d, rows, deg, feat, n_tab - 1, stream)
+             : run_wts<T, 1>(n, gp, t, d, rows, deg, feat, n_tab - 1, stream);
+}
+
+}  // namespace
 
 extern "C" int spmm_bwd_table_launch(const void* pos, const void* wts,
                                      const void* g, void* dtab, int n_tab,
@@ -230,37 +417,28 @@ extern "C" int spmm_bwd_table_launch(const void* pos, const void* wts,
       static_cast<cudaStream_t>(stream)));
 }
 
-template <typename T>
-static void launch_wts(const void* nbr, const void* g, const void* table,
-                       void* dwts, int rows, int deg, int feat,
-                       cudaStream_t stream) {
-  const int64_t n = static_cast<int64_t>(rows) * deg;
-  const int blocks = static_cast<int>((n + kThreadsPerBlock - 1)
-                                      / kThreadsPerBlock);
-  bwd_wts_kernel<T><<<blocks, kThreadsPerBlock, 0, stream>>>(
-      static_cast<const int32_t*>(nbr), static_cast<const float*>(g),
-      static_cast<const T*>(table), static_cast<float*>(dwts), rows, deg,
-      feat);
-}
-
 extern "C" int spmm_bwd_wts_launch(const void* nbr, const void* g,
                                    const void* table, int dtype, void* dwts,
-                                   int rows, int deg, int feat,
+                                   int rows, int deg, int n_tab, int feat,
                                    void* stream) {
   if (rows == 0 || deg == 0) return 0;
+  if (n_tab < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (feat == 0) {
+    return static_cast<int>(cudaMemsetAsync(
+        dwts, 0, sizeof(float) * static_cast<size_t>(rows) * deg, s));
+  }
   switch (dtype) {
     case kFloat32:
-      launch_wts<float>(nbr, g, table, dwts, rows, deg, feat, s);
-      break;
+      return static_cast<int>(launch_wts<float>(nbr, g, table, dwts, rows,
+                                                deg, n_tab, feat, s));
     case kBFloat16:
-      launch_wts<__nv_bfloat16>(nbr, g, table, dwts, rows, deg, feat, s);
-      break;
+      return static_cast<int>(launch_wts<__nv_bfloat16>(
+          nbr, g, table, dwts, rows, deg, n_tab, feat, s));
     case kInt8:
-      launch_wts<int8_t>(nbr, g, table, dwts, rows, deg, feat, s);
-      break;
+      return static_cast<int>(launch_wts<int8_t>(nbr, g, table, dwts, rows,
+                                                 deg, n_tab, feat, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

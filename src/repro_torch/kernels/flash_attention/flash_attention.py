@@ -46,8 +46,10 @@ import torch
 
 from repro_torch.kernels import _build
 
-BLOCK_Q = 64          # the kernel's Q rows per block
-BLOCK_K = 64          # the kernel's K/V rows per tile
+# The kernel's (Q rows per block, K/V rows per tile) by input dtype: the
+# fp32 body takes 128-row Q tiles, the bf16 body one 64-row tile a
+# warpgroup.  The plain version blocks the same way.
+BLOCKS = {torch.float32: (128, 64), torch.bfloat16: (64, 64)}
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 96, 128)   # head dims the kernel is built for
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -115,17 +117,20 @@ def check_tma(t: torch.Tensor) -> None:
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, causal: bool = True,
                           sm_scale: float | None = None,
-                          block_q: int = BLOCK_Q,
-                          block_k: int = BLOCK_K) -> torch.Tensor:
+                          block_q: int | None = None,
+                          block_k: int | None = None) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch: for each ``block_q`` Q
     tile, an online softmax over ``block_k`` K/V tiles in order, tiles
     strictly above the diagonal skipped; bf16 inputs take the tensor-core
     arithmetic of the module note (unscaled product, P split in two).
+    The blocks default to the kernel's for the dtype (:data:`BLOCKS`).
     Shapes as :func:`flash_attention_cuda`; returns a contiguous
     tensor."""
     shape = q.shape
     q4, k4, v4 = _as_bhsd(q, k, v)
     _check(q4, k4, v4)
+    block_q = block_q or BLOCKS[q.dtype][0]
+    block_k = block_k or BLOCKS[q.dtype][1]
     b, h, s, d = q4.shape
     rep = h // k4.shape[1]
     scale = d ** -0.5 if sm_scale is None else sm_scale
@@ -196,7 +201,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError("q, k and v need a unit stride over D")
         if t.dtype == torch.bfloat16:
             check_tma(t)
-    if max(b * h, s) >= 2 ** 31 or (s + BLOCK_Q - 1) // BLOCK_Q > 65535:
+    if max(b * h, s) >= 2 ** 31 or -(-s // BLOCKS[q.dtype][0]) > 65535:
         raise ValueError(f"shape {tuple(q4.shape)} too large for the grid")
     out = torch.empty_like(q4)     # q4's strides where q4 is dense
     scale = d ** -0.5 if sm_scale is None else sm_scale

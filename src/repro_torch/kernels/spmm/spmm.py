@@ -135,7 +135,10 @@ def spmm_bwd_table_plain(pos: torch.Tensor, wts: torch.Tensor,
 def spmm_bwd_wts_plain(nbr: torch.Tensor, g: torch.Tensor,
                        table: torch.Tensor) -> torch.Tensor:
     """The weight gradient's arithmetic in plain PyTorch: per (row, slot),
-    an fp32 accumulator over the features in ascending order."""
+    an fp32 accumulator over the features in ascending order.  Every slot
+    is computed from its own gathered row, so the sentinel slots of a row
+    all hold ``<g[i], table[-1]>``: the kernel computes that value once a
+    row and writes it to each of them."""
     rows, deg = nbr.shape
     gathered = table.index_select(0, nbr.long().reshape(-1)).float()
     gathered = gathered.reshape(rows, deg, table.shape[1])
@@ -198,7 +201,9 @@ def spmm_bwd_wts(nbr: torch.Tensor, g: torch.Tensor,
                  table: torch.Tensor) -> torch.Tensor:
     """``dwts[i, k] = <g[i], table[nbr[i, k]]>``; the kernel
     ``csrc/spmm_bwd.cu`` on CUDA tensors, the plain version on CPU
-    tensors.  Returns (rows, deg) float32."""
+    tensors.  Slots on the sentinel row (``n_tab - 1``) share one value a
+    row, equal to each slot's own for any sentinel contents.  Returns
+    (rows, deg) float32."""
     check_ell(nbr, None, table)
     rows, deg = nbr.shape
     feat = table.shape[1]
@@ -212,10 +217,10 @@ def spmm_bwd_wts(nbr: torch.Tensor, g: torch.Tensor,
     fn = _build.kernel_fn("spmm_bwd", "spmm_bwd_wts_launch", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p])
+        ctypes.c_int, ctypes.c_void_p])
     code = _build.launch(fn, table, _build.ptr(nbr), _build.ptr(g),
                          _build.ptr(table), _build.dtype_code(table.dtype),
-                         _build.ptr(out), rows, deg, feat)
+                         _build.ptr(out), rows, deg, table.shape[0], feat)
     _build.check(code, "spmm_bwd", "spmm_bwd_wts_launch")
     _build.LAUNCHES["spmm_bwd_wts"] += 1
     return out

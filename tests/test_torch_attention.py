@@ -23,7 +23,8 @@ from repro.kernels.flash_attention import flash_attention_pallas
 from repro.kernels.flash_attention import \
     multi_head_attention as jmulti_head_attention
 from repro.models import attention as jattn
-from repro_torch.kernels.flash_attention import (attention_ref, check_tma,
+from repro_torch.kernels.flash_attention import (BLOCKS, attention_ref,
+                                                 check_tma,
                                                  flash_attention_cuda,
                                                  flash_attention_plain,
                                                  multi_head_attention,
@@ -57,7 +58,7 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
 
 @pytest.mark.parametrize("seq,hd,bq,bk", [
     (128, 64, 128, 128), (256, 64, 128, 64), (256, 128, 64, 128),
-    (512, 32, 128, 128),
+    (512, 32, 128, 128), (256, 128, 128, 64),
 ])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_plain_matches_pallas(seq, hd, bq, bk, causal):
@@ -75,6 +76,22 @@ def test_flash_plain_matches_pallas(seq, hd, bq, bk, causal):
     ref = attention_ref(tq, tk, tv, causal)
     _close(ref, jattention_ref(*map(jnp.asarray, (q, k, v)), causal=causal))
     _close(ref, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_plain_blocks_follow_the_dtype(dtype):
+    """The plain version's default blocks are the kernel's for the dtype
+    (BLOCKS: 128-row Q tiles in fp32, 64 in bf16), on a ragged causal
+    sequence where the Q block decides which masked K tiles a row
+    visits."""
+    rng = np.random.default_rng(11)
+    q, k, v = (t.to(dtype) for t in _t(*_qkv(rng, (2, 200, 32),
+                                              (2, 200, 32))))
+    bq, bk = BLOCKS[dtype]
+    assert (bq, bk) == ((128, 64) if dtype == torch.float32 else (64, 64))
+    assert torch.equal(flash_attention_plain(q, k, v, True),
+                       flash_attention_plain(q, k, v, True, block_q=bq,
+                                             block_k=bk))
 
 
 @pytest.mark.parametrize("seq", [1, 63, 100, 129])

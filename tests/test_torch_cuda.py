@@ -499,6 +499,73 @@ def test_backward_table_kernel_segments(dev, hub, feat, rows):
     assert torch.equal(t.grad, dtab)
 
 
+def _wts_case(seed, rows, deg, ncols, feat, sentinel, dev):
+    """A weight-gradient case: row 0 every slot live (no sentinel), row 1
+    every slot the sentinel ``ncols``, row 2 live on its first ``deg -
+    10`` slots and the sentinel after (past 128 slots at deg 200: the
+    sentinel first met in a later round), row 3 the sentinel at slots 5
+    and ``deg - 1`` only, the rest about three live slots scattered among
+    sentinel slots.  The sentinel row of the fp32 table is ``zero``,
+    ``nonzero`` or ``nan``."""
+    rng = np.random.default_rng(seed)
+    live = rng.random((rows, deg)) < 3.0 / deg
+    live[0], live[1] = True, False
+    live[2] = np.arange(deg) < deg - 10
+    live[3] = True
+    live[3, [5, deg - 1]] = False
+    nbr = np.where(live, rng.integers(0, ncols, size=(rows, deg)),
+                   ncols).astype(np.int32)
+    table = rng.normal(size=(ncols + 1, feat)).astype(np.float32)
+    table[-1] = (rng.normal(size=feat) if sentinel == "nonzero"
+                 else {"zero": 0.0, "nan": np.nan}[sentinel])
+    g = rng.normal(size=(rows, feat)).astype(np.float32)
+    return (torch.from_numpy(nbr).to(dev), torch.from_numpy(g).to(dev),
+            torch.from_numpy(table).to(dev))
+
+
+@pytest.mark.parametrize("dtype,sentinel", [
+    (torch.float32, "zero"), (torch.float32, "nonzero"),
+    (torch.float32, "nan"), (torch.bfloat16, "zero"),
+    (torch.bfloat16, "nonzero"), (torch.bfloat16, "nan"),
+    (torch.int8, "zero"), (torch.int8, "nonzero")])
+@pytest.mark.parametrize("feat", [8, 32, 33, 128])
+@pytest.mark.parametrize("deg", [40, 56, 200])
+def test_backward_wts_kernel(dev, dtype, sentinel, feat, deg):
+    """The weight gradient's warp-per-row body: rows with every slot
+    live, every slot the sentinel, the sentinel met only in a later
+    128-slot round, and scattered live slots, at deg past 32 and past 128,
+    w8/w32/w128 (vector lanes) and w33 (single elements), fp32, bf16 and
+    int8 tables with a zero, nonzero or NaN sentinel row: against its
+    plain version (NaN where it is NaN), every sentinel slot of a row one
+    value, equal to itself across calls."""
+    rows = 300
+    nbr, g, table = _wts_case(deg + feat, rows, deg, 500, feat, sentinel,
+                              dev)
+    table = _table_as(table, dtype) if sentinel != "nan" else table.to(dtype)
+    before = _build.LAUNCHES["spmm_bwd_wts"]
+    got = spmm_bwd_wts(nbr, g, table)
+    again = spmm_bwd_wts(nbr, g, table)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["spmm_bwd_wts"] == before + 2
+    assert torch.equal(got.nan_to_num(), again.nan_to_num())
+    assert torch.equal(got.isnan(), again.isnan())
+    want = spmm_bwd_wts_plain(nbr, g, table)
+    if dtype == torch.int8:
+        # As for K1 (_assert_spmm_close): int8 codes up to 127, so the
+        # relative part is taken of the sum of |terms|.
+        mag = spmm_bwd_wts_plain(nbr, g.abs(), table.float().abs())
+        err = (got - want).abs()
+        assert bool((err <= 1e-5 + 1e-5 * mag).all()), float(err.max())
+    else:
+        torch.testing.assert_close(got, want, equal_nan=True, **TOL)
+    # Every sentinel slot of a row holds the value of its first one.
+    sent = nbr == table.shape[0] - 1
+    assert bool(sent[1].all()) and not bool(sent[0].any())
+    first = got.gather(1, sent.int().argmax(1, keepdim=True))
+    same = (got == first) | (got.isnan() & first.isnan())
+    assert bool((same | ~sent).all())
+
+
 def test_halo_kernels_refuse_grad_on_the_card(dev):
     nbr, wts, table = _case(6, 8, 2, 40, 16, dev)
     data, scale = _slab(table, "int8")
@@ -568,6 +635,65 @@ def test_flash_attention_bf16_tensor_cores(dev, d, s, causal):
         err = (got.float() - want.float()).abs()
         assert bool((err <= _bf16_bar(want)).all()), (b, h, kv,
                                                       float(err.max()))
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 128])
+@pytest.mark.parametrize("s", [1, 63, 65, 1000])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_fp32_body(dev, d, s, causal):
+    """K6's fp32 body (128-row Q tiles, cp.async-fed micro-tiles) at every
+    head dim, one key, ragged tiles either side of 64 and a long ragged
+    sequence, with one, two and four query heads a KV head: on (B, H, S,
+    D) views of (B, S, H, D) tensors against its plain version within 2e-5
+    (atol = rtol), equal bit for bit to the same call on flat 3-D tensors
+    and to a second call."""
+    for b, h, kv in ((2, 3, 3), (1, 4, 2), (2, 8, 2)):
+        gen = torch.Generator().manual_seed(s * d + h)
+        q = torch.randn((b, s, h, d), generator=gen).to(dev)
+        k = torch.randn((b, s, kv, d), generator=gen).to(dev)
+        v = torch.randn((b, s, kv, d), generator=gen).to(dev)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        before = _build.LAUNCHES["flash_attention"]
+        got = flash_attention_cuda(qt, kt, vt, causal)
+        again = flash_attention_cuda(qt, kt, vt, causal)
+        flat = flash_attention_cuda(*(t.contiguous().reshape(-1, s, d)
+                                      for t in (qt, kt, vt)), causal)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["flash_attention"] == before + 3
+        assert torch.equal(got, again)
+        assert torch.equal(flat.reshape(b, h, s, d), got)
+        want = flash_attention_plain(qt, kt, vt, causal)
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_fp32_unaligned_views(dev, d, causal):
+    """Strided fp32 views that 16-byte copies cannot read (a base one
+    float past a 16-byte boundary, odd row strides) take the fp32 body's
+    4-byte copies: within 2e-5 of the plain version and equal bit for bit
+    to the same call on aligned copies of the inputs."""
+    b, s, h, kv = 2, 130, 3, 1
+    gen = torch.Generator().manual_seed(d)
+
+    def odd(heads):
+        # (B, S, heads, D + 1) one float into a buffer, cut to D: base
+        # offset 4 bytes, odd strides heads * (D + 1) over S and D + 1
+        # over the heads.
+        n = b * s * heads * (d + 1)
+        buf = torch.randn((n + 1,), generator=gen).to(dev)
+        x = buf[1:].view(b, s, heads, d + 1)[..., :d].transpose(1, 2)
+        assert x.data_ptr() % 16 and x.stride(2) % 4
+        return x
+
+    qt, kt, vt = odd(h), odd(kv), odd(kv)
+    got = flash_attention_cuda(qt, kt, vt, causal)
+    aligned = flash_attention_cuda(qt.contiguous(), kt.contiguous(),
+                                   vt.contiguous(), causal)
+    torch.cuda.synchronize()
+    assert torch.equal(got, aligned)
+    want = flash_attention_plain(qt, kt, vt, causal)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
 
 
 @pytest.mark.parametrize("rows,deg,ncols,feat", [

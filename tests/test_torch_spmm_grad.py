@@ -90,6 +90,35 @@ def test_backward_plains_match_jax_vjp(feat):
     assert not dtab[-1].any()            # the sentinel row gets nothing
 
 
+@pytest.mark.parametrize("sentinel", ["nonzero", "nan"])
+def test_wts_plain_sentinel_slots_share_the_rows_dot(sentinel):
+    """The rule the weight-gradient kernel relies on when it computes the
+    sentinel row's dot product once a row: the plain version gives every
+    sentinel slot of a row one value, bit for bit, the dot of g[i] with
+    the sentinel row (NaN for a NaN row), on a real in-ELL's padding."""
+    _, _, st = _part()
+    nbr = st["in_nbr"]
+    rows = nbr.shape[0]
+    rng = np.random.default_rng(3)
+    table = rng.normal(size=(rows + 1, 16)).astype(np.float32)
+    table[-1] = rng.normal(size=16) if sentinel == "nonzero" else np.nan
+    t = torch.from_numpy(table)
+    g = torch.from_numpy(rng.normal(size=(rows, 16)).astype(np.float32))
+    dw = spmm_bwd_wts_plain(nbr, g, t)
+    sent = nbr == rows
+    assert int(sent.sum()) > rows           # the ELL's padding
+    got = dw[sent]
+    want = (g @ t[-1])[:, None].expand_as(dw)[sent]
+    if sentinel == "nan":
+        assert bool(got.isnan().all())
+    else:
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+    first = dw.gather(1, sent.int().argmax(1, keepdim=True))
+    same = (dw == first) | (dw.isnan() & first.isnan())
+    assert bool((same | ~sent).all())
+
+
 @pytest.mark.parametrize("needs", ["table", "wts", "both"])
 def test_function_runs_only_the_backward_asked_for(monkeypatch, needs):
     _, _, st = _part()
