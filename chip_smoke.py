@@ -10,8 +10,8 @@ Phases, each ending the run with a non-zero exit on failure:
    versions;
 2. build the CUDA kernels from ``src/repro_torch/csrc``: each source's
    ``nvcc`` seconds, and ptxas's register and spill lines of the kernels
-   redesigned for Hopper (the warp-per-row bodies of K1, K2, K3, K4 and
-   both SpMM gradients, K6's bf16 wgmma and fp32 bodies);
+   redesigned for Hopper (the warp-per-row bodies of K1, K2, K3, K4, K5
+   and both SpMM gradients, K6's bf16 wgmma and fp32 bodies);
 3. every kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it (products-sim, scale 1.0, 8 parts: K1 on
    the full-graph ELL at widths 100 and 128 and on a bf16 or fp32 query
@@ -83,10 +83,13 @@ Phases, each ending the run with a non-zero exit on failure:
    version: fp32 within 2e-5, bf16 within 2e-5 plus one bf16 ulp of the
    output; K5 (GAT edge softmax) at GAT's per-head shape on subgraph 0
    of the training partition (in-ELL 5256 x 56 over 5257 x 32, out-ELL
-   5256 x 64 over 14289 x 32) within 1e-4 on acc and 1e-5 on m and l;
-   timed as in phase 3, beside ``scaled_dot_product_attention`` for K6
-   (no PyTorch call computes K5), bounded by the bf16 tensor-core or
-   fp32 rate or the bytes;
+   5256 x 64 over 14289 x 32) and at the reference's test shape ((128, 8)
+   over (65, 128)): m equal to its plain version's bit for bit, l within
+   1e-5 and acc within 1e-4, two launches equal bit for bit (whether acc
+   and l are bit-exact too is printed, not required); timed as in phase
+   3, beside ``scaled_dot_product_attention`` for K6 (no PyTorch call
+   computes K5), bounded by the bf16 tensor-core or fp32 rate or the
+   bytes;
 9. LM prefill: qwen3-0.6b at its published widths (28 layers, random
    weights from ``torch.Generator`` seed 0), ``forward`` on 4 x 1024
    seeded tokens with the kernel backend — K6 exactly 28 times and no
@@ -221,7 +224,7 @@ TOLERANCES = {
     "halo_spmm_skip": "atol = rtol = 1e-5",
     "spmm_bwd_table": "atol = rtol = 1e-5",
     "spmm_bwd_wts": "atol = rtol = 1e-5",
-    "gat_edge_partial": "acc atol = rtol = 1e-4; m, l 1e-5",
+    "gat_edge_partial": "acc atol = rtol = 1e-4; l 1e-5; m bit for bit",
     "flash_attention": "fp32 atol = rtol = 2e-5; bf16 2e-5 + one bf16 "
                        "ulp of the output",
     "flash_attention_fp32": "atol = rtol = 2e-5",
@@ -248,7 +251,8 @@ REDESIGNED = {"halo_pull": ("halo_list_kernel", "halo_walk_kernel",
               "flash_attention": ("flash_attention_wgmma",
                                   "flash_attention_f32"),
               "spmm": ("spmm_kernel",),
-              "spmm_bwd": ("bwd_table_kernel", "bwd_wts_kernel")}
+              "spmm_bwd": ("bwd_table_kernel", "bwd_wts_kernel"),
+              "gat_edge": ("gat_edge_kernel",)}
 
 # K1's and the weight gradient's launches by (rows, deg, feat, dtype),
 # tallied by tally_shapes.
@@ -1086,6 +1090,32 @@ def bf16_bar(w):
     return K6_FP32_TOL + torch.exp2(e - 7)
 
 
+def k5_inputs(torch, dev, data, gen) -> list:
+    """K5's inputs at the shapes it is held and timed at: GAT's per-head
+    width 32 on subgraph 0 of the training partition (the in-ELL over the
+    local table, the out-ELL over the halo table, valid where the id is
+    not the sentinel), and the reference's own test shape, (128, 8) over a
+    (65, 128) table (tests/test_kernels_gat_edge.py), where it is
+    launch-bound.  Random scores and tables from ``gen``, the sentinel row
+    zero.  Returns ``[(side, (nbr, valid, s_dst, s_src, z))]``."""
+    st = {k_: v_[0] for k_, v_ in data["struct"].items()}
+    rows = st["in_nbr"].shape[0]
+    ref_nbr = torch.randint(0, 65, (128, 8), generator=gen,
+                            dtype=torch.int32).to(dev)
+    out = []
+    for side, nbr, n_cols, width in (
+            ("in", st["in_nbr"], rows, 32),
+            ("out", st["out_nbr"], int(data["halo_ids"].shape[1]), 32),
+            ("ref", ref_nbr, 64, 128)):
+        s_dst = torch.randn((nbr.shape[0],), generator=gen)
+        s_src = torch.randn((n_cols + 1,), generator=gen)
+        z = torch.randn((n_cols + 1, width), generator=gen)
+        s_src[-1], z[-1] = 0, 0
+        out.append((side, (nbr, nbr < n_cols, s_dst.to(dev), s_src.to(dev),
+                           z.to(dev))))
+    return out
+
+
 def lm_kernel_phase(torch, dev, data):
     """Phase 8: K6 at the LM slice's shape and K5 at GAT's per-head shape
     on the training partition, each against its plain version and timed;
@@ -1127,34 +1157,40 @@ def lm_kernel_phase(torch, dev, data):
                 (lambda w: K6_FP32_TOL + K6_FP32_TOL * w.float().abs()),
                 lib_tol=3e-2 if bf16 else 1e-4)
 
-    # K5 at GAT's per-head shape (4 heads x 32) on subgraph 0: the in-ELL
-    # over the local table and the out-ELL over the halo table.
-    st = {k_: v_[0] for k_, v_ in data["struct"].items()}
-    rows = st["in_nbr"].shape[0]
-    n_halo = int(data["halo_ids"].shape[1])
-    s_dst = torch.randn((rows,), generator=gen).to(dev)
-    for side, nbr, n_cols in (("in", st["in_nbr"], rows),
-                              ("out", st["out_nbr"], n_halo)):
-        s_src = torch.randn((n_cols + 1,), generator=gen)
-        z = torch.randn((n_cols + 1, 32), generator=gen)
-        s_src[-1], z[-1] = 0, 0
-        s_src, z = s_src.to(dev), z.to(dev)
-        valid = nbr < n_cols
-        args = (nbr, valid, s_dst, s_src, z)
+    for side, args in k5_inputs(torch, dev, data, gen):
+        nbr, n_cols, width = args[0], args[3].shape[0] - 1, args[4].shape[1]
+        n_rows = nbr.shape[0]
         got, want = gat_edge_partial_cuda(*args), gat_edge_partial_plain(*args)
-        for name, g_, w_ in (("m", got[1], want[1]), ("l", got[2], want[2])):
-            check(torch.allclose(g_, w_, atol=K5_STAT_TOL, rtol=K5_STAT_TOL),
-                  f"K5 [{side}]: {name} disagrees with its plain version: "
-                  f"max |err| {float((g_ - w_).abs().max()):.3e}")
-        n_valid = int(valid.sum())
+        # m is a max of identically computed values: equal bit for bit.
+        check(torch.equal(got[1], want[1]),
+              f"K5 [{side}]: m differs from its plain version: max |err| "
+              f"{float((got[1] - want[1]).abs().max()):.3e}")
+        check(torch.allclose(got[2], want[2], atol=K5_STAT_TOL,
+                             rtol=K5_STAT_TOL),
+              f"K5 [{side}]: l disagrees with its plain version: max |err| "
+              f"{float((got[2] - want[2]).abs().max()):.3e}")
+        again = gat_edge_partial_cuda(*args)
+        check(all(torch.equal(a_, g_) for a_, g_ in zip(again, got)),
+              f"K5 [{side}]: two launches differ")
+        # Reported, not required: whether acc and l are the plain
+        # version's bits too.
+        print(json.dumps({"k5_bitwise": side, "acc": torch.equal(
+            got[0], want[0]), "l": torch.equal(got[2], want[2])}),
+            flush=True)
+        n_slots = nbr.numel()
         ref_rows = int(torch.unique(nbr).numel())
-        nbytes = (nbr.numel() * 5 + rows * 4 + ref_rows * 4 * (1 + 32)
-                  + rows * 32 * 4 + 2 * rows * 4)
-        measure(torch, records, "gat_edge_partial", f"{side}-ELL head w32",
-                list(nbr.shape) + [n_cols + 1, 32], got[0], want[0],
+        nbytes = (n_slots * 5 + n_rows * 4 + ref_rows * 4 * (1 + width)
+                  + n_rows * width * 4 + 2 * n_rows * 4)
+        # Every slot is taken (no slot may be skipped): per slot the score
+        # (add, multiply), two subtractions and two exps, l's multiply
+        # and add, and three operations a feature.
+        variant = (f"{side}-ELL head w{width}" if side != "ref"
+                   else f"reference shape w{width}")
+        measure(torch, records, "gat_edge_partial", variant,
+                list(nbr.shape) + [n_cols + 1, width], got[0], want[0],
                 lambda: gat_edge_partial_cuda(*args),
                 lambda: gat_edge_partial_plain(*args),
-                roofline(nbytes, n_valid * (3 * 32 + 6)), None, None,
+                roofline(nbytes, n_slots * (3 * width + 8)), None, None,
                 allowed=lambda w: K5_ACC_TOL + K5_ACC_TOL * w.abs())
     return records
 

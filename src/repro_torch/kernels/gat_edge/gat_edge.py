@@ -6,9 +6,10 @@ online-softmax partial ``(acc (rows, feat), m (rows,), l (rows,))`` over
 ``z``'s gathered rows, which :func:`.ref.merge_partials` merges across
 DIGEST's in- and out-of-subgraph edge sets.  :func:`gat_edge_partial_cuda`
 launches the hand-written kernel ``csrc/gat_edge.cu`` on CUDA tensors and
-runs :func:`gat_edge_partial_plain`, the same online arithmetic in plain
-PyTorch, on CPU tensors.  There is no fallback: a CUDA tensor launches
-the kernel or raises.
+runs :func:`gat_edge_partial_plain`, the kernel's arithmetic in its two
+phases (every slot's running max, alpha and p at once; then the ordered
+l / acc chain) in plain PyTorch, on CPU tensors.  There is no fallback: a
+CUDA tensor launches the kernel or raises.
 
 Replaces the TPU kernel
 ``src/repro/kernels/gat_edge/gat_edge.py::gat_edge_partial_pallas``
@@ -17,7 +18,9 @@ divisibility guard was a TPU tiling limit: the kernel masks its own
 ragged edges.  As in the reference, a row whose leading slots are
 invalid carries ``l = 1`` per such slot until its first valid edge resets
 it (``alpha = exp(-1e30 - e) = 0``); a row with no valid edge ends with
-``m = -1e30``, which the merge weighs by 0 beside any valid partial.
+``m = -1e30``, which the merge weighs by 0 beside any valid partial.  A
+NaN score at a valid slot makes ``m`` (and ``l``) NaN from there on, as
+``jnp.maximum`` does in the reference.
 """
 from __future__ import annotations
 
@@ -62,25 +65,34 @@ def _check(nbr, valid, s_dst, s_src, z) -> None:
 def gat_edge_partial_plain(nbr: torch.Tensor, valid: torch.Tensor,
                            s_dst: torch.Tensor, s_src: torch.Tensor,
                            z: torch.Tensor) -> tuple:
-    """The kernel's arithmetic in plain PyTorch: m, l and acc updated
-    online for k = 0 .. deg-1 in order (the TPU kernel's fori_loop)."""
+    """The kernel's arithmetic in plain PyTorch, in its two phases.
+
+    Phase A, every slot at once: the masked scores ``e``, their running
+    max ``m_k = max(-1e30, e_0 .. e_k)`` (``torch.cummax``, which carries
+    NaN as ``torch.maximum`` does), ``alpha_k = exp(m_{k-1} - m_k)`` and
+    ``p_k = exp(e_k - m_k)``.  Phase B, k = 0 .. deg-1 in order: ``l =
+    alpha_k * l + p_k`` and ``acc = acc * alpha_k + p_k * z[nbr_k]``.  Max
+    is exact, so the values are those of the TPU kernel's online loop
+    (m, l and acc updated together each step), bit for bit."""
     rows, deg = nbr.shape
     idx = nbr.long()   # int64 indices: torch's int32 gathers are slow
-    m = torch.full((rows,), NEG_INF, device=z.device)
+    neg = torch.full((rows, 1), NEG_INF, device=z.device)
     l = torch.zeros((rows,), device=z.device)
     acc = torch.zeros((rows, z.shape[1]), device=z.device)
+    if deg == 0:
+        return acc, neg[:, 0], l
+    e = s_dst[:, None] + s_src[idx]
+    e = torch.where(e >= 0, e, LEAKY_SLOPE * e)
+    e = torch.where(valid, e, NEG_INF)
+    m = torch.maximum(torch.cummax(e, dim=1).values, neg)
+    m_prev = torch.cat([neg, m[:, :-1]], dim=1)
+    alpha = torch.exp(m_prev - m)
+    p = torch.exp(e - m)
     for k in range(deg):
-        col = idx[:, k]
-        e = s_dst + s_src.index_select(0, col)
-        e = torch.where(e >= 0, e, LEAKY_SLOPE * e)
-        e = torch.where(valid[:, k], e, NEG_INF)
-        m_new = torch.maximum(m, e)
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(e - m_new)
-        l = alpha * l + p
-        acc = acc * alpha[:, None] + p[:, None] * z.index_select(0, col)
-        m = m_new
-    return acc, m, l
+        l = alpha[:, k] * l + p[:, k]
+        acc = (acc * alpha[:, k, None]
+               + p[:, k, None] * z.index_select(0, idx[:, k]))
+    return acc, m[:, -1].contiguous(), l
 
 
 def gat_edge_partial_cuda(nbr: torch.Tensor, valid: torch.Tensor,
@@ -107,8 +119,8 @@ def gat_edge_partial_cuda(nbr: torch.Tensor, valid: torch.Tensor,
     acc = torch.empty((rows, feat), dtype=torch.float32, device=z.device)
     m = torch.empty((rows,), dtype=torch.float32, device=z.device)
     l = torch.empty((rows,), dtype=torch.float32, device=z.device)
-    if acc.numel() == 0:
-        return acc, m.fill_(NEG_INF), l.zero_()
+    if rows == 0:
+        return acc, m, l
     fn = _build.kernel_fn("gat_edge", "gat_edge_partial_launch", [
         *([ctypes.c_void_p] * 8), ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p])

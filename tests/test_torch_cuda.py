@@ -8,8 +8,9 @@ the port is installed:
 Tolerance 1e-5 (atol = rtol): the kernels fuse each multiply-add (FMA),
 the plain versions round the product first; the order over k is the same.
 K5 and K6 are held to the reference's own kernel bars (K5: 1e-4 on acc,
-1e-5 on m and l; K6: 2e-5 in fp32, and in bf16 that plus one bf16 ulp of
-the output, since both sides compute in fp32 and round once).
+1e-5 on l, and m bit for bit, a max of identically computed values; K6:
+2e-5 in fp32, and in bf16 that plus one bf16 ulp of the output, since
+both sides compute in fp32 and round once).
 """
 import pytest
 
@@ -38,6 +39,7 @@ from repro_torch.kernels.gat_edge import (gat_aggregate,
                                           gat_edge_partial_cuda,
                                           gat_edge_partial_plain)
 from repro_torch.launch.serving_driver import profile_serve_loop
+from torch_gat_cases import INF_ROW, NAN_ROW, NO_VALID, bits, edge_case
 
 pytestmark = pytest.mark.cuda
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -696,30 +698,70 @@ def test_flash_attention_fp32_unaligned_views(dev, d, causal):
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
 
 
-@pytest.mark.parametrize("rows,deg,ncols,feat", [
-    (17, 3, 9, 33), (128, 8, 64, 128), (5256, 64, 14288, 32)])
-def test_gat_edge_kernel(dev, rows, deg, ncols, feat):
-    rng = np.random.default_rng(rows)
-    nbr = rng.integers(0, ncols + 1, size=(rows, deg)).astype(np.int32)
-    valid = (rng.random((rows, deg)) > 0.3) & (nbr < ncols)
-    s_dst = rng.normal(size=(rows,)).astype(np.float32)
-    s_src = rng.normal(size=(ncols + 1,)).astype(np.float32)
-    z = rng.normal(size=(ncols + 1, feat)).astype(np.float32)
-    z[-1] = 0
-    args = [torch.from_numpy(a).to(dev) for a in (nbr, valid, s_dst, s_src,
-                                                   z)]
+def _check_k5(args):
+    """K5 on the card against its plain version: m bit for bit (a max of
+    identically computed values), acc within 1e-4 and l within 1e-5 (the
+    reference's bars), NaN in the same places; a second launch equal bit
+    for bit; one launch counted a call."""
     before = _build.LAUNCHES["gat_edge_partial"]
-    acc, m, l = gat_edge_partial_cuda(*args)
+    got = gat_edge_partial_cuda(*args)
+    again = gat_edge_partial_cuda(*args)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["gat_edge_partial"] == before + 1
-    acc_p, m_p, l_p = gat_edge_partial_plain(*args)
-    torch.testing.assert_close(m, m_p, atol=1e-5, rtol=1e-5)
-    torch.testing.assert_close(l, l_p, atol=1e-5, rtol=1e-5)
-    torch.testing.assert_close(acc, acc_p, atol=1e-4, rtol=1e-4)
+    assert _build.LAUNCHES["gat_edge_partial"] == before + 2
+    want = gat_edge_partial_plain(*args)
+    for g, a in zip(got, again):
+        assert torch.equal(bits(g), bits(a))
+    assert torch.equal(bits(got[1]), bits(want[1]))
+    for g, w, tol in ((got[0], want[0], 1e-4), (got[2], want[2], 1e-5)):
+        torch.testing.assert_close(g, w, atol=tol, rtol=tol, equal_nan=True)
+    return got
+
+
+@pytest.mark.parametrize("kind,rows,deg,ncols,feat", [
+    ("masked", 17, 3, 9, 33), ("masked", 128, 8, 64, 128),
+    ("masked", 5256, 64, 14288, 32), ("padded", 5256, 56, 5256, 32),
+    ("padded", 5256, 64, 14288, 32), ("padded", 40, 5, 30, 0)])
+def test_gat_edge_kernel(dev, kind, rows, deg, ncols, feat):
+    """K5 at ragged shapes, the reference's width-128 test shape, GAT's
+    per-head shapes on the papers-sim partition (in-ELL 5256 x 56 over
+    5257 rows, out-ELL 5256 x 64 over 14289, width 32, rows padded to the
+    sentinel as the main path's are) and zero features (m and l are still
+    computed); then ``gat_aggregate``, K5 once per edge set."""
+    args = [torch.from_numpy(a).to(dev) for a in
+            edge_case(kind, deg, rows, ncols, feat, seed=rows + deg)]
+    acc, m, l = _check_k5(args)
+    assert acc.shape == (rows, feat) and bool(torch.isfinite(acc).all())
+    assert bool((m[6:] > -1e30).any())
+    before = _build.LAUNCHES["gat_edge_partial"]
     agg = gat_aggregate(args[0], args[1], args[0], args[1], *args[2:4],
                         *args[3:5], args[4])
-    assert _build.LAUNCHES["gat_edge_partial"] == before + 3
+    assert _build.LAUNCHES["gat_edge_partial"] == before + 2
     assert bool(torch.isfinite(agg).all())
+
+
+@pytest.mark.parametrize("kind", ["masked", "nan_score", "inf_z", "padded"])
+@pytest.mark.parametrize("deg", [0, 1, 31, 32, 33, 129, 300])
+@pytest.mark.parametrize("feat", [1, 8, 32, 33, 128, 256])
+def test_gat_edge_kernel_cases(dev, kind, deg, feat):
+    """K5's warp-per-row body over 32-slot groups and 128-slot segments
+    (deg 31-33, 129, 300), one to eight 32-feature stripes (feat 1-256),
+    rows with no or only late valid slots, a NaN score at a valid slot (m
+    NaN, as torch.maximum gives: the body's max must carry NaN) and an
+    Inf / NaN z row behind an invalid slot (acc NaN where the plain
+    version has it: no slot may be skipped)."""
+    args = [torch.from_numpy(a).to(dev) for a in
+            edge_case(kind, deg, 70, 50, feat, seed=deg * 7 + feat)]
+    acc, m, l = _check_k5(args)
+    if deg:
+        assert bool((m[NO_VALID:NO_VALID + 3] == -1e30).all())
+        assert bool((l[NO_VALID:NO_VALID + 3] == deg).all())
+    else:
+        assert bool((m == -1e30).all()) and not bool(l.any())
+        assert not bool(acc.any())
+    if deg and kind == "nan_score":
+        assert bool(m[NAN_ROW].isnan()) and bool(l[NAN_ROW].isnan())
+    if deg and kind == "inf_z" and feat > 2:
+        assert bool(acc[INF_ROW].isnan().any())
 
 
 def test_new_kernels_refuse_bad_inputs(dev):

@@ -27,6 +27,7 @@ from repro_torch.kernels.gat_edge import (gat_aggregate,
                                           merge_partials)
 from repro_torch.models import gnn as tgnn
 from repro_torch.nn import init_params
+from torch_gat_cases import INF_ROW, NAN_ROW, NO_VALID, bits, edge_case
 
 STAT_TOL = dict(atol=1e-5, rtol=1e-5)
 ACC_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -95,6 +96,70 @@ def test_rows_without_valid_edges_follow_the_kernel():
     got = gat_edge_partial_plain(*_t(args))
     _check_partial(got, want)
     assert got[1][0] == np.float32(-1e30) and float(got[2][0]) == 5.0
+
+
+def _online_loop(nbr, valid, s_dst, s_src, z):
+    """The plain version as it was before its two-phase form: m, l and
+    acc updated together, slot by slot (the TPU kernel's fori_loop)."""
+    rows, deg = nbr.shape
+    idx = nbr.long()
+    m = torch.full((rows,), -1e30)
+    l = torch.zeros((rows,))
+    acc = torch.zeros((rows, z.shape[1]))
+    for k in range(deg):
+        col = idx[:, k]
+        e = s_dst + s_src.index_select(0, col)
+        e = torch.where(e >= 0, e, 0.2 * e)
+        e = torch.where(valid[:, k], e, -1e30)
+        m_new = torch.maximum(m, e)
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(e - m_new)
+        l = alpha * l + p
+        acc = acc * alpha[:, None] + p[:, None] * z.index_select(0, col)
+        m = m_new
+    return acc, m, l
+
+
+@pytest.mark.parametrize("kind", ["masked", "nan_score", "inf_z"])
+@pytest.mark.parametrize("deg", [0, 1, 31, 32, 33, 129, 300])
+def test_plain_two_phase_equals_online_loop(kind, deg):
+    """The two-phase plain version (running max by ``cummax``, alpha and p
+    at once, then the ordered l / acc chain) equals the online loop bit
+    for bit in acc, m and l, NaN positions included: across 32-slot groups
+    and 128-slot segments, rows with no or only late valid slots, a NaN
+    score at a valid slot and an Inf / NaN z row behind an invalid slot."""
+    args = _t(edge_case(kind, deg))
+    got = gat_edge_partial_plain(*args)
+    want = _online_loop(*args)
+    for name, g, w in zip(("acc", "m", "l"), got, want):
+        assert torch.equal(bits(g), bits(w)), name
+    acc, m, l = got
+    if deg:
+        assert bool((m[NO_VALID:NO_VALID + 3] == -1e30).all())
+        assert bool((l[NO_VALID:NO_VALID + 3] == deg).all())
+    if deg and kind == "nan_score":
+        assert bool(m[NAN_ROW].isnan()) and bool(l[NAN_ROW].isnan())
+    if deg and kind == "inf_z":
+        assert bool(acc[INF_ROW].isnan().any())
+
+
+@pytest.mark.parametrize("kind", ["nan_score", "inf_z"])
+@pytest.mark.parametrize("deg", [1, 33])
+def test_nan_and_inf_follow_the_pallas_kernel(kind, deg):
+    """The NaN-score and Inf-z cases against the Pallas kernel in interpret
+    mode: m and l NaN where a valid slot's score is NaN (``jnp.maximum``
+    carries NaN), and acc NaN exactly where the reference has it."""
+    args = edge_case(kind, deg)
+    want = gat_edge_partial_pallas(*map(jnp.asarray, args), interpret=True)
+    got = gat_edge_partial_cuda(*_t(args))
+    for g, w in zip(got, want):
+        assert np.array_equal(g.isnan().numpy(), np.isnan(np.asarray(w)))
+    _check_partial(got, want)
+    if kind == "nan_score":
+        assert np.isnan(np.asarray(want[1])[NAN_ROW])
+        assert bool(got[1][NAN_ROW].isnan()) and bool(got[2][NAN_ROW].isnan())
+    else:
+        assert np.isnan(np.asarray(want[0])[INF_ROW]).any()
 
 
 def test_split_merge_equals_joint_softmax():
