@@ -54,7 +54,10 @@ Phases, each ending the run with a non-zero exit on failure:
    ``spmm_bwd_wts`` at every shape GAT's training gives it (the in-ELL
    over a (5257, w) and the out-ELL over a (14289, w) head table, w 32
    and 8; its dot products a row printed; two launches bit for bit
-   equal), both also held against autograd of the gather oracle; timed as in
+   equal), both also held against autograd of the gather oracle; and
+   the SAT epilogue there, as the ladder selects it once the slab carries
+   a predictor: K4 over fp32 and bf16 pdata, K2 over int8 pdata and
+   pscale, its bound counting the pdata bytes; timed as in
    phase 3, beside ``torch.sparse.mm`` on the CSR (K1, K4) or transposed
    CSR (table gradient) and ``torch.sparse.sampled_addmm`` (weight
    gradient);
@@ -109,16 +112,33 @@ Phases, each ending the run with a non-zero exit on failure:
 11. ``gat_aggregate`` on the card (K5, twice per head) on subgraph 0 with
     layer 1 of a GAT at the training widths (4 heads x 32), against its
     plain version and, head by head, the port's own ``_gat_layer`` less
-    its bias, within 1e-5 of max |out|; K5 must launch 8 times.
+    its bias, within 1e-5 of max |out|; K5 must launch 8 times;
+12. (run right after phase 7, on its partition and GCN) the SAT
+    predictor, faults and resume, all at interval 2 with
+    ``PredictorConfig("ema", 1.0, 0.5)``: fp32 (12 epochs), int8 (8) and
+    bf16 (3) stores against the oracle as in phase 7, the final
+    coefficient (nonzero) and dequantised pstore within 1e-4 (int8 plus
+    one scale step), the kernel the ladder selects with the pdata slab
+    (K4, K2, K4: the bf16 store leaves K1) launched 16 times an epoch,
+    every launch with pdata (and pscale); gamma = 0 equal to the
+    predictor-free run and a zero-rate schedule under the watchdog equal
+    to the run with no fault state, bit for bit; faults (crash, drop,
+    corrupt) under watchdog 6 finite, the push age above the clean run's
+    and below 6; killed after 4 epochs and resumed to 8 equal to the
+    unbroken run bit for bit (the checkpoint's bytes and its save and
+    restore seconds on the host's disk printed); the Theorem-1 error
+    bound of the fp32 run through the kernels within 1e-4 relative of
+    the oracles'; the epoch median beside phase 7's.
 
 Each path's launch counters are set to 0 just before it and read just
 after; the oracle runs launch nothing.  The last lines are the card's
 ``nvidia-smi`` line, one JSON object ``{"kernels": [...]}`` (each
-kernel's launches on its paths, its worst error, its bar and the times
-of its main-path variant; K3's also its chunk walk's and its times at
-the training shape; K6 one entry a body, the fp32 body's launches those
-of the fp32 prefill) and ``{"ok": true, "device": {...}}``.  Without
-a card, or outside a checkout, it exits non-zero and prints no result.
+kernel's launches on its paths (phase 12's as "sat training"), its
+worst error, its bar and the times of its main-path variant; K3's also
+its chunk walk's and its times at the training shape; K6 one entry a
+body, the fp32 body's launches those of the fp32 prefill) and
+``{"ok": true, "device": {...}}``.  Without a card, or outside a
+checkout, it exits non-zero and prints no result.
 TF32 is off throughout (fp32 products run in full fp32).
 """
 from __future__ import annotations
@@ -242,6 +262,12 @@ TRAIN_PARTS = 8
 TRAIN_CHUNK_ROWS = 256
 TRAIN_EPOCHS = 12
 TRAJ_TOL = 1e-4
+# Phase 12's bars: the final SAT coefficient and dequantised pstore rows
+# of a kernel run against the oracle run (absolute; the rows are
+# coefficient x delta of unit-norm representations, |row| < 2), and the
+# Theorem-1 quantities through the kernels against the oracles (relative).
+SAT_STATE_TOL = 1e-4
+BOUND_TOL = 1e-4
 
 
 # Kernels redesigned for Hopper, by source: ptxas's register and spill
@@ -254,20 +280,38 @@ REDESIGNED = {"halo_pull": ("halo_list_kernel", "halo_walk_kernel",
               "spmm_bwd": ("bwd_table_kernel", "bwd_wts_kernel"),
               "gat_edge": ("gat_edge_kernel",)}
 
-# K1's and the weight gradient's launches by (rows, deg, feat, dtype),
-# tallied by tally_shapes.
+# K1's and the weight gradient's launches by (rows, deg, feat, dtype), and
+# K2/K3/K4's by (kernel, slab dtype, scale, pdata, pscale), tallied by
+# tally_shapes.
 K1_SHAPES = collections.Counter()
 WTS_SHAPES = collections.Counter()
+HALO_LAUNCHES = collections.Counter()
 
 
 def tally_shapes() -> None:
     """Make K1's launching function and the weight gradient's wrapper (as
     the SpMM's backward calls it) also tally each launch's (rows, deg,
-    feat, table dtype) in K1_SHAPES and WTS_SHAPES, beside the wrappers'
-    own counts."""
+    feat, table dtype) in K1_SHAPES and WTS_SHAPES, and the halo kernels'
+    launching function each launch's (counter, slab dtype, and whether it
+    carried scale, pdata and pscale) in HALO_LAUNCHES, beside the
+    wrappers' own counts."""
     import importlib
 
     k1 = importlib.import_module("repro_torch.kernels.spmm.spmm")
+    halo = importlib.import_module("repro_torch.kernels.spmm.halo_pull")
+    launch = halo._launch
+
+    def halo_counted(symbol, counter, nbr, wts, data, scale, pdata, pscale,
+                     *rest, **kw):
+        out = launch(symbol, counter, nbr, wts, data, scale, pdata, pscale,
+                     *rest, **kw)
+        if out.numel():
+            HALO_LAUNCHES[(counter, str(data.dtype).split(".")[-1],
+                           scale is not None, pdata is not None,
+                           pscale is not None)] += 1
+        return out
+
+    halo._launch = halo_counted
 
     def counted(inner, tally, out_cols):
         # out_cols: the output's columns, so that an empty output (which
@@ -706,7 +750,8 @@ def training_kernel_phase(torch, dev, data):
     from repro_torch.core.halo_exchange import (HaloPrecision,
                                                 dequantize_rows,
                                                 quantize_rows)
-    from repro_torch.kernels.spmm import (halo_spmm_skip_cuda,
+    from repro_torch.kernels.spmm import (halo_spmm_cuda, halo_spmm_plain,
+                                          halo_spmm_skip_cuda,
                                           halo_spmm_skip_plain,
                                           halo_spmm_stream_cuda,
                                           halo_spmm_stream_walk_cuda,
@@ -714,6 +759,7 @@ def training_kernel_phase(torch, dev, data):
                                           spmm_bwd_table_plain, spmm_bwd_wts,
                                           spmm_bwd_wts_plain, spmm_cuda,
                                           spmm_plain, spmm_ref)
+    from repro_torch.kernels.spmm.ops import select_halo_kernel
     gen = torch.Generator().manual_seed(2)
     records = []
     st = {k: v[0] for k, v in data["struct"].items()}
@@ -761,6 +807,63 @@ def training_kernel_phase(torch, dev, data):
         records[-1]["k3_walk_ms"] = device_ms(
             torch, lambda: halo_spmm_stream_walk_cuda(nbr, wts, sdata, scale,
                                                       **kw))
+
+    # The SAT epilogue at the training shape, as the ladder selects it once
+    # the slab carries a predictor (phase 12): K4 over fp32 and bf16 pdata
+    # (the bf16 store's stripe passes the resident budget with it) and K2
+    # over int8 pdata and pscale.  The bound counts the pdata and pscale
+    # bytes; the library yardstick is handed the predicted table.
+    pslab = 0.1 * torch.randn((n_tab, 128),
+                              generator=torch.Generator().manual_seed(5))
+    pslab[-1] = 0
+    pslab = pslab.to(dev)
+    gamma = 0.5
+    occupancy = data["_worklist"].occupancy
+    for storage in ("fp32", "bf16", "int8"):
+        prec = HaloPrecision(storage)
+        sdata, scale = quantize_rows(slab, prec)
+        pdata, pscale = quantize_rows(pslab, prec)
+        kind = select_halo_kernel(sdata, scale, pdata, pscale,
+                                  has_worklist=True, occupancy=occupancy)
+        want_kind = "resident" if storage == "int8" else "skip"
+        check(kind == want_kind, f"the ladder selects {kind} for the "
+              f"{storage} slab with pdata, expected {want_kind}")
+        predicted = (dequantize_rows(sdata, scale)
+                     + gamma * dequantize_rows(pdata, pscale))
+        if kind == "skip":
+            args = (nbr, wts, sdata, scale, ids, cnt)
+            kw = dict(pdata=pdata, pscale=pscale, gamma=gamma,
+                      chunk_rows=TRAIN_CHUNK_ROWS)
+            name, variant = "halo_spmm_skip", f"{storage}+gamma"
+
+            def run(args=args, kw=kw):
+                return halo_spmm_skip_cuda(*args, **kw)
+
+            def plain(args=args, kw=kw):
+                return halo_spmm_skip_plain(*args, **kw)
+
+            check(torch.equal(run(), halo_spmm_stream_cuda(
+                nbr, wts, sdata, scale, pdata, pscale, gamma,
+                chunk_rows=TRAIN_CHUNK_ROWS)),
+                f"K4 [{variant}] is not equal to K3")
+        else:
+            args = (nbr, wts, sdata, scale, pdata, pscale, gamma)
+            name, variant = "halo_spmm", f"train {storage}+gamma"
+
+            def run(args=args):
+                return halo_spmm_cuda(*args)
+
+            def plain(args=args):
+                return halo_spmm_plain(*args)
+
+        got = run()
+        check(torch.equal(got, run()), f"{name} [{variant}]: two launches "
+              "differ")
+        csr = csr_of(torch, nbr, wts, n_tab)
+        measure(torch, records, name, variant,
+                list(nbr.shape) + [n_tab, 128], got, plain(), run, plain,
+                bound(torch, nbr, wts, [sdata, pdata], [scale, pscale], 128),
+                lambda csr=csr, t=predicted: torch.sparse.mm(csr, t), got)
 
     # K1 at the training shapes: the in-subgraph product (in-ELL over the
     # local table, fp32; GAT's per-head w32 tables), and the out-ELL over
@@ -902,21 +1005,27 @@ def capture(opt):
     return Optimizer(opt.name, init, update)
 
 
-def train_run(torch, cfg, data, storage, params, epochs, lr):
+def train_settings(storage, **kw):
+    """Phase 7's settings (interval 10, the ``storage`` store), or
+    ``kw``'s changes of them."""
+    from repro_torch.core.digest import TrainSettings
+    from repro_torch.core.halo_exchange import HaloPrecision
+
+    return TrainSettings(**{"sync_interval": 10, "mode": "digest",
+                            "precision": HaloPrecision(storage), **kw})
+
+
+def train_run(torch, cfg, data, settings, params, epochs, lr):
     """``epochs`` epochs of DIGEST from ``params``: the per-epoch (loss,
     train F1, eps), epoch 1's per-leaf mean gradients, the epoch times
     (host clock around an epoch that ends in a synchronize) and the final
     state."""
-    from repro_torch.core.digest import (TrainSettings, _leaves, init_state,
-                                         make_epoch_fn)
-    from repro_torch.core.halo_exchange import HaloPrecision
+    from repro_torch.core.digest import _leaves, init_state, make_epoch_fn
     from repro_torch.optim import adam
 
-    settings = TrainSettings(sync_interval=10, mode="digest",
-                             precision=HaloPrecision(storage))
     opt = capture(adam(lr))
     state = init_state(cfg, opt, data, precision=settings.precision,
-                       params=params)
+                       predictor=settings.predictor, params=params)
     epoch_fn = make_epoch_fn(cfg, opt, settings)
     traj, times, grads = [], [], None
     for e in range(epochs):
@@ -933,20 +1042,26 @@ def train_run(torch, cfg, data, storage, params, epochs, lr):
 
 
 def train_path(torch, cfg, data, storage, params, epochs, lr, kernel,
-               expect_per_epoch):
+               expect_per_epoch, settings=None, oracle_epochs=None):
     """One training main-path run and its check against the same run
     through the gather-form oracles (``backend="jnp"``, autograd on the
     card): epoch 1's per-leaf gradients within TOL of each leaf's max
     |g| (or twice the oracle's own one-ulp sensitivity, where larger),
-    and, when the run is the long one, the (loss, train F1) trajectory
-    within TRAJ_TOL.  Returns its summary."""
+    and the (loss, train F1) trajectory within TRAJ_TOL over the
+    ``oracle_epochs`` the oracle runs (by default all of the fp32 GCN's,
+    else 1).  ``settings`` defaults to phase 7's.  Returns its summary
+    and the two final states."""
     from repro_torch.core.digest import evaluate
     from repro_torch.kernels._build import LAUNCHES
 
+    if settings is None:
+        settings = train_settings(storage)
     label = f"train {cfg.model}/{storage}"
+    if settings.predictor.enabled:
+        label += f" {settings.predictor.kind} predictor"
     c0, k1_0 = dict(LAUNCHES), collections.Counter(K1_SHAPES)
     w_0 = collections.Counter(WTS_SHAPES)
-    traj, grads, times, state = train_run(torch, cfg, data, storage, params,
+    traj, grads, times, state = train_run(torch, cfg, data, settings, params,
                                           epochs, lr)
     c1 = dict(LAUNCHES)
     launches = {k: c1[k] - c0[k] for k in c0}
@@ -963,9 +1078,10 @@ def train_path(torch, cfg, data, storage, params, epochs, lr, kernel,
               f"{epochs} epochs, expected {expect_per_epoch * epochs}")
     check(launches[kernel] > 0, f"{label}: {kernel} never launched")
     oracle = dataclasses.replace(cfg, backend="jnp")
-    o_epochs = epochs if storage == "fp32" and cfg.model == "gcn" else 1
-    o_traj, o_grads, _, _ = train_run(torch, oracle, data, storage, params,
-                                      o_epochs, lr)
+    o_epochs = oracle_epochs or (
+        epochs if storage == "fp32" and cfg.model == "gcn" else 1)
+    o_traj, o_grads, _, o_state = train_run(torch, oracle, data, settings,
+                                            params, o_epochs, lr)
     check(sum(LAUNCHES.values()) == sum(c1.values()),
           f"{label}: the oracle run launched a kernel")
     rel = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
@@ -981,7 +1097,7 @@ def train_path(torch, cfg, data, storage, params, epochs, lr, kernel,
         # twice that where it exceeds TOL.
         for eps in (2.0 ** -23, 2.0 ** -22):
             moved = dict(data, x_global=data["x_global"] * (1 + eps))
-            _, p_grads, _, _ = train_run(torch, oracle, moved, storage,
+            _, p_grads, _, _ = train_run(torch, oracle, moved, settings,
                                          params, 1, lr)
             floor = [max(f, float((p - b).abs().max())
                          / max(float(b.abs().max()), 1e-30))
@@ -1001,32 +1117,50 @@ def train_path(torch, cfg, data, storage, params, epochs, lr, kernel,
     check(all(math.isfinite(t[0]) for t in traj), f"{label}: loss not finite")
     ev = evaluate(cfg, state["params"], data)
     later = times[1:] if len(times) > 1 else times
-    return {"path": label, "model": cfg.model, "storage": storage,
-            "epochs": epochs, "epoch_ms_median": statistics.median(later),
-            "epoch_ms": times, "loss": [t[0] for t in traj],
-            "train_f1": [t[1] for t in traj],
-            "staleness_eps": [t[2] for t in traj],
-            "val_f1": float(ev["val_f1"]), "test_f1": float(ev["test_f1"]),
-            "grad_rel_err": grad_err, "grad_rel_err_by_leaf": rel,
-            "oracle_ulp_sensitivity_by_leaf": floor,
-            "oracle_epochs": o_epochs,
-            "traj_max_err": traj_err, "launches": launches,
-            "spmm_per_epoch_by_shape": {
-                f"{r}x{d} w{f} {dt}": n / epochs
-                for (r, d, f, dt), n in sorted(k1_shapes.items())},
-            "spmm_bwd_wts_per_epoch_by_shape": {
-                f"{r}x{d} w{f} {dt}": n / epochs
-                for (r, d, f, dt), n in sorted(w_shapes.items())}}
+    res = {"path": label, "model": cfg.model, "storage": storage,
+           "epochs": epochs, "sync_interval": settings.sync_interval,
+           "epoch_ms_median": statistics.median(later),
+           "epoch_ms": times, "loss": [t[0] for t in traj],
+           "train_f1": [t[1] for t in traj],
+           "staleness_eps": [t[2] for t in traj],
+           "val_f1": float(ev["val_f1"]), "test_f1": float(ev["test_f1"]),
+           "grad_rel_err": grad_err, "grad_rel_err_by_leaf": rel,
+           "oracle_ulp_sensitivity_by_leaf": floor,
+           "oracle_epochs": o_epochs,
+           "traj_max_err": traj_err, "launches": launches,
+           "spmm_per_epoch_by_shape": {
+               f"{r}x{d} w{f} {dt}": n / epochs
+               for (r, d, f, dt), n in sorted(k1_shapes.items())},
+           "spmm_bwd_wts_per_epoch_by_shape": {
+               f"{r}x{d} w{f} {dt}": n / epochs
+               for (r, d, f, dt), n in sorted(w_shapes.items())}}
+    return res, state, o_state
+
+
+def train_model(torch, dev, data, name):
+    """The paper's widths (``configs/digest_gcn.py``) on the training
+    partition, random weights from ``torch.Generator`` seed 0."""
+    from repro_torch.configs import digest_gcn
+    from repro_torch.models.gnn import GNN, GNNConfig
+
+    exp, g = digest_gcn.CONFIG, data["_graph"]
+    cfg = GNNConfig(model=name, num_layers=exp.num_layers,
+                    in_dim=g.features.shape[1], hidden_dim=exp.hidden_dim,
+                    num_classes=int(g.labels.max()) + 1,
+                    heads=4 if name == "gat" else exp.heads,
+                    stream_chunk_rows=TRAIN_CHUNK_ROWS,
+                    halo_occupancy=data["_worklist"].occupancy)
+    return cfg, GNN.init(cfg, torch.Generator().manual_seed(0), dev).tree()
 
 
 def training(torch, dev) -> tuple:
     """Phases 6-7: the training kernels at the training shapes, then the
-    training main path; returns the records and the path's launches."""
+    training main path; returns the records, the path's launches, the
+    training data and the fp32 GCN run's median epoch ms."""
     from repro_torch.configs import digest_gcn
     from repro_torch.core.digest import prepare_graph_data
     from repro_torch.graph import make_dataset
     from repro_torch.kernels import _build
-    from repro_torch.models.gnn import GNN, GNNConfig
 
     t0 = time.perf_counter()
     g = make_dataset("papers-sim", scale=1.0, seed=0)
@@ -1044,18 +1178,6 @@ def training(torch, dev) -> tuple:
     print(json.dumps({"kernel_variants": records}), flush=True)
 
     exp = digest_gcn.CONFIG
-
-    def model(name):
-        cfg = GNNConfig(model=name, num_layers=exp.num_layers,
-                        in_dim=g.features.shape[1],
-                        hidden_dim=exp.hidden_dim,
-                        num_classes=int(g.labels.max()) + 1,
-                        heads=4 if name == "gat" else exp.heads,
-                        stream_chunk_rows=TRAIN_CHUNK_ROWS,
-                        halo_occupancy=wl.occupancy)
-        return cfg, GNN.init(cfg, torch.Generator().manual_seed(0),
-                             dev).tree()
-
     layers = exp.num_layers - 1            # hidden layers reading the store
     runs = (("gcn", "fp32", TRAIN_EPOCHS, "halo_spmm_skip",
              layers * TRAIN_PARTS),
@@ -1066,15 +1188,272 @@ def training(torch, dev) -> tuple:
     _build.reset_launches()
     results = []
     for name, storage, epochs, kernel, per_epoch in runs:
-        cfg, params = model(name)
-        res = train_path(torch, cfg, data, storage, params, epochs,
-                         exp.learning_rate, kernel, per_epoch)
+        cfg, params = train_model(torch, dev, data, name)
+        res, _, _ = train_path(torch, cfg, data, storage, params, epochs,
+                               exp.learning_rate, kernel, per_epoch)
         print(json.dumps(res), flush=True)
         results.append(res)
     launches = dict(_build.LAUNCHES)
     check(all(launches[k] > 0 for k in TRAINING_KERNELS),
           f"a kernel of the training path never launched: {launches}")
-    return records, launches, data
+    return records, launches, data, results[0]["epoch_ms_median"]
+
+
+def _tree_equal(torch, a, b) -> bool:
+    """Every leaf of two nested dicts equal, bit for bit."""
+    from repro_torch.core.digest import _leaves
+    la, lb = _leaves(a), _leaves(b)
+    return len(la) == len(lb) and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        for x, y in zip(la, lb))
+
+
+def sat_training(torch, dev, data, raw_epoch_ms, smi) -> dict:
+    """Phase 12: the SAT predictor, faults, the watchdog, checkpoints and
+    resume on phase 7's partition and GCN, all at interval 2 (pushes at
+    r = 1, 3, ...; pulls at r = 2, 4, ...), each kernel run held against
+    the oracle or against another kernel run.  Returns the path's
+    summary with its launches."""
+    import shutil
+    import tempfile
+
+    from repro_torch import checkpoint
+    from repro_torch.configs import digest_gcn
+    from repro_torch.core import (FaultConfig, PredictorConfig,
+                                  measure_error_and_bound)
+    from repro_torch.core.digest import _leaves, digest_train
+    from repro_torch.core.halo_exchange import (dequantize_rows,
+                                                init_slab, layer_table)
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.spmm.ops import select_halo_kernel
+    from repro_torch.optim import adam
+
+    lr = digest_gcn.CONFIG.learning_rate
+    cfg, params = train_model(torch, dev, data, "gcn")
+    parts = int(data["local_ids"].shape[0])
+    halo = int(data["halo_ids"].shape[1])
+    layers = cfg.num_layers - 1
+    ema = PredictorConfig("ema", gamma=1.0, beta=0.5)
+    out = {"path": "sat training", "model": "gcn", "sync_interval": 2,
+           "predictor": dataclasses.asdict(ema)}
+
+    def sat(storage, **kw):
+        return train_settings(storage, **{"sync_interval": 2,
+                                          "predictor": ema, **kw})
+
+    def slab_kernel(storage, pred):
+        """What the ladder selects for a hidden layer's halo slab."""
+        sl = init_slab(1, 1, halo, cfg.hidden_dim, sat(storage).precision,
+                       "cpu")
+        d, sc = layer_table({k: v[0] for k, v in sl.items()}, 0)
+        return select_halo_kernel(
+            d, sc, d if pred else None, sc if pred else None,
+            has_worklist=True, occupancy=cfg.halo_occupancy)
+
+    def pred_launches(before, kernel, dtype):
+        """Launches of ``kernel`` over a ``dtype`` slab since ``before``:
+        (with pdata, without it, with pdata but no pscale on a scaled
+        slab)."""
+        d = HALO_LAUNCHES - before
+        mine = {k: n for k, n in d.items() if k[:2] == (kernel, dtype)}
+        return (sum(n for k, n in mine.items() if k[3]),
+                sum(n for k, n in mine.items() if not k[3]),
+                sum(n for k, n in mine.items() if k[2] and k[3] and not k[4]))
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t_phase = time.perf_counter()
+
+    # 1-3: the predictor on each store, against the oracle; the ladder's
+    # choice with the pdata slab and every launch of it carrying pdata.
+    runs = {}
+    for storage, epochs, o_epochs in (("fp32", TRAIN_EPOCHS, TRAIN_EPOCHS),
+                                      ("int8", 8, 8), ("bf16", 3, 1)):
+        kind = {"skip": "halo_spmm_skip",
+                "resident": "halo_spmm"}[slab_kernel(storage, True)]
+        dtype = {"fp32": "float32", "int8": "int8",
+                 "bf16": "bfloat16"}[storage]
+        h0, k1_0 = collections.Counter(HALO_LAUNCHES), collections.Counter(
+            K1_SHAPES)
+        res, state, o_state = train_path(
+            torch, cfg, data, storage, params, epochs, lr, kind,
+            layers * parts, settings=sat(storage), oracle_epochs=o_epochs)
+        with_p, without_p, no_pscale = pred_launches(h0, kind, dtype)
+        check(with_p == layers * parts * epochs and without_p == 0
+              and no_pscale == 0,
+              f"{res['path']}: {kind} over {dtype} launched {with_p} times "
+              f"with pdata, {without_p} without it and {no_pscale} without "
+              f"pscale; expected {layers * parts * epochs}, 0 and 0")
+        res["selected"] = kind
+        res["selected_without_pdata"] = slab_kernel(storage, False)
+        res["pdata_launches"] = with_p
+        if storage == "bf16":
+            # Without a predictor the unscaled bf16 slab is resident and
+            # goes to K1; with the pdata slab it passes the budget: K4.
+            out_k1 = sum(n for (r, d, f, dt), n in (K1_SHAPES - k1_0).items()
+                         if (r, d, f, dt) == (
+                             int(data["struct"]["out_nbr"].shape[1]),
+                             int(data["struct"]["out_nbr"].shape[2]),
+                             cfg.hidden_dim, "bfloat16"))
+            check(res["selected_without_pdata"] == "resident"
+                  and kind == "halo_spmm_skip" and out_k1 == 0,
+                  f"{res['path']}: expected the switch from K1 to K4, got "
+                  f"{res['selected_without_pdata']} -> {kind} with {out_k1} "
+                  "K1 launches over the bf16 halo slab")
+        hist, o_hist = state["predictor"], o_state["predictor"]
+        if o_epochs == epochs:
+            coef_err = float((hist["coef"] - o_hist["coef"]).abs().max())
+            rows = dequantize_rows(state["pstore"]["data"],
+                                   state["pstore"].get("scale"))
+            o_rows = dequantize_rows(o_state["pstore"]["data"],
+                                     o_state["pstore"].get("scale"))
+            pstore_err = float((rows - o_rows).abs().max())
+            # int8: one code of the row's scale beside the fp32 bar.
+            step = (float(state["pstore"]["scale"].max())
+                    if storage == "int8" else 0.0)
+            check(coef_err <= SAT_STATE_TOL
+                  and pstore_err <= SAT_STATE_TOL + step,
+                  f"{res['path']}: final coef / pstore differ from the "
+                  f"oracle's by {coef_err:.3e} / {pstore_err:.3e} (bar "
+                  f"{SAT_STATE_TOL} + {step:.3e})")
+            check(float(hist["coef"].abs().max()) > 0,
+                  f"{res['path']}: the coefficient never left 0, so the "
+                  "epilogue added nothing")
+            res.update(coef=hist["coef"].tolist(), coef_max_err=coef_err,
+                       pstore_max_err=pstore_err,
+                       pstore_max_abs=float(rows.abs().max()))
+        print(json.dumps(res), flush=True)
+        runs[storage] = (res, state)
+        del o_state
+
+    # 4: gamma = 0 adds exactly nothing: the predictor-free run's bits.
+    kw = dict(eval_every=1, params=params)
+    base, base_h = digest_train(cfg, adam(lr), data, train_settings(
+        "fp32", sync_interval=2), 6, **kw)
+    g0, g0_h = digest_train(cfg, adam(lr), data, sat(
+        "fp32", predictor=PredictorConfig("ema", gamma=0.0)), 6, **kw)
+    for key in ("params", "store", "cache", "opt_state"):
+        check(_tree_equal(torch, base[key], g0[key]),
+              f"gamma = 0: {key} differs from the predictor-free run")
+    check(base_h["loss"] == g0_h["loss"],
+          "gamma = 0: the losses differ from the predictor-free run")
+    check(int(g0["predictor"]["count"].min()) > 0,
+          "gamma = 0: the history never advanced")
+    del base, g0
+
+    # 5: faults and the watchdog, against the fault-aware run without
+    # faults, which in turn equals the run with no fault state.
+    faults = FaultConfig(seed=1, crash_rate=0.1, crash_rounds=2,
+                         drop_push_rate=0.5, corrupt_rate=0.1)
+    clean, clean_h = digest_train(cfg, adam(lr), data,
+                                  sat("fp32", max_staleness=10 ** 6),
+                                  TRAIN_EPOCHS, faults=FaultConfig(seed=1),
+                                  **kw)
+    same = ("params", "store", "cache", "pstore", "predictor", "pcache")
+    check(_tree_equal(torch, {k: clean[k] for k in same},
+                      {k: runs["fp32"][1][k] for k in same})
+          and clean_h["loss"] == runs["fp32"][0]["loss"],
+          "a zero-rate schedule with the watchdog armed differs from the "
+          "run with no fault state (run 1)")
+    faulty, faulty_h = digest_train(cfg, adam(lr), data,
+                                    sat("fp32", max_staleness=6), 10,
+                                    faults=faults, **kw)
+    check(all(math.isfinite(x) for x in faulty_h["loss"])
+          and all(bool(torch.isfinite(p).all())
+                  for p in _leaves(faulty["params"])),
+          "faulty run: loss or params not finite")
+    check(max(faulty_h["push_age"]) < 6,
+          f"faulty run: push age {faulty_h['push_age']} reaches the "
+          "watchdog bound 6")
+    check(max(faulty_h["push_age"]) > max(clean_h["push_age"][:10]),
+          "faulty run: the push age did not rise above the clean run's")
+    check(faulty_h["loss"] != clean_h["loss"][:10],
+          "faulty run: the faults changed nothing")
+    out.update(clean_push_age=clean_h["push_age"],
+               faulty_push_age=faulty_h["push_age"],
+               faulty_loss=faulty_h["loss"])
+    del clean, faulty
+
+    # 6: kill and resume, bit for bit, through a checkpoint on the host's
+    # disk (the times below are that disk's, not the card's).
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        ck = dict(faults=faults, ckpt_every=4, **kw)
+        full, _ = digest_train(cfg, adam(lr), data,
+                               sat("fp32", max_staleness=6), 8,
+                               ckpt_dir=f"{tmp}/a", **ck)
+        digest_train(cfg, adam(lr), data, sat("fp32", max_staleness=6), 4,
+                     ckpt_dir=f"{tmp}/b", **ck)
+        resumed, _ = digest_train(cfg, adam(lr), data,
+                                  sat("fp32", max_staleness=6), 8,
+                                  ckpt_dir=f"{tmp}/b", resume=True, **ck)
+        check(set(full) == set(resumed) and _tree_equal(torch, full,
+                                                        resumed),
+              "kill and resume: the resumed run differs from the unbroken "
+              "one")
+        t0 = time.perf_counter()
+        checkpoint.save_checkpoint(f"{tmp}/c", 8, resumed)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again, _ = checkpoint.restore_checkpoint(f"{tmp}/c", resumed)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(_tree_equal(torch, again, resumed),
+              "checkpoint: the restored state differs")
+        nbytes = sum(p.stat().st_size for p in Path(f"{tmp}/c").iterdir())
+        out["checkpoint"] = {"bytes": nbytes, "save_s": save_s,
+                             "restore_s": restore_s, "on": "host disk"}
+        print(f"checkpoint (host disk): {nbytes} bytes, save "
+              f"{save_s:.3f} s, restore {restore_s:.3f} s", flush=True)
+        del full, resumed, again
+    finally:
+        shutil.rmtree(tmp)
+
+    # 7: the Theorem-1 quantities of run 1's final state with its pstore,
+    # through the kernels and through the oracles.
+    state = runs["fp32"][1]
+    oracle = dataclasses.replace(cfg, backend="jnp")
+    c0 = sum(_build.LAUNCHES.values())
+    bound_k = measure_error_and_bound(cfg, state["params"], data,
+                                      state["store"], state["pstore"],
+                                      ema.gamma)
+    c1 = sum(_build.LAUNCHES.values())
+    bound_o = measure_error_and_bound(oracle, state["params"], data,
+                                      state["store"], state["pstore"],
+                                      ema.gamma)
+    check(c1 > c0 and sum(_build.LAUNCHES.values()) == c1,
+          "error bound: the kernel run launched nothing or the oracle "
+          "launched a kernel")
+    worst = 0.0
+    for key in ("err_measured", "bound", "eps", "eps_mean", "eps_raw_mean"):
+        got = [bound_k[key]] if isinstance(bound_k[key], float) \
+            else bound_k[key]
+        want = [bound_o[key]] if isinstance(bound_o[key], float) \
+            else bound_o[key]
+        for a, b in zip(got, want):
+            rel = abs(a - b) / max(abs(b), 1e-30)
+            check(rel <= BOUND_TOL, f"error bound: {key} {got} differs from "
+                  f"the oracle's {want} by {rel:.3e} relative")
+            worst = max(worst, rel)
+    out["error_bound"] = {k: bound_k[k] for k in (
+        "err_measured", "bound", "bound_with_quant", "eps", "eps_mean",
+        "eps_raw", "eps_raw_mean")}
+    out["error_bound_max_rel_err"] = worst
+    print(f"error bound: eps_mean {bound_k['eps_mean']} beside eps_raw_mean "
+          f"{bound_k['eps_raw_mean']}; err_measured "
+          f"{bound_k['err_measured']:.6g} beside bound "
+          f"{bound_k['bound']:.6g}", flush=True)
+
+    torch.cuda.synchronize()
+    out["launches"] = dict(_build.LAUNCHES)
+    out["seconds"] = time.perf_counter() - t_phase
+    sat_ms = runs["fp32"][0]["epoch_ms_median"]
+    out.update(epoch_ms_median=sat_ms, raw_epoch_ms_median=raw_epoch_ms)
+    print(f"epoch (untraced median, {smi}): fp32 store with the ema "
+          f"predictor, interval 2 {sat_ms:.2f} ms; without it, interval 10 "
+          f"(phase 7) {raw_epoch_ms:.2f} ms", flush=True)
+    print(json.dumps(out), flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1523,7 +1902,8 @@ def main() -> None:
     with torch.inference_mode():
         serve_records, serve_launches = run(torch, dev)
     t_serve = time.perf_counter() - t0
-    train_records, train_launches, data = training(torch, dev)
+    train_records, train_launches, data, raw_ms = training(torch, dev)
+    sat = sat_training(torch, dev, data, raw_ms, smi)
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t0 - t_serve
     with torch.no_grad():
@@ -1536,7 +1916,8 @@ def main() -> None:
                      "gat_aggregate": gat_path(torch, dev, data)["launches"]}
     del pre
     torch.cuda.synchronize()
-    print(f"phases: serving {t_serve:.1f} s, training {t_train:.1f} s, "
+    print(f"phases: serving {t_serve:.1f} s, training {t_train:.1f} s (of "
+          f"which SAT training {sat['seconds']:.1f} s), "
           f"LM and GAT {time.perf_counter() - t0 - t_serve - t_train:.1f} s",
           flush=True)
     records = serve_records + train_records + lm_records
@@ -1551,6 +1932,8 @@ def main() -> None:
         launches = {"serving": serve_launches[kernel] if kernel
                     in SERVING_KERNELS else 0,
                     "training": train_launches[kernel] if kernel
+                    in TRAINING_KERNELS else 0,
+                    "sat training": sat["launches"][kernel] if kernel
                     in TRAINING_KERNELS else 0}
         if name in PATH_OF:
             launches[PATH_OF[name]] = path_launches[PATH_OF[name]][kernel]

@@ -1,4 +1,4 @@
-from repro_torch.core import halo_exchange, serving
+from repro_torch.core import faults, halo_exchange, predictor, serving
 from repro_torch.core.digest import (MODES, TrainSettings,
                                      check_worklist_geometry, digest_train,
                                      empty_halo_struct, evaluate,
@@ -6,7 +6,12 @@ from repro_torch.core.digest import (MODES, TrainSettings,
                                      init_state, make_epoch_fn,
                                      make_subgraph_loss, prepare_graph_data,
                                      project_store_tables, top_layer_reps)
+from repro_torch.core.error_bound import (measure_error_and_bound,
+                                          quantization_eps)
+from repro_torch.core.faults import (FaultConfig, FaultSchedule,
+                                     attach_fault_state, measured_staleness)
 from repro_torch.core.halo_exchange import HaloPrecision, HaloSpec
+from repro_torch.core.predictor import PredictorConfig
 from repro_torch.core.serving import (ServeConfig, ServePlan,
                                       build_serve_plan, serve_query)
 
@@ -16,4 +21,7 @@ __all__ = ["halo_exchange", "serving", "MODES", "TrainSettings",
            "make_epoch_fn", "make_subgraph_loss", "prepare_graph_data",
            "project_store_tables", "top_layer_reps", "HaloPrecision",
            "HaloSpec", "ServeConfig", "ServePlan", "build_serve_plan",
-           "serve_query"]
+           "serve_query", "faults", "FaultConfig", "FaultSchedule",
+           "attach_fault_state", "measured_staleness",
+           "measure_error_and_bound", "quantization_eps", "predictor",
+           "PredictorConfig"]

@@ -19,9 +19,15 @@ of the reference partitioner, so every integer and float array equals the
 reference's, and returns them as tensors on ``device``, plus the
 transposed in-ELL (``in_pos``) the SpMM backward gathers through.
 
+The SAT predictor (``core/predictor.py``) rides the store: a ``pstore``
+of the store's geometry is pushed beside it, pulled into a ``pcache``
+slab, and read by the halo kernels' fused epilogue.  Fault state
+(``core/faults.py``) gates each part's push with a host-refreshed
+``push_ok`` mask, and :func:`digest_train` checkpoints the whole state
+and resumes from the newest valid checkpoint (``checkpoint/``).
+
 Later slices of the port (``ROADMAP.md`` §1): ``pull_mode="collective"``
-(item 6), the SAT predictor (item 3), fault state and checkpoints
-(item 5) and the sampled regime (item 4).  Asking for them raises
+(item 6) and the sampled regime (item 4).  Asking for the first raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -33,8 +39,12 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import checkpoint as ckpt_io
+from repro_torch.core import faults as faults_mod
 from repro_torch.core import halo_exchange
+from repro_torch.core import predictor as predictor_mod
 from repro_torch.core.halo_exchange import HaloPrecision
+from repro_torch.core.predictor import PredictorConfig
 from repro_torch.device import resolve_device
 from repro_torch.graph.graph import Graph
 from repro_torch.graph.partition import StackedPartitions, build_partitions
@@ -52,9 +62,6 @@ MODES = ("digest", "partition", "propagation")
 _LATER = {
     "collective": "pull_mode='collective' is ported with the multi-GPU "
                   "exchange (ROADMAP.md §1 item 6)",
-    "predictor": "the SAT predictor is ported with ROADMAP.md §1 item 3",
-    "faults": "fault injection, max_staleness and checkpoints are ported "
-              "with ROADMAP.md §1 item 5",
 }
 
 # Output-row block of the reference's TPU kernels; the chunk worklists
@@ -248,6 +255,15 @@ def _unflatten(tree: Pytree, leaves: list) -> Pytree:
     return build(tree)
 
 
+def mean_grads_of(grads: list, leaves: list) -> list:
+    """The mean over subgraphs of per-subgraph ``torch.autograd.grad``
+    tuples (None, an unused leaf, as zeros), stacked over dim 0 as
+    ``vmap`` + ``jnp.mean`` do."""
+    return [torch.stack([torch.zeros_like(p) if g[i] is None else g[i]
+                         for g in grads]).mean(dim=0)
+            for i, p in enumerate(leaves)]
+
+
 def _detach(table):
     """``stop_gradient`` of a halo table (a tensor or a halo-ref dict)."""
     if isinstance(table, dict):
@@ -257,19 +273,24 @@ def _detach(table):
 
 
 def project_store_tables(store: dict, params: Pytree, cfg: GNNConfig,
-                         precision: HaloPrecision) -> dict:
+                         precision: HaloPrecision, pstore: dict = None,
+                         gamma: float = 1.0) -> dict:
     """GAT owner-shard projection dedup: ``z{ℓ} = dequant(store[ℓ]) ·
     W_{ℓ+1}`` over the R store rows, once per layer, re-encoded in the
     wire precision as pull-ready single-layer stores ``{"z{ℓ}": {"data":
     (1, R, heads·dh)[, "scale"]}}``.  The rows are stale state: nothing
-    here is differentiated.  (The reference's ``pstore``/``gamma``
-    belong to the SAT predictor, a later slice.)"""
+    here is differentiated.  With a SAT ``pstore`` the rows are predicted
+    before the projection, ``dequant(store) + gamma · dequant(pstore)``
+    (exact by linearity of W), so the pulled z slabs keep their shape."""
     out = {}
     with torch.no_grad():
         for ell in range(cfg.num_layers - 1):
             w = params[f"layer_{ell + 1}"]["w"]        # (hidden, heads, dh)
             rows = halo_exchange.dequantize_rows(
                 *halo_exchange.layer_table(store, ell))  # (R, hidden)
+            if pstore is not None:
+                rows = rows + _f32(gamma) * halo_exchange.dequantize_rows(
+                    *halo_exchange.layer_table(pstore, ell))
             z = torch.einsum("rd,dhk->rhk", rows, w)
             z = z.reshape(z.shape[0], -1)               # (R, heads·dh)
             q, qs = halo_exchange.quantize_rows(z, precision)
@@ -278,6 +299,12 @@ def project_store_tables(store: dict, params: Pytree, cfg: GNNConfig,
                 zs["scale"] = qs[None]
             out[f"z{ell}"] = zs
     return out
+
+
+def _f32(x: float) -> torch.Tensor:
+    """``x`` as a float32 scalar (the reference's ``jnp.float32(x)``); a
+    0-d CPU tensor combines with tensors on any device."""
+    return torch.tensor(x, dtype=torch.float32)
 
 
 def make_subgraph_loss(cfg: GNNConfig) -> Callable:
@@ -310,10 +337,15 @@ class TrainSettings:
     llcg_correction: bool = False
     correction_frac: float = 0.1
     correction_lr: float = 1e-3
-    # Later slices: the bounded-staleness watchdog (item 5) and the SAT
-    # predictor kind (item 3); anything but the defaults raises.
+    # Bounded-staleness watchdog: a part whose last accepted push is
+    # >= max_staleness rounds old is pushed on the next round whatever the
+    # cadence or the fault mask.  Needs the fault-aware state leaves
+    # (faults.attach_fault_state); None disables it.
     max_staleness: Optional[int] = None
-    predictor: str = "none"
+    # SAT prediction (core/predictor.py): consumers read dequant(store
+    # row) + gamma·dequant(pstore row).  kind="none" adds no state and
+    # runs the predictor-free program.
+    predictor: PredictorConfig = PredictorConfig()
 
 
 def _check_settings(settings: TrainSettings) -> None:
@@ -323,59 +355,117 @@ def _check_settings(settings: TrainSettings) -> None:
         raise ValueError(settings.pull_mode)
     if settings.pull_mode == "collective":
         raise NotImplementedError(_LATER["collective"])
-    if settings.predictor != "none":
-        raise NotImplementedError(_LATER["predictor"])
-    if settings.max_staleness is not None:
-        raise NotImplementedError(_LATER["faults"])
+    if settings.predictor.enabled and settings.mode != "digest":
+        raise ValueError("the SAT predictor rides the stale store — "
+                         f"mode must be 'digest', got {settings.mode!r}")
 
 
 def _digest_pull(cfg: GNNConfig, settings: TrainSettings, state: dict,
-                 data: dict, r: int) -> dict:
+                 data: dict, r: int) -> tuple[dict, Optional[dict]]:
     """Algorithm-1 PULL (line 5) every ``sync_interval`` epochs: gather
     each subgraph's halo slots from the store into its device-local slab
-    (GAT dedup: the store projected once per layer, then gathered)."""
+    (GAT dedup: the store projected once per layer, then gathered).
+    Returns ``(cache, pcache)``: the pulled SAT predictor slab rides the
+    same gather (None without a predictor, and under GAT dedup, where the
+    prediction is folded in before the projection)."""
     do_pull = r % settings.sync_interval == 0
     if settings.pull_on_first_epoch:
         do_pull = do_pull or r == 1
     if not do_pull:
-        return state["cache"]
+        return state["cache"], state.get("pcache")
+    pred = settings.predictor.enabled and "pstore" in state
     if gat_projected(cfg):
         cache = {}
         for key, zs in project_store_tables(
-                state["store"], state["params"], cfg,
-                settings.precision).items():
+                state["store"], state["params"], cfg, settings.precision,
+                pstore=state["pstore"] if pred else None,
+                gamma=settings.predictor.gamma).items():
             slab = halo_exchange.pull_slab(zs, data["halo_slots"])
             cache[key] = slab["data"]
             if "scale" in slab:
                 cache[f"{key}_scale"] = slab["scale"]
-        return cache
-    return halo_exchange.pull_slab(state["store"], data["halo_slots"])
+        return cache, state.get("pcache")
+    cache = halo_exchange.pull_slab(state["store"], data["halo_slots"])
+    if pred:
+        return cache, halo_exchange.pull_slab(state["pstore"],
+                                              data["halo_slots"])
+    return cache, None
 
 
 def _digest_push(cfg: GNNConfig, settings: TrainSettings, state: dict,
                  data: dict, push_reps: torch.Tensor, r: int) -> tuple:
     """Periodic PUSH (Algorithm 1 lines 9–10; epochs r = 1, N+1, ...) and
     the Theorem-1 staleness probe, measured against the store before the
-    push.  Returns (store, push_residual, eps)."""
+    push.
+
+    With the fault-aware leaves in ``state``, the part mask ``ok`` is the
+    cadence AND ``push_ok``, OR the ``max_staleness`` watchdog; a masked
+    part's rows go to its sentinel slot in the same push, its EF residual
+    stays as it was, and ``last_push_round`` records the parts that
+    pushed.  With the SAT predictor the probe reads the predicted rows
+    ``dequant(store) + gamma·dequant(pstore)``, and the history advances
+    and the pstore is pushed under the same mask as the store.
+
+    Returns (store, push_residual, eps, last_push_round, pstore,
+    predictor_history)."""
     store = state["store"]
     residual = state.get("push_residual")
+    last = state.get("last_push_round")
+    pstore = state.get("pstore")
+    hist = state.get("predictor")
     eps = torch.zeros((max(cfg.num_layers - 1, 1),), dtype=torch.float32,
                       device=push_reps.device)
     if settings.mode != "digest" or cfg.num_layers <= 1:
-        return store, residual, eps
-    eps = halo_exchange.staleness_error(store, push_reps,
+        return store, residual, eps, last, pstore, hist
+    do_push = (r - 1) % settings.sync_interval == 0
+    local_valid = data["local_valid"]
+    ok = None
+    if last is not None:
+        ok = state["push_ok"] & do_push                       # (M,)
+        if settings.max_staleness is not None:
+            ok = ok | ((r - last) >= settings.max_staleness)
+        local_valid = local_valid & ok[:, None]
+        last = torch.where(ok, torch.full_like(last, r), last)
+        # The one host read of a fault-aware epoch: a round in which no
+        # part pushes leaves every leaf as it was, so it skips the push.
+        do_push = bool(ok.any())
+    pred = settings.predictor.enabled and pstore is not None
+    eps_store = store
+    if pred:
+        eps_store = {"data": halo_exchange.dequantize_rows(
+            store["data"], store.get("scale"))
+            + _f32(settings.predictor.gamma) * halo_exchange.dequantize_rows(
+                pstore["data"], pstore.get("scale"))}
+    eps = halo_exchange.staleness_error(eps_store, push_reps,
                                         data["local_slots"],
                                         data["local_boundary"])
-    if (r - 1) % settings.sync_interval == 0:
-        if settings.precision.error_feedback:
-            store, residual = halo_exchange.push_ef(
-                store, data["local_slots"], data["local_valid"], push_reps,
-                residual, data["sentinel_slots"])
-        else:
-            store = halo_exchange.push(store, data["local_slots"],
-                                       data["local_valid"], push_reps,
+    if not do_push:
+        return store, residual, eps, last, pstore, hist
+    if settings.precision.error_feedback:
+        new_store, new_residual = halo_exchange.push_ef(
+            store, data["local_slots"], local_valid, push_reps, residual,
+            data["sentinel_slots"])
+        if ok is not None:
+            # A masked part wrote nothing, so its residual must not take
+            # this round's rounding error either.
+            new_residual = torch.where(ok[:, None, None, None],
+                                       new_residual, residual)
+    else:
+        new_store = halo_exchange.push(store, data["local_slots"],
+                                       local_valid, push_reps,
                                        data["sentinel_slots"])
-    return store, residual, eps
+        new_residual = residual
+    if pred:
+        if ok is None:
+            ok = torch.ones(local_valid.shape[:1], dtype=torch.bool,
+                            device=local_valid.device)
+        # No error feedback on the pstore: deltas do not telescope.
+        hist, prows = predictor_mod.update_history(hist, push_reps, ok,
+                                                   settings.predictor)
+        pstore = halo_exchange.push(pstore, data["local_slots"],
+                                    local_valid, prows,
+                                    data["sentinel_slots"])
+    return new_store, new_residual, eps, last, pstore, hist
 
 
 def llcg_sample(n: int, frac: float, r: int) -> torch.Tensor:
@@ -417,10 +507,13 @@ def _propagation_cache(cfg: GNNConfig, settings: TrainSettings,
 
 
 def _subgraph_tables(cfg: GNNConfig, m: int, x_halo0: torch.Tensor,
-                     cache: dict, struct_m: dict) -> list:
+                     cache: dict, struct_m: dict, pcache: dict = None,
+                     gamma: float = 1.0) -> list:
     """Subgraph m's per-layer halo tables: layer 0 its raw-feature slab,
     layers ℓ ≥ 1 its pulled storage-precision slab (projected rows under
-    GAT dedup), each with the out-ELL and its chunk worklist."""
+    GAT dedup), each with the out-ELL and its chunk worklist; with a
+    pulled SAT slab ``pcache`` the kernels read ``dequant(cache) +
+    gamma·dequant(pcache)``."""
     wl = (struct_m.get("wl_ids"), struct_m.get("wl_cnt"))
     nbr, wts = struct_m["out_nbr"], struct_m["out_wts"]
     pos = struct_m.get("out_pos")
@@ -431,11 +524,17 @@ def _subgraph_tables(cfg: GNNConfig, m: int, x_halo0: torch.Tensor,
             tables.append(projected_halo_ref(
                 cache[f"z{ell}"][m, 0],
                 zsc[m, 0] if zsc is not None else None, nbr, wts, pos))
-        else:
-            sc = cache.get("scale")
-            tables.append(halo_ref(cache["data"][m, ell],
-                                   sc[m, ell] if sc is not None else None,
-                                   nbr, wts, *wl, pos=pos))
+            continue
+        pk = {}
+        if pcache is not None:
+            psc = pcache.get("scale")
+            pk = dict(pdata=pcache["data"][m, ell],
+                      pscale=psc[m, ell] if psc is not None else None,
+                      gamma=gamma)
+        sc = cache.get("scale")
+        tables.append(halo_ref(cache["data"][m, ell],
+                               sc[m, ell] if sc is not None else None,
+                               nbr, wts, *wl, pos=pos, **pk))
     return tables
 
 
@@ -458,12 +557,13 @@ def make_epoch_fn(cfg: GNNConfig, opt: Optimizer, settings: TrainSettings,
         x_halo0 = x_global[data["halo_ids_x"].long()]
         if settings.mode == "partition":
             x_halo0 = torch.zeros_like(x_halo0)
+        pcache = None
         if settings.mode == "propagation" and cfg.num_layers > 1:
             with torch.no_grad():
                 cache = _propagation_cache(cfg, settings, state["params"],
                                            data)
         elif settings.mode == "digest":
-            cache = _digest_pull(cfg, settings, state, data, r)
+            cache, pcache = _digest_pull(cfg, settings, state, data, r)
         else:
             cache = state["cache"]
 
@@ -475,7 +575,8 @@ def make_epoch_fn(cfg: GNNConfig, opt: Optimizer, settings: TrainSettings,
         losses, reps, logits, grads = [], [], [], []
         for m in range(num_parts):
             struct_m = {k: v[m] for k, v in struct.items()}
-            tables = _subgraph_tables(cfg, m, x_halo0, cache, struct_m)
+            tables = _subgraph_tables(cfg, m, x_halo0, cache, struct_m,
+                                      pcache, settings.predictor.gamma)
             loss, (rep, lg) = loss_fn(params, x_local[m], tables, struct_m,
                                       data["labels"][m],
                                       data["train_mask"][m])
@@ -485,10 +586,7 @@ def make_epoch_fn(cfg: GNNConfig, opt: Optimizer, settings: TrainSettings,
             reps.append(rep.detach())
             logits.append(lg.detach())
         # Global AGG (Algorithm 1 line 13): uniform average over subgraphs.
-        mean = [torch.stack([torch.zeros_like(p) if g[i] is None else g[i]
-                             for g in grads]).mean(dim=0)
-                for i, p in enumerate(leaves)]
-        mean_grads = _unflatten(state["params"], mean)
+        mean_grads = _unflatten(state["params"], mean_grads_of(grads, leaves))
         new_params, opt_state = opt.update(mean_grads, state["opt_state"],
                                            state["params"], state["step"])
 
@@ -496,8 +594,8 @@ def make_epoch_fn(cfg: GNNConfig, opt: Optimizer, settings: TrainSettings,
             new_params = _llcg_step(cfg, settings, new_params, data, r)
 
         push_reps = torch.stack(reps)                 # (M, L-1, S, hidden)
-        store, residual, eps = _digest_push(cfg, settings, state, data,
-                                            push_reps, r)
+        store, residual, eps, last, pstore, hist = _digest_push(
+            cfg, settings, state, data, push_reps, r)
         train_acc = micro_f1(torch.stack(logits), data["labels"],
                              data["train_mask"].float())
         new_state = {"params": new_params, "opt_state": opt_state,
@@ -505,8 +603,17 @@ def make_epoch_fn(cfg: GNNConfig, opt: Optimizer, settings: TrainSettings,
                      "step": state["step"] + 1}
         if residual is not None:
             new_state["push_residual"] = residual
+        if pstore is not None:
+            new_state["pstore"] = pstore
+            new_state["predictor"] = hist
+        if pcache is not None:
+            new_state["pcache"] = pcache
         metrics = {"loss": torch.stack(losses).mean(),
                    "train_f1": train_acc, "staleness_eps": eps}
+        if last is not None:
+            new_state["push_ok"] = state["push_ok"]
+            new_state["last_push_round"] = last
+            metrics["push_age"] = faults_mod.measured_staleness(last, r)
         return new_state, metrics
 
     return epoch_fn
@@ -531,11 +638,15 @@ def _llcg_step(cfg: GNNConfig, settings: TrainSettings, params: Pytree,
 
 def init_state(cfg: GNNConfig, opt: Optimizer, data: dict, seed: int = 0,
                precision: HaloPrecision = HaloPrecision(),
+               predictor: PredictorConfig = PredictorConfig(),
                params: Pytree = None) -> dict:
     """Initial training state on ``data``'s device: parameters drawn from
     ``torch.Generator`` seed ``seed`` (or ``params`` as given — parity
     tests pass the reference's), the optimizer state, the zero store and
-    the zero pulled cache (projected slabs under GAT dedup)."""
+    the zero pulled cache (projected slabs under GAT dedup).  An enabled
+    ``predictor`` adds the ``pstore`` (the store's geometry and
+    precision), its ``predictor`` history and, except under GAT dedup,
+    the pulled ``pcache`` slab."""
     check_worklist_geometry(cfg, data)
     dev = data["x_global"].device
     if params is None:
@@ -572,6 +683,14 @@ def init_state(cfg: GNNConfig, opt: Optimizer, data: dict, seed: int = 0,
         state["push_residual"] = torch.zeros(
             (num_parts, l1, s, cfg.hidden_dim), dtype=torch.float32,
             device=dev)
+    if predictor.enabled and cfg.num_layers > 1:
+        state["pstore"] = halo_exchange.init_store(
+            l1, num_slots, cfg.hidden_dim, precision, dev)
+        state["predictor"] = predictor_mod.init_history(
+            num_parts, l1, s, cfg.hidden_dim, dev)
+        if not gat_projected(cfg):
+            state["pcache"] = halo_exchange.init_slab(
+                num_parts, l1, halo_size, cfg.hidden_dim, precision, dev)
     return state
 
 
@@ -580,23 +699,54 @@ def digest_train(cfg: GNNConfig, opt: Optimizer, data: dict,
                  eval_every: int = 10, seed: int = 0,
                  verbose: bool = False, mesh=None, faults=None,
                  ckpt_dir: Optional[str] = None, ckpt_every: int = 0,
-                 resume: bool = False) -> tuple[dict, dict]:
+                 resume: bool = False, params: Pytree = None
+                 ) -> tuple[dict, dict]:
     """Run training; returns (final_state, history dict of lists), the
     history recorded at every ``eval_every``-th epoch and the last.
-    ``mesh``, ``faults`` and checkpoints belong to later slices and
-    raise."""
+
+    ``faults`` (a :class:`repro_torch.core.faults.FaultConfig` or
+    ``FaultSchedule``) masks each part's push through ``push_ok``, and
+    ``settings.max_staleness`` bounds the resulting staleness; either
+    adds the fault-aware state leaves and ``hist["push_age"]``.  A
+    ``None`` or zero-rate schedule leaves the run as without it, bit for
+    bit.  ``ckpt_dir`` + ``ckpt_every`` save a checksummed checkpoint of
+    the whole state every ``ckpt_every`` epochs; ``resume=True`` restores
+    the newest valid one (corrupt or partial ones are skipped) and
+    continues to ``epochs``: the epoch is deterministic in its state, so
+    a killed and resumed run ends equal to an unbroken one.  ``params``
+    replaces the drawn initial parameters (parity tests pass the
+    reference's); ``mesh`` belongs to a later slice and must be None."""
     if mesh is not None or settings.pull_mode == "collective":
         raise NotImplementedError(_LATER["collective"])
-    if faults is not None or ckpt_dir is not None or resume:
-        raise NotImplementedError(_LATER["faults"])
+    if resume and ckpt_dir is None:
+        raise ValueError("resume=True needs ckpt_dir")
+    schedule = faults_mod.check_schedule(faults)
+    num_parts = int(data["local_ids"].shape[0])
+    fault_aware = schedule is not None or settings.max_staleness is not None
     state = init_state(cfg, opt, data, seed=seed,
-                       precision=settings.precision)
+                       precision=settings.precision,
+                       predictor=settings.predictor, params=params)
+    if fault_aware:
+        state = faults_mod.attach_fault_state(state, num_parts)
+    start = 0
+    if resume:
+        step = ckpt_io.latest_step(ckpt_dir)
+        if step is not None:
+            state, _ = ckpt_io.restore_checkpoint(ckpt_dir, state, step=step)
+            start = state["epoch"]
     epoch_fn = make_epoch_fn(cfg, opt, settings)
     hist: dict[str, list] = {"epoch": [], "loss": [], "train_f1": [],
                              "val_f1": [], "test_f1": [], "time": [],
                              "staleness_eps": []}
+    if fault_aware:
+        hist["push_age"] = []
+    dev = data["x_global"].device
     t0 = time.perf_counter()
-    for e in range(epochs):
+    for e in range(start, epochs):
+        if fault_aware:
+            ok = (schedule.push_ok(e + 1, num_parts) if schedule is not None
+                  else np.ones(num_parts, dtype=bool))
+            state["push_ok"] = torch.from_numpy(ok).to(dev)
         state, m = epoch_fn(state, data)
         if (e + 1) % eval_every == 0 or e == epochs - 1:
             ev = evaluate(cfg, state["params"], data)
@@ -608,8 +758,12 @@ def digest_train(cfg: GNNConfig, opt: Optimizer, data: dict,
             hist["staleness_eps"].append(
                 m["staleness_eps"].cpu().numpy().tolist())
             hist["time"].append(time.perf_counter() - t0)
+            if fault_aware:
+                hist["push_age"].append(int(m["push_age"]))
             if verbose:
                 print(f"[{settings.mode}] epoch {e+1:4d} "
                       f"loss {float(m['loss']):.4f} "
                       f"val_f1 {float(ev['val_f1']):.4f}")
+        if ckpt_dir and ckpt_every and (e + 1) % ckpt_every == 0:
+            ckpt_io.save_checkpoint(ckpt_dir, e + 1, state)
     return state, hist

@@ -13,6 +13,15 @@ is the dense gather.  Runs on the card by default:
 ``--profile N`` traces N more epochs with ``torch.profiler`` and prints
 the device's busy share of them and the top device ops.
 Weights are drawn from ``torch.Generator`` seed 0.
+
+``--predictor delta|ema`` turns on SAT prediction, the ``--fault-*``
+rates and ``--max-staleness`` the fault schedule and its watchdog, and
+``--ckpt-dir``/``--ckpt-every``/``--resume`` checkpoints and resume:
+
+  PYTHONPATH=src python -m repro_torch.launch.train_gnn --device cpu \
+      --scale 0.1 --parts 4 --epochs 8 --predictor ema \
+      --fault-drop-rate 0.4 --max-staleness 4 \
+      --ckpt-dir /tmp/ck --ckpt-every 3      # then: --epochs 12 --resume
 """
 from __future__ import annotations
 
@@ -20,14 +29,47 @@ import argparse
 import json
 import time
 
-from repro_torch.core import (HaloPrecision, HaloSpec, TrainSettings,
-                              evaluate, init_state, make_epoch_fn,
-                              prepare_graph_data)
+import numpy as np
+import torch
+
+from repro_torch import checkpoint
+from repro_torch.core import (HaloPrecision, HaloSpec, PredictorConfig,
+                              TrainSettings, evaluate, faults, init_state,
+                              make_epoch_fn, prepare_graph_data)
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.graph import make_dataset
 from repro_torch.launch.serving_driver import profile_serve_loop
 from repro_torch.models.gnn import GNNConfig
 from repro_torch.optim import adam
+
+
+def _push_ok(schedule, rnd: int, num_parts: int, dev):
+    ok = (schedule.push_ok(rnd, num_parts) if schedule is not None
+          else np.ones(num_parts, dtype=bool))
+    return torch.from_numpy(ok).to(dev)
+
+
+def _maybe_resume(args) -> int:
+    """Epoch to start from: the newest valid checkpoint's, or 0."""
+    if not args.resume:
+        return 0
+    step = checkpoint.latest_step(args.ckpt_dir)
+    if step is None:
+        print(f"resume: no valid checkpoint in {args.ckpt_dir}, "
+              f"starting fresh")
+        return 0
+    return int(step)
+
+
+def _restore(args, state):
+    state, step = checkpoint.restore_checkpoint(args.ckpt_dir, state)
+    print(f"resume: restored step {step} from {args.ckpt_dir}")
+    return state, step
+
+
+def _maybe_ckpt(args, step: int, state) -> None:
+    if args.ckpt_dir and args.ckpt_every and step % args.ckpt_every == 0:
+        checkpoint.save_checkpoint(args.ckpt_dir, step, state)
 
 
 def main(argv=None):
@@ -72,6 +114,42 @@ def main(argv=None):
     ap.add_argument("--no-gat-dedup", action="store_true",
                     help="disable the GAT owner-shard projection dedup "
                          "(per-subgraph halo projection)")
+    ap.add_argument("--predictor", default="none",
+                    choices=("none", "delta", "ema"),
+                    help="SAT prediction: serve dequant(store) + "
+                         "gamma*dequant(pstore), the pstore carrying each "
+                         "row's last-sync delta ('delta') or its beta-EMA "
+                         "('ema'); 'none' runs the predictor-free program")
+    ap.add_argument("--predictor-gamma", type=float, default=1.0,
+                    help="pull-time coefficient gamma (1.0 with 'delta' = "
+                         "linear extrapolation)")
+    ap.add_argument("--predictor-beta", type=float, default=0.5,
+                    help="EMA weight of the newest delta")
+    ap.add_argument("--fault-crash-rate", type=float, default=0.0,
+                    help="per-(round, part) probability that the part's "
+                         "worker crashes (its pushes are lost for "
+                         "crash_rounds rounds; the store keeps its last "
+                         "good rows)")
+    ap.add_argument("--fault-drop-rate", type=float, default=0.0,
+                    help="probability that a part's push is dropped")
+    ap.add_argument("--fault-corrupt-rate", type=float, default=0.0,
+                    help="probability that a push is corrupted in flight "
+                         "and rejected by its CRC (acts as a drop)")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed of the fault schedule (each decision is a "
+                         "function of (seed, class, round, part))")
+    ap.add_argument("--max-staleness", type=int, default=None,
+                    help="watchdog: force the push of a part whose last "
+                         "accepted push is this many rounds old")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="directory for checksummed checkpoints of the "
+                         "whole training state")
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="checkpoint every N epochs (0 = never)")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the newest valid checkpoint of "
+                         "--ckpt-dir (corrupt or partial ones are skipped) "
+                         "and continue to --epochs")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: the card)")
     ap.add_argument("--profile", type=int, default=0, metavar="N",
@@ -80,6 +158,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.profile and args.device == "cpu":
         ap.error("--profile measures the card; it needs a CUDA device")
+    if args.resume and not args.ckpt_dir:
+        ap.error("--resume needs --ckpt-dir")
     dev = resolve_device(args.device)
 
     g = make_dataset(args.dataset, scale=args.scale)
@@ -100,18 +180,48 @@ def main(argv=None):
                     halo_occupancy=data["_worklist"].occupancy,
                     gat_halo_dedup=not args.no_gat_dedup)
     opt = adam(5e-3)
+    predictor = PredictorConfig(kind=args.predictor,
+                                gamma=args.predictor_gamma,
+                                beta=args.predictor_beta)
     settings = TrainSettings(
         sync_interval=args.interval, mode="digest", pull_mode=args.pull,
         precision=HaloPrecision(args.precision,
-                                error_feedback=args.error_feedback))
+                                error_feedback=args.error_feedback),
+        max_staleness=args.max_staleness, predictor=predictor)
+    if predictor.enabled:
+        print(f"predictor: kind={predictor.kind} gamma={predictor.gamma} "
+              f"beta={predictor.beta}")
+    schedule = faults.check_schedule(faults.FaultConfig(
+        seed=args.fault_seed, crash_rate=args.fault_crash_rate,
+        drop_push_rate=args.fault_drop_rate,
+        corrupt_rate=args.fault_corrupt_rate))
+    fault_aware = schedule is not None or args.max_staleness is not None
+    if schedule is not None:
+        print(f"faults: crash={args.fault_crash_rate} "
+              f"drop={args.fault_drop_rate} "
+              f"corrupt={args.fault_corrupt_rate} seed={args.fault_seed} "
+              f"max_staleness={args.max_staleness}")
     epoch_fn = make_epoch_fn(cfg, opt, settings)
-    state = init_state(cfg, opt, data, precision=settings.precision)
+    state = init_state(cfg, opt, data, precision=settings.precision,
+                       predictor=predictor)
+    if fault_aware:
+        state = faults.attach_fault_state(state, args.parts)
+    start = _maybe_resume(args)
+    if start:
+        state, _ = _restore(args, state)
     t0 = time.perf_counter()
     m = {"loss": float("nan")}
-    for _ in range(args.epochs):
+    for e in range(start, args.epochs):
+        if fault_aware:
+            state["push_ok"] = _push_ok(schedule, e + 1, args.parts, dev)
         state, m = epoch_fn(state, data)
+        _maybe_ckpt(args, e + 1, state)
     synchronize(state)
     elapsed = time.perf_counter() - t0
+    if fault_aware:
+        age = state["epoch"] - state["last_push_round"].cpu().numpy()
+        print(f"fault staleness: max push age {int(age.max())} round(s) "
+              f"(bound {args.max_staleness})")
     ev = evaluate(cfg, state["params"], data)
     sp = data["_sp"]
     spec = HaloSpec.from_partitions(sp, cfg.hidden_dim, cfg.num_layers,
@@ -121,7 +231,7 @@ def main(argv=None):
     print(f"device={dev} epochs={args.epochs} "
           f"loss={float(m['loss']):.4f} val_f1={float(ev['val_f1']):.4f} "
           f"test_f1={float(ev['test_f1']):.4f} "
-          f"({elapsed / max(args.epochs, 1):.3f}s/epoch)")
+          f"({elapsed / max(args.epochs - start, 1):.3f}s/epoch)")
     print(f"halo worklist: {wl.visited_chunks}/{wl.total_pairs} "
           f"(row-block x chunk) pairs occupied "
           f"({100 * wl.occupancy:.1f}%; chunk_rows={wl.chunk_rows})")

@@ -801,3 +801,155 @@ def test_prefill_launches_k6_in_every_layer(dev):
     want = forward(dataclasses.replace(cfg, attn_backend="dense"), params,
                    toks)
     assert float((got - want).abs().max() / want.abs().max()) < 1e-4
+
+
+def _banded_case(seed, rows, deg, n_tab, feat, dev):
+    """An out-ELL with the training path's locality: row i's real edges
+    fall near slab row i·n_tab/rows (as rcm orders them), a random count
+    of them a row, the rest padding on the sentinel row with weight 0."""
+    rng = np.random.default_rng(seed)
+    centre = (np.arange(rows) * (n_tab - 1) / rows)[:, None]
+    nbr = np.clip(centre + rng.normal(scale=300, size=(rows, deg)), 0,
+                  n_tab - 2).astype(np.int32)
+    live = np.arange(deg)[None, :] < rng.integers(0, deg + 1, (rows, 1))
+    nbr = np.where(live, nbr, n_tab - 1).astype(np.int32)
+    wts = (rng.random((rows, deg)) * live).astype(np.float32)
+    table = rng.normal(size=(n_tab, feat)).astype(np.float32)
+    table[-1] = 0
+    return (torch.from_numpy(nbr).to(dev), torch.from_numpy(wts).to(dev),
+            torch.from_numpy(table).to(dev))
+
+
+@pytest.mark.parametrize("storage,kind", [("fp32", "skip"), ("bf16", "skip"),
+                                          ("int8", "resident")])
+@pytest.mark.parametrize("rows,deg", [(5256, 64), (5256, 37), (777, 65),
+                                      (129, 1)])
+def test_predictor_slab_at_training_shape(dev, storage, kind, rows, deg):
+    """The SAT epilogue where the training path selects it: K4 over fp32
+    and bf16 pdata, K2 over int8 pdata and pscale, at the (5256, 64) over
+    (14289, 128) shape with 256-row chunks and at odd degrees, against
+    their plain versions; K4 equal to K3 bit for bit and to itself."""
+    n_tab = 14289
+    nbr, wts, table = _banded_case(rows + deg, rows, deg, n_tab, 128, dev)
+    data, scale = _slab(table, storage)
+    pdata, pscale = _slab(0.1 * torch.randn_like(table), storage)
+    gamma = 0.75
+    if kind == "skip":
+        wl = build_chunk_worklist(nbr.cpu().numpy(), n_tab, 256)
+        ids = torch.from_numpy(wl.ids).to(dev)
+        cnt = torch.from_numpy(wl.cnt).to(dev)
+        args = (nbr, wts, data, scale, ids, cnt)
+        kw = dict(pdata=pdata, pscale=pscale, gamma=gamma, chunk_rows=256)
+        before = _build.LAUNCHES["halo_spmm_skip"]
+        got = halo_spmm_skip_cuda(*args, **kw)
+        assert torch.equal(got, halo_spmm_skip_cuda(*args, **kw))
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["halo_spmm_skip"] == before + 2
+        want = halo_spmm_skip_plain(*args, **kw)
+        assert torch.equal(got, halo_spmm_stream_cuda(
+            nbr, wts, data, scale, pdata, pscale, gamma, chunk_rows=256))
+    else:
+        args = (nbr, wts, data, scale, pdata, pscale, gamma)
+        before = _build.LAUNCHES["halo_spmm"]
+        got = halo_spmm_cuda(*args)
+        assert torch.equal(got, halo_spmm_cuda(*args))
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["halo_spmm"] == before + 2
+        want = halo_spmm_plain(*args)
+    torch.testing.assert_close(got, want, **TOL)
+    assert float(want.abs().max()) > 0
+
+
+def _train_data(dev):
+    from repro_torch.core.digest import prepare_graph_data
+    from repro_torch.graph import make_dataset
+    g = make_dataset("flickr-sim", scale=0.15, seed=1)
+    return g, prepare_graph_data(g, 2, seed=0, device=dev)
+
+
+def _gcn(g, **kw):
+    from repro_torch.models.gnn import GNNConfig
+    return GNNConfig(model="gcn", num_layers=3, in_dim=g.features.shape[1],
+                     hidden_dim=16, num_classes=int(g.labels.max()) + 1, **kw)
+
+
+@pytest.mark.parametrize("storage,ladder,kernel", [
+    ("fp32", {}, "halo_spmm"), ("int8", {}, "halo_spmm"),
+    ("bf16", {}, "halo_spmm"),
+    ("fp32", dict(resident_max_bytes=64, skip_occupancy_max=1.0),
+     "halo_spmm_skip")])
+def test_predictor_epochs_on_the_kernels(dev, monkeypatch, storage, ladder,
+                                        kernel):
+    """Predictor epochs (``ema``, interval 1, so the coefficient leaves 0
+    by the third push and the pulled pcache carries rows) through the
+    kernels against the same epochs through the gather-form oracles on
+    the card: losses within 1e-4, and every hidden-layer halo launch of
+    the epochs carries pdata."""
+    import dataclasses
+
+    from repro_torch.core import PredictorConfig, TrainSettings, digest
+    from repro_torch.core.halo_exchange import HaloPrecision
+    from repro_torch.kernels.spmm import halo_pull
+    from repro_torch.optim import adam
+
+    g, data = _train_data(dev)
+    if kernel == "halo_spmm_skip":
+        ladder = dict(ladder, halo_occupancy=data["_worklist"].occupancy)
+    cfg = _gcn(g, **ladder)
+    settings = TrainSettings(sync_interval=1,
+                             precision=HaloPrecision(storage),
+                             predictor=PredictorConfig("ema"))
+    calls = []
+    real = halo_pull._launch
+
+    def spy(symbol, counter, nbr, wts, data_, scale, pdata, *a, **k):
+        calls.append((counter, pdata is not None))
+        return real(symbol, counter, nbr, wts, data_, scale, pdata, *a, **k)
+
+    monkeypatch.setattr(halo_pull, "_launch", spy)
+    state, hist = digest.digest_train(cfg, adam(5e-3), data, settings, 5,
+                                      eval_every=1)
+    oracle = dataclasses.replace(cfg, backend="jnp")
+    params = digest.init_state(cfg, adam(5e-3), data)["params"]
+    _, want = digest.digest_train(oracle, adam(5e-3), data, settings, 5,
+                                  eval_every=1, params=params)
+    np.testing.assert_allclose(hist["loss"], want["loss"], rtol=0, atol=1e-4)
+    assert float(state["predictor"]["coef"].abs().max()) > 0
+    assert float(state["pcache"]["data"].float().abs().max()) > 0
+    pred_calls = [c for c in calls if c == (kernel, True)]
+    assert len(pred_calls) == 2 * 2 * 5, calls      # layers x parts x epochs
+
+
+def test_kill_and_resume_on_the_card(dev, tmp_path):
+    """Faults, the watchdog and the predictor through the kernels: a run
+    killed after 4 epochs and resumed to 8 equals the unbroken run bit
+    for bit, every leaf on the card."""
+    from repro_torch.core import (FaultConfig, PredictorConfig,
+                                  TrainSettings, digest)
+    from repro_torch.optim import adam
+
+    g, data = _train_data(dev)
+    cfg = _gcn(g)
+    settings = TrainSettings(sync_interval=2, max_staleness=4,
+                             predictor=PredictorConfig("ema"))
+    kw = dict(faults=FaultConfig(seed=1, drop_push_rate=0.4,
+                                 crash_rate=0.1), ckpt_every=4)
+    full, _ = digest.digest_train(cfg, adam(5e-3), data, settings, 8,
+                                  ckpt_dir=str(tmp_path / "a"), **kw)
+    digest.digest_train(cfg, adam(5e-3), data, settings, 4,
+                        ckpt_dir=str(tmp_path / "b"), **kw)
+    resumed, _ = digest.digest_train(cfg, adam(5e-3), data, settings, 8,
+                                     ckpt_dir=str(tmp_path / "b"),
+                                     resume=True, **kw)
+
+    def leaves(t):
+        if isinstance(t, dict):
+            return [x for k in sorted(t) for x in leaves(t[k])]
+        return [t]
+
+    assert set(full) == set(resumed)
+    for a, b in zip(leaves(full), leaves(resumed)):
+        if isinstance(a, torch.Tensor):
+            assert a.is_cuda and b.is_cuda and torch.equal(a, b)
+        else:
+            assert a == b

@@ -34,9 +34,11 @@ from repro.core import halo_exchange as jhx
 from repro.graph import make_dataset
 from repro.models import gnn as jgnn
 from repro.nn import init_params
+from repro_torch import checkpoint as tckpt
 from repro_torch import optim as toptim
 from repro_torch.core import digest as tdigest
 from repro_torch.core import halo_exchange as thx
+from repro_torch.core import predictor as tpredictor
 from repro_torch.kernels.spmm import ops as tops
 from repro_torch.kernels.spmm import select_halo_kernel
 from repro_torch.launch import quickstart, train_gnn
@@ -275,19 +277,29 @@ def test_halo_spec_matches_reference():
         assert tuple(ts["data"].shape) == j.init()["data"].shape
 
 
-def test_later_slices_raise():
+def test_later_slices_raise(tmp_path):
+    """The collective pull (ROADMAP §1 item 6) still raises; the
+    predictor, the watchdog and checkpoints, ported since, run."""
     g, _, tdata = _data()
     _, cfg = _configs(g, "gcn")
     opt = toptim.adam(5e-3)
-    for kw in (dict(pull_mode="collective"), dict(predictor="delta"),
-               dict(max_staleness=3)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tdigest.make_epoch_fn(cfg, opt, tdigest.TrainSettings(**kw))
-    with pytest.raises(ValueError):
-        tdigest.make_epoch_fn(cfg, opt, tdigest.TrainSettings(mode="x"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tdigest.make_epoch_fn(cfg, opt,
+                              tdigest.TrainSettings(pull_mode="collective"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tdigest.digest_train(cfg, opt, tdata, tdigest.TrainSettings(), 1,
-                             ckpt_dir="unused")
+                             mesh=object())
+    with pytest.raises(ValueError):
+        tdigest.make_epoch_fn(cfg, opt, tdigest.TrainSettings(mode="x"))
+    settings = tdigest.TrainSettings(
+        sync_interval=2, max_staleness=3,
+        predictor=tpredictor.PredictorConfig("delta"))
+    state, hist = tdigest.digest_train(cfg, opt, tdata, settings, 2,
+                                       eval_every=1,
+                                       ckpt_dir=str(tmp_path), ckpt_every=1)
+    assert {"pstore", "predictor", "pcache", "last_push_round"} <= set(state)
+    assert hist["push_age"] == [0, 1]
+    assert tckpt.latest_step(str(tmp_path)) == 2
     bad = dataclasses.replace(cfg, stream_chunk_rows=64)
     with pytest.raises(ValueError, match="chunk_rows"):
         tdigest.init_state(bad, opt, tdata)
@@ -303,7 +315,7 @@ def test_digest_train_history():
     assert all(np.isfinite(hist["loss"])) and len(hist["val_f1"]) == 2
 
 
-def test_train_gnn_launcher_on_cpu(capsys):
+def test_train_gnn_launcher_on_cpu(capsys, tmp_path):
     train_gnn.main(["--device", "cpu", "--scale", "0.15", "--parts", "2",
                     "--epochs", "3", "--interval", "2", "--precision",
                     "int8", "--order", "rcm", "--stream-chunk-rows", "64"])
@@ -312,6 +324,19 @@ def test_train_gnn_launcher_on_cpu(capsys):
     quickstart.main(["--device", "cpu", "--epochs", "2"])
     out = capsys.readouterr().out
     assert "digest" in out and "partition" in out
+    ckpt = ["--device", "cpu", "--scale", "0.15", "--parts", "2",
+            "--interval", "2", "--predictor", "ema", "--fault-drop-rate",
+            "0.3", "--max-staleness", "4", "--ckpt-dir", str(tmp_path),
+            "--ckpt-every", "2"]
+    train_gnn.main(ckpt + ["--epochs", "4"])
+    out = capsys.readouterr().out
+    assert "predictor: kind=ema" in out and "faults: crash=0.0 drop=0.3" in out
+    assert "fault staleness: max push age" in out and "(bound 4)" in out
+    assert tckpt.latest_step(str(tmp_path)) == 4
+    train_gnn.main(ckpt + ["--epochs", "6", "--resume"])
+    out = capsys.readouterr().out
+    assert "resume: restored step 4" in out and "epochs=6" in out
+    assert tckpt.latest_step(str(tmp_path)) == 6
 
 
 @pytest.mark.parametrize("model,dedup", [("gcn", True), ("sage", True),
