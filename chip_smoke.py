@@ -128,12 +128,34 @@ Phases, each ending the run with a non-zero exit on failure:
     unbroken run bit for bit (the checkpoint's bytes and its save and
     restore seconds on the host's disk printed); the Theorem-1 error
     bound of the fp32 run through the kernels within 1e-4 relative of
-    the oracles'; the epoch median beside phase 7's.
+    the oracles'; the epoch median beside phase 7's;
+13. (run right after phase 12, on phase 7's partition and GCN, interval
+    2) sampled mini-batch training with control variates: (a) at full
+    coverage (fanout >= max in-degree, every train row a seed) GCN and
+    SAGE equal the full-batch run over 3 steps bit for bit (params,
+    store, cache, optimizer state, losses), GAT within 1e-6 (whether
+    bitwise is printed); (b) at fanout 5 and 512 seeds, ``cv`` and
+    ``plain`` with the fp32 store and ``cv`` with int8 against the oracle
+    runs as in phase 7 over 6 steps, and GAT ``cv`` over 2 steps under
+    the one-ulp rule, each run's launches a step (K1 by shape, K4/K2, the
+    two SpMM gradients) equal to the counts read off the code
+    (``step_launches``: a hidden layer's in-ELL K1 twice, the table
+    gradient once); (c) a random history changes no bit of a
+    full-coverage step; (d) over 8 draws at fanout 2 the CV update's
+    squared error to the exact update is below plain sampling's (SGD);
+    (e) drop 0.5 under watchdog 6, killed after 4 steps and resumed to 8,
+    equal to the unbroken run bit for bit, push age below 6.  Printed:
+    the step's median (host clock, its draw and upload included) beside
+    the full-batch epoch's at interval 2 and phase 7's, the draw alone,
+    the batch's upload bytes, 3 steps and 3 phase-7 epochs traced (device
+    ms, busy share), and ``epoch_time_model`` / ``epoch_comm_bytes``
+    with the H100 constants (analytic) beside the traced epoch.
 
 Each path's launch counters are set to 0 just before it and read just
 after; the oracle runs launch nothing.  The last lines are the card's
 ``nvidia-smi`` line, one JSON object ``{"kernels": [...]}`` (each
-kernel's launches on its paths (phase 12's as "sat training"), its
+kernel's launches on its paths (phase 12's as "sat training", phase
+13's as "sampled training"), its
 worst error, its bar and the times of its main-path variant; K3's also
 its chunk walk's and its times at the training shape; K6 one entry a
 body, the fp32 body's launches those of the fp32 prefill) and
@@ -192,6 +214,7 @@ LM_SEQ = 1024
 LM_MAX_SEQ = 1056
 LM_GEN = 32
 LM_TEACHER = 128
+TRACE_ATTEMPTS = 3  # traces of the fp32 prefill, for a dropped record
 BATCH = 256
 BATCHES = 64
 TRACED = 8          # query batches traced after the timed loop
@@ -268,6 +291,15 @@ TRAJ_TOL = 1e-4
 # Theorem-1 quantities through the kernels against the oracles (relative).
 SAT_STATE_TOL = 1e-4
 BOUND_TOL = 1e-4
+# Phase 13: the sampler of the launcher's defaults (train_gnn --fanout 5
+# --batch-seeds 512), steps against the oracle, the full-coverage steps,
+# the draws of the variance check and the steps traced.
+SAMPLE_FANOUT = 5
+SAMPLE_SEEDS = 512
+SAMPLE_STEPS = 6
+SAMPLE_COVER_STEPS = 3
+SAMPLE_VARIANCE_DRAWS = 8
+SAMPLE_TRACED = 3
 
 
 # Kernels redesigned for Hopper, by source: ptxas's register and spill
@@ -1015,23 +1047,36 @@ def train_settings(storage, **kw):
                             "precision": HaloPrecision(storage), **kw})
 
 
-def train_run(torch, cfg, data, settings, params, epochs, lr):
-    """``epochs`` epochs of DIGEST from ``params``: the per-epoch (loss,
+def train_run(torch, cfg, data, settings, params, epochs, lr,
+              sampler=None):
+    """``epochs`` epochs of DIGEST from ``params`` (with a ``sampler``:
+    sampled steps, step t on ``sampler.sample(t)``): the per-epoch (loss,
     train F1, eps), epoch 1's per-leaf mean gradients, the epoch times
-    (host clock around an epoch that ends in a synchronize) and the final
-    state."""
-    from repro_torch.core.digest import _leaves, init_state, make_epoch_fn
+    (host clock around an epoch that ends in a synchronize; a sampled
+    step's includes its draw and upload) and the final state."""
+    from repro_torch.core.digest import (_leaves, init_sampled_state,
+                                         init_state, make_epoch_fn,
+                                         make_sampled_epoch_fn,
+                                         sampled_advance)
     from repro_torch.optim import adam
 
     opt = capture(adam(lr))
-    state = init_state(cfg, opt, data, precision=settings.precision,
-                       predictor=settings.predictor, params=params)
-    epoch_fn = make_epoch_fn(cfg, opt, settings)
+    init = init_state if sampler is None else init_sampled_state
+    state = init(cfg, opt, data, precision=settings.precision,
+                 predictor=settings.predictor, params=params)
+    if sampler is None:
+        epoch_fn = make_epoch_fn(cfg, opt, settings)
+
+        def advance(st, _):
+            return epoch_fn(st, data)
+    else:
+        advance = sampled_advance(make_sampled_epoch_fn(cfg, opt, settings),
+                                  sampler, data)
     traj, times, grads = [], [], None
     for e in range(epochs):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, m = epoch_fn(state, data)
+        state, m = advance(state, e)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         traj.append((float(m["loss"]), float(m["train_f1"]),
@@ -1042,15 +1087,17 @@ def train_run(torch, cfg, data, settings, params, epochs, lr):
 
 
 def train_path(torch, cfg, data, storage, params, epochs, lr, kernel,
-               expect_per_epoch, settings=None, oracle_epochs=None):
+               expect_per_epoch, settings=None, oracle_epochs=None,
+               sampler=None):
     """One training main-path run and its check against the same run
     through the gather-form oracles (``backend="jnp"``, autograd on the
     card): epoch 1's per-leaf gradients within TOL of each leaf's max
     |g| (or twice the oracle's own one-ulp sensitivity, where larger),
     and the (loss, train F1) trajectory within TRAJ_TOL over the
     ``oracle_epochs`` the oracle runs (by default all of the fp32 GCN's,
-    else 1).  ``settings`` defaults to phase 7's.  Returns its summary
-    and the two final states."""
+    else 1).  ``settings`` defaults to phase 7's; a ``sampler`` makes
+    both runs sampled steps on its batches.  Returns its summary and the
+    two final states."""
     from repro_torch.core.digest import evaluate
     from repro_torch.kernels._build import LAUNCHES
 
@@ -1059,10 +1106,12 @@ def train_path(torch, cfg, data, storage, params, epochs, lr, kernel,
     label = f"train {cfg.model}/{storage}"
     if settings.predictor.enabled:
         label += f" {settings.predictor.kind} predictor"
+    if sampler is not None:
+        label += f" sampled {settings.sample_estimator}"
     c0, k1_0 = dict(LAUNCHES), collections.Counter(K1_SHAPES)
     w_0 = collections.Counter(WTS_SHAPES)
     traj, grads, times, state = train_run(torch, cfg, data, settings, params,
-                                          epochs, lr)
+                                          epochs, lr, sampler)
     c1 = dict(LAUNCHES)
     launches = {k: c1[k] - c0[k] for k in c0}
     k1_shapes, w_shapes = K1_SHAPES - k1_0, WTS_SHAPES - w_0
@@ -1081,7 +1130,7 @@ def train_path(torch, cfg, data, storage, params, epochs, lr, kernel,
     o_epochs = oracle_epochs or (
         epochs if storage == "fp32" and cfg.model == "gcn" else 1)
     o_traj, o_grads, _, o_state = train_run(torch, oracle, data, settings,
-                                            params, o_epochs, lr)
+                                            params, o_epochs, lr, sampler)
     check(sum(LAUNCHES.values()) == sum(c1.values()),
           f"{label}: the oracle run launched a kernel")
     rel = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
@@ -1098,7 +1147,7 @@ def train_path(torch, cfg, data, storage, params, epochs, lr, kernel,
         for eps in (2.0 ** -23, 2.0 ** -22):
             moved = dict(data, x_global=data["x_global"] * (1 + eps))
             _, p_grads, _, _ = train_run(torch, oracle, moved, settings,
-                                         params, 1, lr)
+                                         params, 1, lr, sampler)
             floor = [max(f, float((p - b).abs().max())
                          / max(float(b.abs().max()), 1e-30))
                      for f, p, b in zip(floor, p_grads, o_grads)]
@@ -1456,6 +1505,361 @@ def sat_training(torch, dev, data, raw_epoch_ms, smi) -> dict:
     return out
 
 
+def step_launches(cfg, data, precision, sampled: bool) -> dict:
+    """The launches one training step makes, read off the code
+    (``models/gnn.py``, the ladder of ``kernels/spmm/ops.py``): K1 by
+    (rows, deg, feat, dtype), the halo kernels by name, and the two SpMM
+    gradients.
+
+    GCN / SAGE: layer 0 runs K1 on the in-ELL over the raw features and
+    the ladder's kernel over the fp32 feature slab; each hidden layer K1
+    on the in-ELL over the fresh rows — and, sampled, once more over the
+    history — and the ladder's kernel over the ``precision`` store's slab
+    (an unscaled resident slab is K1's).  Only the fresh rows' table is
+    differentiated: one table gradient a hidden layer.  GAT: K1 a head
+    on each ELL and layer, each with its attention's weight gradient;
+    table gradients a head for the in-ELL tables and layer 0's projected
+    halo, and one for each score gather of a differentiated table (both
+    sides, every layer: the dedup's pulled rows are detached, but their
+    scores carry ``a_src``).  Per subgraph, times the parts."""
+    import torch
+
+    from repro_torch.kernels.spmm.ops import select_halo_kernel
+
+    parts, rows, din = (int(n) for n in data["struct"]["in_nbr"].shape)
+    dout = int(data["struct"]["out_nbr"].shape[2])
+    halo_rows = int(data["halo_ids"].shape[1]) + 1
+    n_hidden = cfg.num_layers - 1
+    k1, halo = collections.Counter(), collections.Counter()
+    if cfg.model == "gat":
+        heads = [cfg.heads] * n_hidden + [1]
+        for ell, h in enumerate(heads):
+            w = cfg.layer_dims[ell][1] // h
+            k1[(rows, din, w, "float32")] += parts * h
+            k1[(rows, dout, w, "float32")] += parts * h
+        return {"k1": k1, "halo": halo, "wts": sum(k1.values()),
+                "table": parts * (sum(heads) + heads[0]
+                                  + 2 * cfg.num_layers)}
+
+    def slab(n, feat, dtype, scaled):
+        kind = select_halo_kernel(
+            torch.empty((halo_rows, feat), dtype=dtype, device="meta"),
+            torch.empty((halo_rows, 1), device="meta") if scaled else None,
+            has_worklist=True, resident_max_bytes=cfg.resident_max_bytes,
+            occupancy=cfg.halo_occupancy,
+            skip_occupancy_max=cfg.skip_occupancy_max)
+        if kind == "resident" and not scaled:
+            k1[(rows, dout, feat, str(dtype).split(".")[-1])] += n
+        else:
+            halo[{"resident": "halo_spmm", "stream": "halo_spmm_stream",
+                  "skip": "halo_spmm_skip"}[kind]] += n
+
+    k1[(rows, din, cfg.in_dim, "float32")] += parts
+    slab(parts, cfg.in_dim, torch.float32, False)
+    k1[(rows, din, cfg.hidden_dim, "float32")] += (
+        parts * n_hidden * (2 if sampled else 1))
+    slab(parts * n_hidden, cfg.hidden_dim, precision.dtype,
+         precision.has_scale)
+    return {"k1": k1, "halo": halo, "wts": 0, "table": parts * n_hidden}
+
+
+def check_step_launches(res, cfg, data, precision, steps) -> dict:
+    """Hold a sampled run's launches (``train_path``'s summary) to
+    :func:`step_launches`; returns the derived counts, a sampled step's
+    and a full-batch epoch's, for the record."""
+    def flat(d):
+        return {**{f"K1 {r}x{dg} w{f} {dt}": n
+                   for (r, dg, f, dt), n in sorted(d["k1"].items())},
+                **dict(d["halo"]), "spmm_bwd_table": d["table"],
+                "spmm_bwd_wts": d["wts"]}
+
+    want = step_launches(cfg, data, precision, True)
+    got = res["launches"]
+    got_k1 = {f"K1 {k}": n for k, n in res["spmm_per_epoch_by_shape"].items()}
+    want_k1 = {k: n for k, n in flat(want).items() if k.startswith("K1")}
+    check(got_k1 == want_k1, f"{res['path']}: K1 launched {got_k1} a step, "
+          f"expected {want_k1} from the code")
+    for name in ("halo_spmm", "halo_spmm_stream", "halo_spmm_skip"):
+        check(got[name] == want["halo"][name] * steps,
+              f"{res['path']}: {name} launched {got[name]} times in {steps} "
+              f"steps, expected {want['halo'][name] * steps} from the code")
+    for name, key in (("spmm_bwd_table", "table"), ("spmm_bwd_wts", "wts")):
+        check(got[name] == want[key] * steps,
+              f"{res['path']}: {name} launched {got[name]} times in {steps} "
+              f"steps, expected {want[key] * steps} from the code")
+    return {"sampled_per_step": flat(want), "full_batch_per_epoch": flat(
+        step_launches(cfg, data, precision, False))}
+
+
+def sampled_training(torch, dev, data, raw_epoch_ms, smi) -> dict:
+    """Phase 13: sampled mini-batch DIGEST (control variates) on phase
+    7's partition and GCN at interval 2: (a) full coverage equals the
+    full-batch run, (b) sampled runs against the oracle runs, (c) a
+    random history changes nothing at full coverage, (d) the CV update's
+    error below plain sampling's, (e) faults with kill and resume; the
+    launches held to the counts read off the code, the step time, the
+    device split and the analytic communication model.  Returns the
+    path's summary with its launches."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import digest_gcn
+    from repro_torch.core import FaultConfig, comm_model
+    from repro_torch.core.digest import (_leaves, batch_tensors,
+                                         digest_train, init_sampled_state,
+                                         init_state, make_epoch_fn,
+                                         make_sampled_epoch_fn,
+                                         sampled_advance, sampled_train)
+    from repro_torch.graph import build_sampler
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serving_driver import profile_serve_loop
+    from repro_torch.optim import adam, sgd
+
+    lr = digest_gcn.CONFIG.learning_rate
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t_phase = time.perf_counter()
+    sampler = build_sampler(data, SAMPLE_FANOUT, SAMPLE_SEEDS)
+    cover = build_sampler(data, max(sampler.max_in_degree, 1), 1 << 30)
+    out = {"path": "sampled training", "model": "gcn", "sync_interval": 2,
+           "fanout": SAMPLE_FANOUT, "batch_seeds": SAMPLE_SEEDS,
+           "max_in_degree": sampler.max_in_degree}
+
+    def settings(storage="fp32", **kw):
+        return train_settings(storage, **{"sync_interval": 2, **kw})
+
+    # (a) Full coverage (fanout >= max in-degree, every train row a seed)
+    # equals the full-batch run.  The full-batch runs' launches are not
+    # the sampled path's: they are taken out of its counts below.
+    out["full_coverage"] = {}
+    not_sampled = collections.Counter()
+    for name in ("gcn", "sage", "gat"):
+        cfg, params = train_model(torch, dev, data, name)
+        kw = dict(eval_every=1, params=params)
+        c0 = collections.Counter(_build.LAUNCHES)
+        full, full_h = digest_train(cfg, adam(lr), data, settings(),
+                                    SAMPLE_COVER_STEPS, **kw)
+        torch.cuda.synchronize()
+        not_sampled.update(collections.Counter(_build.LAUNCHES) - c0)
+        samp, samp_h = sampled_train(cfg, adam(lr), data, cover, settings(),
+                                     SAMPLE_COVER_STEPS, **kw)
+        keys = ("params", "store", "cache", "opt_state")
+        bitwise = (all(_tree_equal(torch, full[k], samp[k]) for k in keys)
+                   and full_h["loss"] == samp_h["loss"])
+        err = max(float((a - b).abs().max()) for k in keys
+                  for a, b in zip(_leaves(full[k]), _leaves(samp[k]))
+                  if isinstance(a, torch.Tensor) and a.numel())
+        if name == "gat":
+            check(all(torch.allclose(a.float(), b.float(), rtol=1e-6,
+                                     atol=1e-6)
+                      for k in keys for a, b in zip(_leaves(full[k]),
+                                                    _leaves(samp[k]))
+                      if isinstance(a, torch.Tensor)),
+                  f"full coverage, gat: {err:.3e} from the full-batch run "
+                  "(bar 1e-6)")
+        else:
+            check(bitwise, f"full coverage, {name}: the sampled run differs "
+                  f"from the full-batch run (max |diff| {err:.3e})")
+        out["full_coverage"][name] = {"bitwise": bitwise, "max_abs_diff": err}
+        print(f"full coverage == full batch, {name}, {SAMPLE_COVER_STEPS} "
+              f"steps: bitwise {bitwise}, max |diff| {err:.3e}", flush=True)
+        del full, samp
+
+    # (b) Against the oracle: fanout 5, 512 seeds.
+    runs = {}
+    for name, storage, estimator, steps in (
+            ("gcn", "fp32", "cv", SAMPLE_STEPS),
+            ("gcn", "fp32", "plain", SAMPLE_STEPS),
+            ("gcn", "int8", "cv", SAMPLE_STEPS), ("gat", "fp32", "cv", 2)):
+        cfg, params = train_model(torch, dev, data, name)
+        sset = settings(storage, sample_estimator=estimator)
+        want = step_launches(cfg, data, sset.precision, True)
+        res, _, _ = train_path(
+            torch, cfg, data, storage, params, steps, lr, "spmm_bwd_table",
+            want["table"], settings=sset, oracle_epochs=steps,
+            sampler=sampler)
+        res["halo_kernels"] = dict(want["halo"])
+        res["derived_launches"] = check_step_launches(
+            res, cfg, data, sset.precision, steps)
+        print(json.dumps(res), flush=True)
+        runs[(name, storage, estimator)] = res
+    cfg, params = train_model(torch, dev, data, "gcn")
+
+    # (c) One step from a random history equals one from the zero history
+    # at full coverage.
+    opt = adam(lr)
+    step = make_sampled_epoch_fn(cfg, opt, settings())
+    state = init_sampled_state(cfg, opt, data, params=params)
+    batch = batch_tensors(cover.sample(0), dev)
+    s1, m1 = step(state, data, batch)
+    noisy = dict(state, hist=torch.randn(
+        state["hist"].shape, generator=torch.Generator().manual_seed(3)
+    ).to(dev))
+    s2, m2 = step(noisy, data, batch)
+    check(all(_tree_equal(torch, s1[k], s2[k])
+              for k in ("params", "store", "hist"))
+          and torch.equal(m1["loss"], m2["loss"]),
+          "random history: one full-coverage step differs from the step "
+          "from the zero history")
+    del s1, s2, noisy
+
+    # (d) The CV update's MSE to the exact update below plain sampling's,
+    # SGD so that the update is the gradient.
+    opt = sgd(0.1)
+    warm, _ = sampled_train(cfg, opt, data, cover, settings(), 6,
+                            eval_every=6, params=params)
+    step_cv = make_sampled_epoch_fn(cfg, opt, settings())
+    step_plain = make_sampled_epoch_fn(
+        cfg, opt, settings(sample_estimator="plain"))
+    exact = _leaves(step_cv(warm, data, batch_tensors(cover.full_batch(),
+                                                      dev))[0]["params"])
+
+    def mse(st):
+        return sum(float(((a - b) ** 2).sum())
+                   for a, b in zip(_leaves(st["params"]), exact))
+
+    narrow = build_sampler(data, 2, 1 << 30, seed=11)
+    err_cv = err_plain = 0.0
+    for t in range(SAMPLE_VARIANCE_DRAWS):
+        b = batch_tensors(narrow.sample(t), dev)
+        err_cv += mse(step_cv(warm, data, b)[0])
+        err_plain += mse(step_plain(warm, data, b)[0])
+    check(err_cv < err_plain, f"variance: the CV update's squared error "
+          f"{err_cv:.6g} is not below plain sampling's {err_plain:.6g}")
+    out["variance"] = {"draws": SAMPLE_VARIANCE_DRAWS, "fanout": 2,
+                       "cv_sq_err": err_cv, "plain_sq_err": err_plain}
+    print(f"variance over {SAMPLE_VARIANCE_DRAWS} draws at fanout 2: CV "
+          f"{err_cv:.6g} against plain {err_plain:.6g}", flush=True)
+    del warm
+
+    # (e) Faults under the watchdog, killed after 4 steps and resumed to 8.
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sampled_")
+    try:
+        ck = dict(faults=FaultConfig(seed=1, drop_push_rate=0.5),
+                  ckpt_every=4, eval_every=1, params=params)
+        sset = settings(max_staleness=6)
+        full, full_h = sampled_train(cfg, adam(lr), data, sampler, sset, 8,
+                                     ckpt_dir=f"{tmp}/a", **ck)
+        sampled_train(cfg, adam(lr), data, sampler, sset, 4,
+                      ckpt_dir=f"{tmp}/b", **ck)
+        resumed, res_h = sampled_train(cfg, adam(lr), data, sampler, sset, 8,
+                                       ckpt_dir=f"{tmp}/b", resume=True,
+                                       **ck)
+        check(set(full) == set(resumed) and _tree_equal(torch, full, resumed)
+              and res_h["loss"] == full_h["loss"][4:],
+              "sampled kill and resume: the resumed run differs from the "
+              "unbroken one")
+        check(max(full_h["push_age"]) < 6 and max(full_h["push_age"]) > 1,
+              f"sampled faults: push age {full_h['push_age']} not within "
+              "(1, 6)")
+        out["faulty_push_age"] = full_h["push_age"]
+        del full, resumed
+    finally:
+        shutil.rmtree(tmp)
+
+    torch.cuda.synchronize()
+    out["launches"] = {k: n - not_sampled[k]
+                       for k, n in _build.LAUNCHES.items()}
+    out["full_batch_launches_left_out"] = dict(not_sampled)
+    check(all(out["launches"][k] > 0 for k in TRAINING_KERNELS),
+          f"a kernel of the sampled path never launched: {out['launches']}")
+    out["runs"] = {" ".join(k): {x: r[x] for x in (
+        "grad_rel_err", "traj_max_err", "loss", "train_f1",
+        "epoch_ms_median", "derived_launches")} for k, r in runs.items()}
+
+    # Times: the sampled step (host clock, its draw and upload included)
+    # beside the full-batch epoch at the same interval, the draw alone,
+    # the batch's bytes; then the device split of each, traced.
+    _, _, full_times, _ = train_run(torch, cfg, data, settings(), params,
+                                    SAMPLE_STEPS, lr)
+    step_ms = runs[("gcn", "fp32", "cv")]["epoch_ms_median"]
+    full_ms = statistics.median(full_times[1:])
+    draws, hosts = [], []
+    for t in range(SAMPLE_STEPS):
+        t0 = time.perf_counter()
+        hosts.append(sampler.sample(t))
+        draws.append((time.perf_counter() - t0) * 1e3)
+    h2d = sum(a.nbytes for a in hosts[0].values())
+    opt = adam(lr)
+    st = init_sampled_state(cfg, opt, data, params=params)
+    fn = make_sampled_epoch_fn(cfg, opt, settings())
+    no_draw = []
+    for host in hosts:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, _ = fn(st, data, batch_tensors(host, dev))
+        torch.cuda.synchronize()
+        no_draw.append((time.perf_counter() - t0) * 1e3)
+    no_draw_ms = statistics.median(no_draw[1:])
+    del st
+    splits = {}
+    for kind in ("sampled", "full batch"):
+        opt = adam(lr)
+        if kind == "sampled":
+            st = init_sampled_state(cfg, opt, data, params=params)
+            one = sampled_advance(make_sampled_epoch_fn(cfg, opt, settings()),
+                                  sampler, data)
+        else:
+            st = init_state(cfg, opt, data, params=params)
+            fn = make_epoch_fn(cfg, opt, train_settings("fp32"))
+
+            def one(c, t, fn=fn):
+                return fn(c, data)
+        st, _ = one(st, 0)
+        split = profile_serve_loop(one, range(1, 1 + SAMPLE_TRACED),
+                                   carry=st)
+        splits[kind] = {"device_ms_per_step": split["device_ms"]
+                        / SAMPLE_TRACED, "busy_share": split["busy_share"],
+                        "top": split["top"][:5]}
+    out.update(step_ms_median=step_ms, step_ms=runs[("gcn", "fp32", "cv")][
+        "epoch_ms"], full_batch_epoch_ms_median=full_ms,
+        phase7_epoch_ms_median=raw_epoch_ms, draw_ms=draws,
+        step_without_draw_ms=no_draw, step_without_draw_ms_median=no_draw_ms,
+        batch_h2d_bytes=h2d, traced=splits)
+    print(f"sampled step (untraced median, {smi}): {step_ms:.2f} ms with "
+          f"its draw and upload, {no_draw_ms:.2f} ms with its upload alone; "
+          f"the draw {statistics.median(draws):.2f} ms on the host; "
+          f"full-batch epoch at interval 2 {full_ms:.2f} ms; phase 7's "
+          f"epoch (interval 10) {raw_epoch_ms:.2f} ms; batch upload {h2d} "
+          "bytes", flush=True)
+    print(f"traced ({SAMPLE_TRACED} each): sampled step "
+          f"{splits['sampled']['device_ms_per_step']:.3f} ms of device time, "
+          f"busy {splits['sampled']['busy_share']:.3f}; full-batch epoch "
+          f"(phase 7's settings) "
+          f"{splits['full batch']['device_ms_per_step']:.3f} ms, busy "
+          f"{splits['full batch']['busy_share']:.3f}", flush=True)
+
+    # The analytic model (datasheet H100 constants, not a measurement).
+    sp, g = data["_sp"], data["_graph"]
+    pc = sum(p.numel() for p in _leaves(params))
+    consts = comm_model.CommConstants()
+    model = {}
+    for mode in ("partition", "digest", "propagation"):
+        model[mode] = comm_model.epoch_time_model(
+            mode, sp, g, pc, cfg.hidden_dim, cfg.num_layers, cfg.in_dim, 10,
+            consts)
+    for storage in ("fp32", "int8"):
+        wire = comm_model.epoch_comm_bytes(
+            "digest", sp, g, pc, cfg.hidden_dim, cfg.num_layers, 10, consts,
+            halo_precision=train_settings(storage).precision)
+        model[f"digest {storage} wire"] = {"bytes": wire}
+    model = {k: {kk: float(vv) for kk, vv in v.items()}
+             for k, v in model.items()}
+    out["comm_model"] = {"analytic": True, "constants": dataclasses.asdict(
+        consts), "param_count": pc, "sync_interval": 10, "modes": model}
+    print(f"comm model (analytic, H100 datasheet constants, interval 10): "
+          + "; ".join(f"{k} {v['bytes'] / 1e6:.3f} MB"
+                      + (f", {v['t_epoch'] * 1e3:.5f} ms an epoch"
+                         if "t_epoch" in v else "")
+                      for k, v in model.items())
+          + f"; beside phase 7's measured device time an epoch "
+          f"{splits['full batch']['device_ms_per_step']:.3f} ms", flush=True)
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps(out), flush=True)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phases 8-11: the LM slice (K6) and GAT's split aggregation (K5)
 # ---------------------------------------------------------------------------
@@ -1660,13 +2064,30 @@ def lm_prefill(torch, dev) -> dict:
         # and K6's share of the fp32 one.
         prof = profile_serve_loop(
             lambda c, _: (c, forward(cfg, params, tokens)), range(1), top=6)
-        prof32 = profile_serve_loop(
-            lambda c, _: (c, forward(c32, params, tokens)), range(1),
-            top=200)
-        k6_32 = [e for e in prof32["top"] if "flash_attention" in e["op"]]
-        check(sum(e["calls"] for e in k6_32) == cfg.num_layers,
+        # The profiler has been seen to drop one kernel record of such a
+        # trace (27 K6 records of 28 launches, once in several runs): a
+        # trace whose K6 records fall short of the launches the wrapper
+        # counted during it is taken again, at most TRACE_ATTEMPTS times.
+        for attempt in range(1, TRACE_ATTEMPTS + 1):
+            n0 = _build.LAUNCHES["flash_attention"]
+            prof32 = profile_serve_loop(
+                lambda c, _: (c, forward(c32, params, tokens)), range(1),
+                top=200)
+            launched = _build.LAUNCHES["flash_attention"] - n0
+            k6_32 = [e for e in prof32["top"]
+                     if "flash_attention" in e["op"]]
+            traced = sum(e["calls"] for e in k6_32)
+            check(launched == cfg.num_layers,
+                  f"fp32 prefill: {launched} K6 launches, expected "
+                  f"{cfg.num_layers}")
+            if traced == launched:
+                break
+            print(f"fp32 prefill trace {attempt}: {traced} K6 records of "
+                  f"{launched} launches; tracing again", flush=True)
+        check(traced == cfg.num_layers,
               f"fp32 prefill trace: K6 ops {k6_32}, expected "
-              f"{cfg.num_layers} calls")
+              f"{cfg.num_layers} calls in any of {TRACE_ATTEMPTS} traces")
+        prof32["trace_attempts"] = attempt
         prof32["k6_device_ms"] = sum(e["device_ms"] for e in k6_32)
         prof32["k6_share"] = prof32["k6_device_ms"] / prof32["device_ms"]
         prof32["top"] = prof32["top"][:6]
@@ -1904,6 +2325,7 @@ def main() -> None:
     t_serve = time.perf_counter() - t0
     train_records, train_launches, data, raw_ms = training(torch, dev)
     sat = sat_training(torch, dev, data, raw_ms, smi)
+    sampled = sampled_training(torch, dev, data, raw_ms, smi)
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t0 - t_serve
     with torch.no_grad():
@@ -1917,7 +2339,8 @@ def main() -> None:
     del pre
     torch.cuda.synchronize()
     print(f"phases: serving {t_serve:.1f} s, training {t_train:.1f} s (of "
-          f"which SAT training {sat['seconds']:.1f} s), "
+          f"which SAT training {sat['seconds']:.1f} s, sampled training "
+          f"{sampled['seconds']:.1f} s), "
           f"LM and GAT {time.perf_counter() - t0 - t_serve - t_train:.1f} s",
           flush=True)
     records = serve_records + train_records + lm_records
@@ -1934,6 +2357,8 @@ def main() -> None:
                     "training": train_launches[kernel] if kernel
                     in TRAINING_KERNELS else 0,
                     "sat training": sat["launches"][kernel] if kernel
+                    in TRAINING_KERNELS else 0,
+                    "sampled training": sampled["launches"][kernel] if kernel
                     in TRAINING_KERNELS else 0}
         if name in PATH_OF:
             launches[PATH_OF[name]] = path_launches[PATH_OF[name]][kernel]

@@ -12,10 +12,14 @@ with 256-row chunks (the in-ELL over the (5257, 32) local table and the
 out-ELL over the (14289, 32) halo table), and the reference's own test
 shape, (128, 8) over a (65, 128) table: ``chip_smoke.k5_inputs``, the
 inputs phase 8 holds K5 to its plain version with, here from a
-``torch.Generator`` seeded 6.  Each time is ``chip_smoke.device_ms``: 20
-calls queued behind a spin kernel between two CUDA events.  Prints the
-card's ``nvidia-smi`` name and power limit and one JSON line ``{"label",
-"card", "package", "ms": {shape: ms}}``.
+``torch.Generator`` seeded 6.  Beside K5, the backward of GAT's score
+gather over that in-ELL at 4 heads (``models.gnn._RowGather``, a random
+gradient of shape (5256, 56, 4)), two ways: as the table-gradient kernel
+with unit weights (``spmm_bwd_table``, what the backward runs), and as
+the gather-and-sum over the transposed ELL that it replaced.  Each time
+is ``chip_smoke.device_ms``: 20 calls queued behind a spin kernel between
+two CUDA events.  Prints the card's ``nvidia-smi`` name and power limit
+and one JSON line ``{"label", "card", "package", "ms": {shape: ms}}``.
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ def main() -> None:
     from repro_torch.core.digest import prepare_graph_data
     from repro_torch.graph import make_dataset
     from repro_torch.kernels.gat_edge import gat_edge_partial_cuda
+    from repro_torch.kernels.spmm.spmm import spmm_bwd_table
 
     if not torch.cuda.is_available():
         chip_smoke.fail("torch.cuda.is_available() is false")
@@ -56,6 +61,25 @@ def main() -> None:
                     f"{z.shape[0]}x{z.shape[1]}")
             ms[name] = chip_smoke.device_ms(
                 torch, lambda: gat_edge_partial_cuda(*k5))
+        nbr, pos = data["struct"]["in_nbr"][0], data["struct"]["in_pos"][0]
+        g_s = torch.randn((nbr.shape[0], nbr.shape[1], 4), generator=gen)
+        flat = g_s.reshape(-1, 4).to(dev)
+        ones = torch.ones((flat.shape[0], 1), device=dev)
+        p_long = pos.long()
+
+        def gather_sum():
+            ext = torch.cat([flat, flat.new_zeros((1, 4))])
+            return ext[p_long].sum(dim=1)
+
+        # The same sums, the sentinel row (no gradient) aside.
+        assert torch.allclose(spmm_bwd_table(pos, ones, flat)[:-1],
+                              gather_sum()[:-1], rtol=1e-5, atol=1e-5)
+        name = (f"score-gather backward, in {nbr.shape[0]}x{nbr.shape[1]} "
+                "x 4 heads")
+        ms[f"{name}: table-gradient kernel"] = chip_smoke.device_ms(
+            torch, lambda: spmm_bwd_table(pos, ones, flat))
+        ms[f"{name}: gather and sum"] = chip_smoke.device_ms(
+            torch, gather_sum)
     import repro_torch
     print(card, flush=True)
     print(json.dumps({"label": args.label, "card": card,

@@ -1,11 +1,16 @@
-from repro_torch.core import faults, halo_exchange, predictor, serving
+from repro_torch.core import (comm_model, faults, halo_exchange, predictor,
+                              serving)
+from repro_torch.core.comm_model import (CommConstants, epoch_comm_bytes,
+                                         epoch_time_model, khop_halo_sizes)
 from repro_torch.core.digest import (MODES, TrainSettings,
                                      check_worklist_geometry, digest_train,
                                      empty_halo_struct, evaluate,
                                      full_graph_forward, gat_projected,
-                                     init_state, make_epoch_fn,
+                                     init_sampled_state, init_state,
+                                     make_epoch_fn, make_sampled_epoch_fn,
                                      make_subgraph_loss, prepare_graph_data,
-                                     project_store_tables, top_layer_reps)
+                                     project_store_tables, sampled_train,
+                                     top_layer_reps)
 from repro_torch.core.error_bound import (measure_error_and_bound,
                                           quantization_eps)
 from repro_torch.core.faults import (FaultConfig, FaultSchedule,
@@ -24,4 +29,6 @@ __all__ = ["halo_exchange", "serving", "MODES", "TrainSettings",
            "serve_query", "faults", "FaultConfig", "FaultSchedule",
            "attach_fault_state", "measured_staleness",
            "measure_error_and_bound", "quantization_eps", "predictor",
-           "PredictorConfig"]
+           "PredictorConfig", "comm_model", "CommConstants",
+           "epoch_comm_bytes", "epoch_time_model", "khop_halo_sizes",
+           "init_sampled_state", "make_sampled_epoch_fn", "sampled_train"]

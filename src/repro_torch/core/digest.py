@@ -26,8 +26,16 @@ slab, and read by the halo kernels' fused epilogue.  Fault state
 ``push_ok`` mask, and :func:`digest_train` checkpoints the whole state
 and resumes from the newest valid checkpoint (``checkpoint/``).
 
-Later slices of the port (``ROADMAP.md`` §1): ``pull_mode="collective"``
-(item 6) and the sampled regime (item 4).  Asking for the first raises
+The sampled regime (:func:`sampled_train`) is a second training regime
+over the same store: each step draws a batch from a
+:class:`repro_torch.graph.sampler.NeighborSampler` on the host, the
+hidden layers aggregate the sampled in-subgraph neighbours fresh and the
+rest from each subgraph's own last-step representations (VR-GCN control
+variates, ``hist``), and the loss is masked to the batch's seeds.  The
+pull, push, faults and checkpoints are the full-batch epoch's.
+
+A later slice of the port (``ROADMAP.md`` §1): ``pull_mode="collective"``
+(item 6).  Asking for it, or passing a ``mesh``, raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -50,10 +58,11 @@ from repro_torch.graph.graph import Graph
 from repro_torch.graph.partition import StackedPartitions, build_partitions
 from repro_torch.graph.transpose import ell_transpose
 from repro_torch.kernels.spmm import STREAM_CHUNK_ROWS
-from repro_torch.models.gnn import (GNNConfig, gnn_forward, gnn_specs,
+from repro_torch.models.gnn import (GNNConfig, gnn_forward,
+                                    gnn_forward_sampled, gnn_specs,
                                     halo_ref, projected_halo_ref)
 from repro_torch.nn import init_params, micro_f1, softmax_cross_entropy
-from repro_torch.optim import Optimizer, tree_map
+from repro_torch.optim import Optimizer
 
 Pytree = Any
 
@@ -346,6 +355,11 @@ class TrainSettings:
     # row) + gamma·dequant(pstore row).  kind="none" adds no state and
     # runs the predictor-free program.
     predictor: PredictorConfig = PredictorConfig()
+    # Sampled regime (make_sampled_epoch_fn): "cv" aggregates unsampled
+    # neighbours from the last step's representations (VR-GCN control
+    # variates); "plain" drops that term — scaled neighbour sampling, the
+    # variance baseline.
+    sample_estimator: str = "cv"
 
 
 def _check_settings(settings: TrainSettings) -> None:
@@ -568,55 +582,74 @@ def make_epoch_fn(cfg: GNNConfig, opt: Optimizer, settings: TrainSettings,
             cache = state["cache"]
 
         x_local = x_global[data["local_ids"].long()]        # (M, S, d)
-        leaves = [p.detach().requires_grad_()
-                  for p in _leaves(state["params"])]
-        params = _unflatten(state["params"], leaves)
-        num_parts = x_local.shape[0]
-        losses, reps, logits, grads = [], [], [], []
-        for m in range(num_parts):
+
+        def sub_loss(params, m):
             struct_m = {k: v[m] for k, v in struct.items()}
             tables = _subgraph_tables(cfg, m, x_halo0, cache, struct_m,
                                       pcache, settings.predictor.gamma)
-            loss, (rep, lg) = loss_fn(params, x_local[m], tables, struct_m,
-                                      data["labels"][m],
-                                      data["train_mask"][m])
-            grads.append(torch.autograd.grad(loss, leaves,
-                                             allow_unused=True))
-            losses.append(loss.detach())
-            reps.append(rep.detach())
-            logits.append(lg.detach())
-        # Global AGG (Algorithm 1 line 13): uniform average over subgraphs.
-        mean_grads = _unflatten(state["params"], mean_grads_of(grads, leaves))
+            return loss_fn(params, x_local[m], tables, struct_m,
+                           data["labels"][m], data["train_mask"][m])
+
+        losses, push_reps, logits, mean_grads = _subgraph_grads(
+            state["params"], x_local.shape[0], sub_loss)
         new_params, opt_state = opt.update(mean_grads, state["opt_state"],
                                            state["params"], state["step"])
-
         if settings.llcg_correction:
             new_params = _llcg_step(cfg, settings, new_params, data, r)
-
-        push_reps = torch.stack(reps)                 # (M, L-1, S, hidden)
-        store, residual, eps, last, pstore, hist = _digest_push(
-            cfg, settings, state, data, push_reps, r)
-        train_acc = micro_f1(torch.stack(logits), data["labels"],
+        train_acc = micro_f1(logits, data["labels"],
                              data["train_mask"].float())
-        new_state = {"params": new_params, "opt_state": opt_state,
-                     "store": store, "cache": cache, "epoch": r,
-                     "step": state["step"] + 1}
-        if residual is not None:
-            new_state["push_residual"] = residual
-        if pstore is not None:
-            new_state["pstore"] = pstore
-            new_state["predictor"] = hist
-        if pcache is not None:
-            new_state["pcache"] = pcache
-        metrics = {"loss": torch.stack(losses).mean(),
-                   "train_f1": train_acc, "staleness_eps": eps}
-        if last is not None:
-            new_state["push_ok"] = state["push_ok"]
-            new_state["last_push_round"] = last
-            metrics["push_age"] = faults_mod.measured_staleness(last, r)
-        return new_state, metrics
+        return _end_round(cfg, settings, state, data, r, new_params,
+                          opt_state, cache, pcache, push_reps, losses,
+                          train_acc)
 
     return epoch_fn
+
+
+def _subgraph_grads(params: Pytree, num_parts: int,
+                    sub_loss: Callable) -> tuple:
+    """Each subgraph's ``sub_loss(params, m) -> (loss, (reps, logits))``
+    differentiated by ``torch.autograd.grad`` in turn, and the M
+    gradients averaged (Algorithm 1 line 13, as ``vmap`` + ``jnp.mean``
+    do).  Returns (losses (M,), push reps (M, L-1, S, hidden), logits
+    (M, S, classes), mean gradients as a tree like ``params``)."""
+    leaves = [p.detach().requires_grad_() for p in _leaves(params)]
+    tree = _unflatten(params, leaves)
+    losses, reps, logits, grads = [], [], [], []
+    for m in range(num_parts):
+        loss, (rep, lg) = sub_loss(tree, m)
+        grads.append(torch.autograd.grad(loss, leaves, allow_unused=True))
+        losses.append(loss.detach())
+        reps.append(rep.detach())
+        logits.append(lg.detach())
+    return (torch.stack(losses), torch.stack(reps), torch.stack(logits),
+            _unflatten(params, mean_grads_of(grads, leaves)))
+
+
+def _end_round(cfg: GNNConfig, settings: TrainSettings, state: dict,
+               data: dict, r: int, params: Pytree, opt_state: Pytree,
+               cache: dict, pcache: Optional[dict], push_reps: torch.Tensor,
+               losses: torch.Tensor, train_acc: torch.Tensor) -> tuple:
+    """The round's PUSH (:func:`_digest_push`) and the new state and
+    metrics, shared by the full-batch epoch and the sampled step."""
+    store, residual, eps, last, pstore, hist = _digest_push(
+        cfg, settings, state, data, push_reps, r)
+    new_state = {"params": params, "opt_state": opt_state,
+                 "store": store, "cache": cache, "epoch": r,
+                 "step": state["step"] + 1}
+    if residual is not None:
+        new_state["push_residual"] = residual
+    if pstore is not None:
+        new_state["pstore"] = pstore
+        new_state["predictor"] = hist
+    if pcache is not None:
+        new_state["pcache"] = pcache
+    metrics = {"loss": losses.mean(), "train_f1": train_acc,
+               "staleness_eps": eps}
+    if last is not None:
+        new_state["push_ok"] = state["push_ok"]
+        new_state["last_push_round"] = last
+        metrics["push_age"] = faults_mod.measured_staleness(last, r)
+    return new_state, metrics
 
 
 def _llcg_step(cfg: GNNConfig, settings: TrainSettings, params: Pytree,
@@ -718,14 +751,31 @@ def digest_train(cfg: GNNConfig, opt: Optimizer, data: dict,
     reference's); ``mesh`` belongs to a later slice and must be None."""
     if mesh is not None or settings.pull_mode == "collective":
         raise NotImplementedError(_LATER["collective"])
+    state = init_state(cfg, opt, data, seed=seed,
+                       precision=settings.precision,
+                       predictor=settings.predictor, params=params)
+    epoch_fn = make_epoch_fn(cfg, opt, settings)
+    return _train_loop(cfg, data, settings, state,
+                       lambda st, _: epoch_fn(st, data), epochs, eval_every,
+                       f"[{settings.mode}] epoch", verbose, faults, ckpt_dir,
+                       ckpt_every, resume)
+
+
+def _train_loop(cfg: GNNConfig, data: dict, settings: TrainSettings,
+                state: dict, advance: Callable, rounds: int,
+                eval_every: int, label: str, verbose: bool, faults,
+                ckpt_dir: Optional[str], ckpt_every: int,
+                resume: bool) -> tuple[dict, dict]:
+    """The loop of :func:`digest_train` and :func:`sampled_train` over
+    ``advance(state, t) -> (state, metrics)``, round t + 1: the fault
+    leaves and each round's ``push_ok``, resume from the newest valid
+    checkpoint, the history every ``eval_every``-th round and the last,
+    and a checkpoint every ``ckpt_every`` rounds."""
     if resume and ckpt_dir is None:
         raise ValueError("resume=True needs ckpt_dir")
     schedule = faults_mod.check_schedule(faults)
     num_parts = int(data["local_ids"].shape[0])
     fault_aware = schedule is not None or settings.max_staleness is not None
-    state = init_state(cfg, opt, data, seed=seed,
-                       precision=settings.precision,
-                       predictor=settings.predictor, params=params)
     if fault_aware:
         state = faults_mod.attach_fault_state(state, num_parts)
     start = 0
@@ -734,7 +784,6 @@ def digest_train(cfg: GNNConfig, opt: Optimizer, data: dict,
         if step is not None:
             state, _ = ckpt_io.restore_checkpoint(ckpt_dir, state, step=step)
             start = state["epoch"]
-    epoch_fn = make_epoch_fn(cfg, opt, settings)
     hist: dict[str, list] = {"epoch": [], "loss": [], "train_f1": [],
                              "val_f1": [], "test_f1": [], "time": [],
                              "staleness_eps": []}
@@ -742,15 +791,15 @@ def digest_train(cfg: GNNConfig, opt: Optimizer, data: dict,
         hist["push_age"] = []
     dev = data["x_global"].device
     t0 = time.perf_counter()
-    for e in range(start, epochs):
+    for t in range(start, rounds):
         if fault_aware:
-            ok = (schedule.push_ok(e + 1, num_parts) if schedule is not None
+            ok = (schedule.push_ok(t + 1, num_parts) if schedule is not None
                   else np.ones(num_parts, dtype=bool))
             state["push_ok"] = torch.from_numpy(ok).to(dev)
-        state, m = epoch_fn(state, data)
-        if (e + 1) % eval_every == 0 or e == epochs - 1:
+        state, m = advance(state, t)
+        if (t + 1) % eval_every == 0 or t == rounds - 1:
             ev = evaluate(cfg, state["params"], data)
-            hist["epoch"].append(e + 1)
+            hist["epoch"].append(t + 1)
             hist["loss"].append(float(m["loss"]))
             hist["train_f1"].append(float(m["train_f1"]))
             hist["val_f1"].append(float(ev["val_f1"]))
@@ -761,9 +810,149 @@ def digest_train(cfg: GNNConfig, opt: Optimizer, data: dict,
             if fault_aware:
                 hist["push_age"].append(int(m["push_age"]))
             if verbose:
-                print(f"[{settings.mode}] epoch {e+1:4d} "
-                      f"loss {float(m['loss']):.4f} "
+                print(f"{label} {t+1:4d} loss {float(m['loss']):.4f} "
                       f"val_f1 {float(ev['val_f1']):.4f}")
-        if ckpt_dir and ckpt_every and (e + 1) % ckpt_every == 0:
-            ckpt_io.save_checkpoint(ckpt_dir, e + 1, state)
+        if ckpt_dir and ckpt_every and (t + 1) % ckpt_every == 0:
+            ckpt_io.save_checkpoint(ckpt_dir, t + 1, state)
     return state, hist
+
+
+# ---------------------------------------------------------------------------
+# Mini-batch sampled training (stale-store control variates)
+# ---------------------------------------------------------------------------
+
+def make_sampled_epoch_fn(cfg: GNNConfig, opt: Optimizer,
+                          settings: TrainSettings, mesh=None) -> Callable:
+    """``step_fn(state, data, batch) -> (state, metrics)``: one sampled
+    step over the M subgraphs on one device — the mini-batch regime over
+    the same stale store.
+
+    ``batch`` is one :class:`repro_torch.graph.sampler.NeighborSampler`
+    draw as tensors on the data's device (``seed_mask``/``edge_scale``/
+    ``edge_keep``).  In-subgraph sampled neighbours aggregate fresh,
+    their complement reads the control-variate history ``state["hist"]``
+    (each subgraph's own rows from the last step), out-of-subgraph rows
+    the pulled slab (refreshed by :func:`_digest_pull` every
+    ``sync_interval`` steps), and the loss is masked to the seeds.  Pull,
+    push, faults and the staleness probe are the full-batch epoch's.
+
+    ``settings.sample_estimator``: "cv" (VR-GCN) or "plain" — plain
+    neighbour sampling is the CV estimator against an all-zero history,
+    so it is fed zeros.  ``mesh`` belongs to a later slice and must be
+    None.
+    """
+    if settings.mode != "digest":
+        raise ValueError("sampled training rides the stale store — "
+                         f"mode must be 'digest', got {settings.mode!r}")
+    _check_settings(settings)
+    if mesh is not None:
+        raise NotImplementedError(_LATER["collective"])
+    if settings.sample_estimator not in ("cv", "plain"):
+        raise ValueError(f"sample_estimator must be 'cv' or 'plain', "
+                         f"got {settings.sample_estimator!r}")
+    n_hidden = cfg.num_layers - 1
+
+    def step_fn(state: dict, data: dict, batch: dict) -> tuple[dict, dict]:
+        r = state["epoch"] + 1
+        x_global = data["x_global"]
+        struct = data["struct"]
+        x_halo0 = x_global[data["halo_ids_x"].long()]
+        cache, pcache = _digest_pull(cfg, settings, state, data, r)
+        x_local = x_global[data["local_ids"].long()]
+        hist = state["hist"]
+        if settings.sample_estimator == "plain":
+            hist = torch.zeros_like(hist)
+
+        def sub_loss(params, m):
+            struct_m = {k: v[m] for k, v in struct.items()}
+            tables = [_detach(t) for t in _subgraph_tables(
+                cfg, m, x_halo0, cache, struct_m, pcache,
+                settings.predictor.gamma)]
+            samp = {"edge_scale": batch["edge_scale"][m],
+                    "edge_keep": batch["edge_keep"][m]}
+            logits, push = gnn_forward_sampled(
+                cfg, params, x_local[m], tables,
+                [hist[m, i].detach() for i in range(n_hidden)], struct_m,
+                samp)
+            loss = softmax_cross_entropy(logits, data["labels"][m],
+                                         batch["seed_mask"][m])
+            reps = (torch.stack(push) if push
+                    else x_local.new_zeros((0,) + tuple(x_local.shape[1:])))
+            return loss, (reps, logits)
+
+        losses, push_reps, logits, mean_grads = _subgraph_grads(
+            state["params"], x_local.shape[0], sub_loss)
+        params, opt_state = opt.update(mean_grads, state["opt_state"],
+                                       state["params"], state["step"])
+        train_acc = micro_f1(logits, data["labels"],
+                             batch["seed_mask"].float())
+        new_state, metrics = _end_round(cfg, settings, state, data, r,
+                                        params, opt_state, cache, pcache,
+                                        push_reps, losses, train_acc)
+        # The history refreshes every step (every local row's
+        # representation is computed anyway), so the in-subgraph
+        # baseline is one step stale; the halo side keeps the store's
+        # sync_interval staleness.
+        new_state["hist"] = push_reps if n_hidden > 0 else state["hist"]
+        return new_state, metrics
+
+    return step_fn
+
+
+def init_sampled_state(cfg: GNNConfig, opt: Optimizer, data: dict,
+                       seed: int = 0,
+                       precision: HaloPrecision = HaloPrecision(),
+                       predictor: PredictorConfig = PredictorConfig(),
+                       params: Pytree = None) -> dict:
+    """:func:`init_state` plus the control-variate history ``hist`` (M,
+    L-1, S, hidden) fp32, zeros like the store (the in-ELL's padding
+    entries point at the zero sentinel and weigh 0 anyway)."""
+    state = init_state(cfg, opt, data, seed=seed, precision=precision,
+                       predictor=predictor, params=params)
+    num_parts, s = data["local_ids"].shape
+    state["hist"] = torch.zeros(
+        (num_parts, cfg.num_layers - 1, s, cfg.hidden_dim),
+        dtype=torch.float32, device=data["x_global"].device)
+    return state
+
+
+def batch_tensors(batch: dict, device) -> dict:
+    """A sampler batch (numpy) as tensors on ``device``."""
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def sampled_advance(step_fn: Callable, sampler, data: dict) -> Callable:
+    """``advance(state, t) -> (state, metrics)``: ``step_fn`` (from
+    :func:`make_sampled_epoch_fn`) on ``sampler.sample(t)``, uploaded to
+    ``data``'s device."""
+    dev = data["x_global"].device
+    return lambda state, t: step_fn(state, data,
+                                    batch_tensors(sampler.sample(t), dev))
+
+
+def sampled_train(cfg: GNNConfig, opt: Optimizer, data: dict, sampler,
+                  settings: TrainSettings, steps: int, eval_every: int = 10,
+                  seed: int = 0, verbose: bool = False, mesh=None,
+                  faults=None, ckpt_dir: Optional[str] = None,
+                  ckpt_every: int = 0, resume: bool = False,
+                  params: Pytree = None) -> tuple[dict, dict]:
+    """Run mini-batch sampled training; returns (final_state, history).
+
+    ``sampler`` is a :class:`repro_torch.graph.sampler.NeighborSampler`;
+    step t consumes ``sampler.sample(t)``.  ``faults``, ``ckpt_dir``/
+    ``ckpt_every``/``resume`` and ``params`` behave as in
+    :func:`digest_train`: the batches and the fault schedule are pure
+    functions of the step, so a resumed run replays the same ones and
+    ends equal to an unbroken run.  ``mesh`` belongs to a later slice and
+    must be None."""
+    if mesh is not None or settings.pull_mode == "collective":
+        raise NotImplementedError(_LATER["collective"])
+    state = init_sampled_state(cfg, opt, data, seed=seed,
+                               precision=settings.precision,
+                               predictor=settings.predictor, params=params)
+    return _train_loop(
+        cfg, data, settings, state,
+        sampled_advance(make_sampled_epoch_fn(cfg, opt, settings), sampler,
+                        data),
+        steps, eval_every, f"[sampled/{settings.sample_estimator}] step",
+        verbose, faults, ckpt_dir, ckpt_every, resume)

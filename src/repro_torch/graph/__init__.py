@@ -1,8 +1,9 @@
-"""Graph construction and partitioning (numpy only).
+"""Graph construction, partitioning and neighbour sampling (numpy only).
 
-The three modules are copies of the reference package's numpy-only graph
-code with their imports re-rooted here, so both packages build
-byte-identical partitions from the same seed.
+The modules (``graph``, ``generators``, ``partition``, ``sampler``) are
+copies of the reference package's numpy-only graph code with their
+imports re-rooted here, so both packages build byte-identical partitions
+and sampler batches from the same seeds; ``transpose`` is the port's own.
 """
 from repro_torch.graph.graph import (EllMatrix, Graph, coo_to_ell,
                                      from_edges, gcn_norm_weights)
@@ -16,6 +17,7 @@ from repro_torch.graph.partition import (ChunkWorklist, LOCAL_ORDERS,
 from repro_torch.graph.generators import (DATASETS, community_powerlaw_graph,
                                           make_dataset, powerlaw_graph,
                                           sbm_graph)
+from repro_torch.graph.sampler import NeighborSampler, build_sampler
 
 __all__ = [
     "EllMatrix", "Graph", "coo_to_ell", "from_edges", "gcn_norm_weights",
@@ -23,5 +25,6 @@ __all__ = [
     "build_chunk_worklist", "build_partitions", "build_pull_plan",
     "edge_cut", "greedy_partition", "partition_report", "random_partition",
     "reverse_cuthill_mckee", "DATASETS", "community_powerlaw_graph",
-    "make_dataset", "powerlaw_graph", "sbm_graph",
+    "make_dataset", "powerlaw_graph", "sbm_graph", "NeighborSampler",
+    "build_sampler",
 ]

@@ -22,6 +22,10 @@ rates and ``--max-staleness`` the fault schedule and its watchdog, and
       --scale 0.1 --parts 4 --epochs 8 --predictor ema \
       --fault-drop-rate 0.4 --max-staleness 4 \
       --ckpt-dir /tmp/ck --ckpt-every 3      # then: --epochs 12 --resume
+
+``--sampling`` trains mini-batches instead (``--fanout`` neighbours a
+row, ``--batch-seeds`` seeds a part, ``--estimator cv|plain``), with the
+same faults, checkpoints and final lines; ``--epochs`` then counts steps.
 """
 from __future__ import annotations
 
@@ -34,10 +38,12 @@ import torch
 
 from repro_torch import checkpoint
 from repro_torch.core import (HaloPrecision, HaloSpec, PredictorConfig,
-                              TrainSettings, evaluate, faults, init_state,
-                              make_epoch_fn, prepare_graph_data)
+                              TrainSettings, evaluate, faults,
+                              init_sampled_state, init_state, make_epoch_fn,
+                              make_sampled_epoch_fn, prepare_graph_data)
+from repro_torch.core.digest import sampled_advance
 from repro_torch.device import resolve_device, synchronize
-from repro_torch.graph import make_dataset
+from repro_torch.graph import build_sampler, make_dataset
 from repro_torch.launch.serving_driver import profile_serve_loop
 from repro_torch.models.gnn import GNNConfig
 from repro_torch.optim import adam
@@ -114,6 +120,21 @@ def main(argv=None):
     ap.add_argument("--no-gat-dedup", action="store_true",
                     help="disable the GAT owner-shard projection dedup "
                          "(per-subgraph halo projection)")
+    ap.add_argument("--sampling", action="store_true",
+                    help="mini-batch sampled training: fanout-bounded "
+                         "neighbour sampling with control variates (the "
+                         "unsampled neighbours read the last step's "
+                         "representations, the halo the stale store); "
+                         "--epochs then counts optimizer steps")
+    ap.add_argument("--fanout", type=int, default=5,
+                    help="sampled in-neighbours a row (rows with deg <= "
+                         "fanout aggregate exactly)")
+    ap.add_argument("--batch-seeds", type=int, default=512,
+                    help="training seed rows a subgraph a step")
+    ap.add_argument("--estimator", default="cv", choices=("cv", "plain"),
+                    help="'cv' = VR-GCN control variates over the "
+                         "history; 'plain' = scaled sampling alone (the "
+                         "variance baseline)")
     ap.add_argument("--predictor", default="none",
                     choices=("none", "delta", "ema"),
                     help="SAT prediction: serve dequant(store) + "
@@ -187,7 +208,8 @@ def main(argv=None):
         sync_interval=args.interval, mode="digest", pull_mode=args.pull,
         precision=HaloPrecision(args.precision,
                                 error_feedback=args.error_feedback),
-        max_staleness=args.max_staleness, predictor=predictor)
+        max_staleness=args.max_staleness, predictor=predictor,
+        sample_estimator=args.estimator)
     if predictor.enabled:
         print(f"predictor: kind={predictor.kind} gamma={predictor.gamma} "
               f"beta={predictor.beta}")
@@ -201,9 +223,24 @@ def main(argv=None):
               f"drop={args.fault_drop_rate} "
               f"corrupt={args.fault_corrupt_rate} seed={args.fault_seed} "
               f"max_staleness={args.max_staleness}")
-    epoch_fn = make_epoch_fn(cfg, opt, settings)
-    state = init_state(cfg, opt, data, precision=settings.precision,
-                       predictor=predictor)
+    if args.sampling:
+        sampler = build_sampler(data, args.fanout, args.batch_seeds)
+        print(f"sampling: fanout={args.fanout} (max in-degree "
+              f"{sampler.max_in_degree}), batch_seeds={args.batch_seeds}, "
+              f"estimator={args.estimator}")
+        advance = sampled_advance(
+            make_sampled_epoch_fn(cfg, opt, settings), sampler, data)
+        state = init_sampled_state(cfg, opt, data,
+                                   precision=settings.precision,
+                                   predictor=predictor)
+    else:
+        epoch_fn = make_epoch_fn(cfg, opt, settings)
+
+        def advance(st, _):
+            return epoch_fn(st, data)
+
+        state = init_state(cfg, opt, data, precision=settings.precision,
+                           predictor=predictor)
     if fault_aware:
         state = faults.attach_fault_state(state, args.parts)
     start = _maybe_resume(args)
@@ -214,7 +251,7 @@ def main(argv=None):
     for e in range(start, args.epochs):
         if fault_aware:
             state["push_ok"] = _push_ok(schedule, e + 1, args.parts, dev)
-        state, m = epoch_fn(state, data)
+        state, m = advance(state, e)
         _maybe_ckpt(args, e + 1, state)
     synchronize(state)
     elapsed = time.perf_counter() - t0
@@ -240,8 +277,9 @@ def main(argv=None):
           f"sharded {sync['pull_bytes']/1e6:.2f} MB vs replicated "
           f"{spec.replicated_pull_nbytes()/1e6:.2f} MB")
     if args.profile:
-        split = profile_serve_loop(lambda st, _: epoch_fn(st, data),
-                                   range(args.profile), carry=state)
+        split = profile_serve_loop(
+            advance, range(args.epochs, args.epochs + args.profile),
+            carry=state)
         print(json.dumps({"profile_epochs": args.profile, **split}))
 
 

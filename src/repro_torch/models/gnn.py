@@ -33,7 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels.spmm import halo_spmm, spmm
-from repro_torch.kernels.spmm.spmm import transpose_of
+from repro_torch.kernels.spmm.spmm import spmm_bwd_table, transpose_of
 from repro_torch.nn import ParamSpec, dense, init_params
 
 Pytree = Any
@@ -225,27 +225,30 @@ def _multihead_spmm(nbr, att, z_pad, backend, pos=None):
 
 class _RowGather(torch.autograd.Function):
     """``table[nbr]`` whose backward sums each table row's gradient over
-    the ELL positions listed by the transposed ELL ``pos``, in ascending
-    order, instead of autograd's scatter-add: that one serialises every
-    duplicate of an index, and the padding of an ELL points all of its
-    slots at the one sentinel row (a (5256, 56) in-ELL gives the
-    sentinel some 190k of them).  The sentinel row gets no gradient, as
-    in the SpMM backward; its gathered values are masked out of GAT's
-    scores."""
+    the ELL positions listed by the transposed ELL ``pos``, instead of
+    autograd's scatter-add: that one serialises every duplicate of an
+    index, and the padding of an ELL points all of its slots at the one
+    sentinel row (a (5256, 56) in-ELL gives the sentinel some 190k of
+    them).  The sum is the SpMM table gradient (``spmm_bwd_table``) with
+    one unit weight a position, so it runs in ascending position order
+    from +0.0, as every table gradient of the port does: a position whose
+    gradient is ±0 changes no bit of it (:func:`sampled_struct` relies
+    on that).  The sentinel row gets no gradient, as in the SpMM
+    backward; its gathered values are masked out of GAT's scores."""
 
     @staticmethod
     def forward(ctx, nbr, table, pos):
         ctx.save_for_backward(pos)
-        ctx.table_shape = table.shape
         return table[nbr.long()]
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         pos, = ctx.saved_tensors
-        flat = g.reshape(-1, *g.shape[2:])
-        flat = torch.cat([flat, flat.new_zeros((1,) + flat.shape[1:])])
-        return None, flat[pos.long()].sum(dim=1), None
+        flat = g.reshape(g.shape[0] * g.shape[1], -1).float().contiguous()
+        ones = torch.ones((flat.shape[0], 1), dtype=torch.float32,
+                          device=flat.device)
+        return None, spmm_bwd_table(pos, ones, flat), None
 
 
 def _gather_rows(nbr, table, pos, backend):
@@ -319,6 +322,86 @@ def _gat_layer(cfg, p, x_local, x_halo, struct) -> torch.Tensor:
 _LAYERS = {"gcn": _gcn_layer, "sage": _sage_layer, "gat": _gat_layer}
 
 
+# ---------------------------------------------------------------------------
+# Sampled (control-variate) layer variants — the mini-batch regime
+# ---------------------------------------------------------------------------
+#
+# VR-GCN estimator (arXiv 1710.10568) at the ELL-weight level: with
+# edge_scale = deg/n_sampled at sampled entries (0 elsewhere),
+#
+#   w_fresh = in_wts · edge_scale        (scaled sampled neighbours, fresh)
+#   w_resid = in_wts − w_fresh           (everything else, historical)
+#   agg_in  = spmm(w_fresh, h) + spmm(w_resid, h̄)
+#
+# With fanout >= deg the scale is exactly 1.0, so w_fresh == in_wts bit for
+# bit and w_resid == +0.0: the estimator is the full-batch aggregation.
+# Both products are K1 over the in-ELL.  Its padding skip (a weight-0 slot
+# on the sentinel row) never drops a live slot here: w_fresh is 0 at the
+# unsampled live slots and w_resid negative where edge_scale > 1, and K1
+# runs every slot not on the sentinel row, as its plain version does.
+# Only the fresh product's table carries a gradient (the history is
+# detached), so the table-gradient kernel runs once a layer, as in the
+# full-batch layer.  The out-of-subgraph side reads the stale store
+# unchanged.
+
+def _cv_weights(in_wts: torch.Tensor, samp: dict) -> tuple:
+    w_fresh = in_wts * samp["edge_scale"]
+    return w_fresh, in_wts - w_fresh
+
+
+def _gcn_layer_cv(cfg, p, x_local, h_hist, x_halo, struct, samp):
+    ref = _as_halo_ref(x_halo, struct)
+    w_fresh, w_resid = _cv_weights(struct["in_wts"], samp)
+    pos = struct.get("in_pos")
+    agg = spmm(struct["in_nbr"], w_fresh, _pad_sentinel(x_local),
+               backend=cfg.backend, pos=pos)
+    agg = agg + spmm(struct["in_nbr"], w_resid, _pad_sentinel(h_hist),
+                     backend=cfg.backend, pos=pos)
+    agg = agg + _halo_agg(cfg, ref, ref["wts"])
+    return dense(agg, p["w"], p["b"])
+
+
+def _sage_layer_cv(cfg, p, x_local, h_hist, x_halo, struct, samp):
+    # Same full-neighbourhood mean denominator as _sage_layer: the CV
+    # split redistributes the numerator, not the normalisation.
+    ref = _as_halo_ref(x_halo, struct)
+    in_w, out_w = struct["in_wts"], ref["wts"]
+    denom = (torch.sum(in_w, dim=1, keepdim=True)
+             + torch.sum(out_w, dim=1, keepdim=True))
+    denom = torch.clamp_min(denom, 1e-12)
+    w_fresh, w_resid = _cv_weights(in_w, samp)
+    pos = struct.get("in_pos")
+    agg = spmm(struct["in_nbr"], w_fresh / denom, _pad_sentinel(x_local),
+               backend=cfg.backend, pos=pos)
+    agg = agg + spmm(struct["in_nbr"], w_resid / denom,
+                     _pad_sentinel(h_hist), backend=cfg.backend, pos=pos)
+    agg = agg + _halo_agg(cfg, ref, out_w / denom)
+    return dense(x_local, p["w_self"]) + dense(agg, p["w_nbr"]) + p["b"]
+
+
+def sampled_struct(struct: dict, samp: dict, sentinel: int) -> dict:
+    """GAT fallback view: unsampled in-ELL entries remapped to the zero
+    sentinel, so the layer runs full attention over the sampled rows only
+    (attention renormalises per destination — no inclusion scaling, and
+    no control variate: the nonlinear score has no additive history
+    decomposition).  With fanout >= deg this is the identity remap.
+
+    The view keeps the struct's ``in_pos``, the transpose of the
+    *unremapped* in-ELL, on purpose: it lists every position the
+    remapped ELL's transpose lists, in the same ascending order, plus the
+    remapped ones.  A remapped slot is invalid in the scores, so its
+    attention weight and its score gradient are exactly 0, and through
+    ``in_pos`` it adds a ±0 to a gradient accumulator that starts at +0
+    (so is never -0) — it changes no bit of the table gradients
+    (``tests/test_torch_sampling.py`` holds them ``torch.equal`` to a
+    transpose rebuilt from the remapped ELL).  Rebuilding it every step
+    would be a host argsort over the whole in-ELL each layer."""
+    out = dict(struct)
+    out["in_nbr"] = torch.where(samp["edge_keep"], struct["in_nbr"],
+                                sentinel)
+    return out
+
+
 def gnn_layer(cfg: GNNConfig, layer_params: Pytree,
               x_local: torch.Tensor, x_halo, struct: dict) -> torch.Tensor:
     """Run ONE split-aggregation layer (``layer_params`` is one
@@ -363,6 +446,47 @@ def _finish_layer(cfg: GNNConfig, out: torch.Tensor, h: torch.Tensor,
             out = out + h
         push.append(out)
     return out
+
+
+def gnn_forward_sampled(cfg: GNNConfig, params: Pytree,
+                        x_local: torch.Tensor, halo_tables: list,
+                        hist_tables: list, struct: dict, samp: dict
+                        ) -> tuple[torch.Tensor, list[torch.Tensor]]:
+    """Sampled (mini-batch) L-layer forward with stale-history control
+    variates — the VR-GCN estimator over DIGEST's split aggregation.
+
+    Layer 0 aggregates in full (its "history" is the raw features, which
+    are exact).  Hidden layers ℓ >= 1 aggregate sampled in-subgraph
+    neighbours fresh and the complement from ``hist_tables[ℓ-1]`` (this
+    subgraph's own rows from the last step, (S, hidden)); the
+    out-of-subgraph side reads ``halo_tables`` as :func:`gnn_forward`
+    does.  ``samp`` is one subgraph's slice of a
+    :class:`repro_torch.graph.sampler.NeighborSampler` batch
+    (``edge_scale``/``edge_keep`` as tensors).  GAT falls back to full
+    in-batch attention over the sampled rows (:func:`sampled_struct`).
+
+    With ``fanout >= max degree`` this reproduces :func:`gnn_forward`
+    bit for bit for gcn/sage (the residual weights are exactly +0.0) and
+    for gat (the remap is the identity).
+    """
+    h = x_local
+    push: list[torch.Tensor] = []
+    for ell in range(cfg.num_layers):
+        p = params[f"layer_{ell}"]
+        if ell == 0:
+            out = _LAYERS[cfg.model](cfg, p, h, halo_tables[0], struct)
+        elif cfg.model == "gat":
+            out = _gat_layer(cfg, p, h, halo_tables[ell],
+                             sampled_struct(struct, samp,
+                                            x_local.shape[0]))
+        elif cfg.model == "gcn":
+            out = _gcn_layer_cv(cfg, p, h, hist_tables[ell - 1],
+                                halo_tables[ell], struct, samp)
+        else:
+            out = _sage_layer_cv(cfg, p, h, hist_tables[ell - 1],
+                                 halo_tables[ell], struct, samp)
+        h = _finish_layer(cfg, out, h, ell, push)
+    return h, push
 
 
 class GNN(nn.Module):

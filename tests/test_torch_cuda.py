@@ -953,3 +953,109 @@ def test_kill_and_resume_on_the_card(dev, tmp_path):
             assert a.is_cuda and b.is_cuda and torch.equal(a, b)
         else:
             assert a == b
+
+
+def _cv_split(wts, nbr, ncols, fanout, seed):
+    """The sampled regime's weight split of an in-ELL (the sampler's draw
+    rule, ``graph/sampler.py``): ``min(deg, fanout)`` live slots a row
+    kept at scale deg / n_sampled (exactly 1.0 where deg <= fanout),
+    ``w_fresh = wts · scale`` (0 at the unsampled live slots) and
+    ``w_resid = wts − w_fresh`` (negative at the kept slots of a row
+    scaled above 1, +0.0 at every slot of a fully sampled row)."""
+    rng = np.random.default_rng(seed)
+    valid = (nbr < ncols).cpu().numpy()
+    deg = valid.sum(axis=1)
+    key = np.where(valid, rng.random(valid.shape), 2.0)
+    ranks = np.argsort(np.argsort(key, axis=1, kind="stable"), axis=1)
+    n_samp = np.minimum(deg, fanout)
+    keep = (ranks < n_samp[:, None]) & valid
+    scale = np.where(deg <= fanout, np.float32(1.0),
+                     deg.astype(np.float32)
+                     / np.maximum(n_samp, 1).astype(np.float32))
+    escale = np.where(keep, scale[:, None], np.float32(0)).astype(np.float32)
+    w_fresh = wts * torch.from_numpy(escale).to(wts.device)
+    return w_fresh, wts - w_fresh, deg
+
+
+@pytest.mark.parametrize("rows,deg,ncols,feat,live", [
+    (300, 14, 301, 16, 5), (5256, 56, 5257, 128, 6), (5256, 56, 5257, 64, 6)])
+def test_spmm_kernel_under_the_cv_split(dev, rows, deg, ncols, feat, live):
+    """K1 under the sampled regime's weights: zeros at live slots,
+    negative residual weights, fully sampled rows whose residual is
+    +0.0 — every live slot runs, against the plain version within 1e-5;
+    at full coverage ``spmm(w_fresh) + spmm(w_resid)`` equals the
+    unsplit K1 bit for bit."""
+    nbr, wts, table, _ = _padded_case(rows + feat, rows, deg, ncols, feat,
+                                      live, "trailing", dev)
+    hist = torch.randn(table.shape, generator=torch.Generator().manual_seed(
+        feat)).to(dev)
+    hist[-1] = 0
+    w_fresh, w_resid, n = _cv_split(wts, nbr, ncols, 3, rows)
+    full = torch.from_numpy(n <= 3).to(dev)
+    assert bool((w_resid < 0).any()) and bool(full.any())
+    assert bool((w_fresh[wts != 0] == 0).any())
+    assert bool((w_resid[full].view(torch.int32) == 0).all())   # +0.0
+    for w, t in ((w_fresh, table), (w_resid, hist)):
+        torch.testing.assert_close(spmm_cuda(nbr, w, t),
+                                   spmm_plain(nbr, w, t), **TOL)
+    cover_fresh, cover_resid, _ = _cv_split(wts, nbr, ncols, deg, rows)
+    assert torch.equal(cover_fresh, wts)
+    split = spmm_cuda(nbr, cover_fresh, table) + spmm_cuda(nbr, cover_resid,
+                                                           hist)
+    torch.cuda.synchronize()
+    assert torch.equal(split, spmm_cuda(nbr, wts, table))
+
+
+@pytest.mark.parametrize("model", ["gcn", "gat"])
+def test_sampled_steps_on_the_kernels(dev, model):
+    """Sampled CV steps through the kernels against the same steps
+    through the gather-form oracles on the card (losses and train F1
+    within 1e-4), the table-gradient kernel launched once a hidden layer
+    and subgraph a step (gcn: the history's product is not
+    differentiated), and full coverage equal to the full-batch epochs
+    (gcn bit for bit, gat within 1e-6)."""
+    import dataclasses
+
+    from repro_torch.core import TrainSettings, digest
+    from repro_torch.graph import build_sampler
+    from repro_torch.optim import adam
+
+    g, data = _train_data(dev)
+    cfg = dataclasses.replace(_gcn(g), model=model, heads=2)
+    settings = TrainSettings(sync_interval=2)
+    params = digest.init_state(cfg, adam(5e-3), data)["params"]
+    sampler = build_sampler(data, 3, 64, seed=3)
+    _build.reset_launches()
+    _, hist = digest.sampled_train(cfg, adam(5e-3), data, sampler, settings,
+                                   4, eval_every=1, params=params)
+    launches = dict(_build.LAUNCHES)
+    _, want = digest.sampled_train(dataclasses.replace(cfg, backend="jnp"),
+                                   adam(5e-3), data, sampler, settings, 4,
+                                   eval_every=1, params=params)
+    assert dict(_build.LAUNCHES) == launches      # the oracle launches none
+    np.testing.assert_allclose(hist["loss"], want["loss"], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(hist["train_f1"], want["train_f1"], rtol=0,
+                               atol=1e-4)
+    if model == "gcn":
+        assert launches["spmm_bwd_table"] == 2 * 2 * 4
+        assert launches["spmm_bwd_wts"] == 0
+    cover = build_sampler(data, max(sampler.max_in_degree, 1), 1 << 30)
+    full, full_h = digest.digest_train(cfg, adam(5e-3), data, settings, 3,
+                                       eval_every=1, params=params)
+    samp, samp_h = digest.sampled_train(cfg, adam(5e-3), data, cover,
+                                        settings, 3, eval_every=1,
+                                        params=params)
+    for key in ("params", "store"):
+        for a, b in zip(_tree_leaves(full[key]), _tree_leaves(samp[key])):
+            if model == "gat":
+                torch.testing.assert_close(b, a, rtol=1e-6, atol=1e-6)
+            else:
+                assert torch.equal(a, b)
+    if model == "gcn":
+        assert full_h["loss"] == samp_h["loss"]
+
+
+def _tree_leaves(t):
+    if isinstance(t, dict):
+        return [x for k in sorted(t) for x in _tree_leaves(t[k])]
+    return [t]

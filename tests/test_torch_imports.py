@@ -38,6 +38,8 @@ def _imported(path: Path) -> set:
 def test_port_sources_import_no_jax_and_no_reference():
     files = _port_files()
     assert len(files) > 20
+    assert {PORT / "core" / "comm_model.py",
+            PORT / "graph" / "sampler.py"} <= set(files)
     for path in files:
         for name in _imported(path):
             root = name.split(".")[0]

@@ -278,8 +278,10 @@ def test_halo_spec_matches_reference():
 
 
 def test_later_slices_raise(tmp_path):
-    """The collective pull (ROADMAP §1 item 6) still raises; the
-    predictor, the watchdog and checkpoints, ported since, run."""
+    """The collective pull (ROADMAP §1 item 6, with the multi-GPU
+    exchange) still raises, in the full-batch epoch and in the sampled
+    step; the predictor, the watchdog and checkpoints (items 3 and 5) and
+    the sampled regime (item 4), ported since, run."""
     g, _, tdata = _data()
     _, cfg = _configs(g, "gcn")
     opt = toptim.adam(5e-3)
@@ -289,8 +291,13 @@ def test_later_slices_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tdigest.digest_train(cfg, opt, tdata, tdigest.TrainSettings(), 1,
                              mesh=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tdigest.make_sampled_epoch_fn(
+            cfg, opt, tdigest.TrainSettings(pull_mode="collective"))
     with pytest.raises(ValueError):
         tdigest.make_epoch_fn(cfg, opt, tdigest.TrainSettings(mode="x"))
+    assert callable(tdigest.make_sampled_epoch_fn(
+        cfg, opt, tdigest.TrainSettings()))
     settings = tdigest.TrainSettings(
         sync_interval=2, max_staleness=3,
         predictor=tpredictor.PredictorConfig("delta"))
