@@ -149,13 +149,34 @@ Phases, each ending the run with a non-zero exit on failure:
     the full-batch epoch's at interval 2 and phase 7's, the draw alone,
     the batch's upload bytes, 3 steps and 3 phase-7 epochs traced (device
     ms, busy share), and ``epoch_time_model`` / ``epoch_comm_bytes``
-    with the H100 constants (analytic) beside the traced epoch.
+    with the H100 constants (analytic) beside the traced epoch;
+14. (run right after phase 13, on phase 7's partition and GCN) DIGEST-A,
+    the asynchronous trainer, at interval 2 with worker 0 the straggler:
+    (a) 96 rounds with an fp32 and an int8 store (the oracle's int8 run
+    24, held against the first 24), and 4 of GAT (no warm start), each
+    against the same run through the oracles as in phase 7 (round 1's
+    per-leaf gradients, ``round_loss`` and the eval ticks' loss and F1s;
+    GAT under the one-ulp rule) with the event order, delays, cold rows
+    and pull ages equal, the straggler's delay >= 8 and no cold row, and
+    each run's launches a worker gradient (K1 by shape, the ladder's K4
+    over the worker's fp32 cache whatever the store, the table gradient,
+    GAT's weight gradient) equal to the counts read off the code
+    (``round_launches``), evaluation's taken out; (b) an inert
+    ``PredictorConfig("none", ...)``, gamma = 0 and a zero-rate schedule
+    under an unreachable watchdog bit for bit against the plain run; (c)
+    crash, drop, corrupt and delay under watchdog 6 with the ema
+    predictor: every counter above 0, finite, pull age <= 6; (d) killed
+    after 40 rounds and resumed to 96, equal to (c) bit for bit.
+    Printed: the round's median (host clock, synchronised) beside phase
+    7's epoch and an eighth of it, the device time a round and busy
+    share (a traced 16-round run less a traced 8-round run), and the
+    simulated time a round against ``sync_time_per_round``.
 
 Each path's launch counters are set to 0 just before it and read just
 after; the oracle runs launch nothing.  The last lines are the card's
 ``nvidia-smi`` line, one JSON object ``{"kernels": [...]}`` (each
 kernel's launches on its paths (phase 12's as "sat training", phase
-13's as "sampled training"), its
+13's as "sampled training", phase 14's as "async training"), its
 worst error, its bar and the times of its main-path variant; K3's also
 its chunk walk's and its times at the training shape; K6 one entry a
 body, the fp32 body's launches those of the fp32 prefill) and
@@ -300,6 +321,17 @@ SAMPLE_STEPS = 6
 SAMPLE_COVER_STEPS = 3
 SAMPLE_VARIANCE_DRAWS = 8
 SAMPLE_TRACED = 3
+# Phase 14: DIGEST-A on phase 7's partition and GCN at interval 2, worker
+# 0 the straggler: the rounds of each run, the int8 run's rounds through
+# the oracle (a prefix of the kernel run's: the oracle's gather backward
+# takes ~0.4 s a round), the round a killed run last checkpointed, the
+# eval cadence, GAT's rounds and the rounds traced.
+ASYNC_ROUNDS = 96
+ASYNC_INT8_ORACLE_ROUNDS = 24
+ASYNC_KILL = 40
+ASYNC_EVAL = 24
+ASYNC_GAT_ROUNDS = 4
+ASYNC_TRACED = 8
 
 
 # Kernels redesigned for Hopper, by source: ptxas's register and spill
@@ -1505,7 +1537,8 @@ def sat_training(torch, dev, data, raw_epoch_ms, smi) -> dict:
     return out
 
 
-def step_launches(cfg, data, precision, sampled: bool) -> dict:
+def step_launches(cfg, data, precision, sampled: bool,
+                  dedup: bool = True) -> dict:
     """The launches one training step makes, read off the code
     (``models/gnn.py``, the ladder of ``kernels/spmm/ops.py``): K1 by
     (rows, deg, feat, dtype), the halo kernels by name, and the two SpMM
@@ -1521,7 +1554,10 @@ def step_launches(cfg, data, precision, sampled: bool) -> dict:
     table gradients a head for the in-ELL tables and layer 0's projected
     halo, and one for each score gather of a differentiated table (both
     sides, every layer: the dedup's pulled rows are detached, but their
-    scores carry ``a_src``).  Per subgraph, times the parts."""
+    scores carry ``a_src``).  Without the dedup (``dedup=False``: plain
+    halo tables, as DIGEST-A's worker caches are) every layer projects
+    its halo table by the trained W, so every layer's out-ELL tables
+    take a table gradient a head.  Per subgraph, times the parts."""
     import torch
 
     from repro_torch.kernels.spmm.ops import select_halo_kernel
@@ -1538,7 +1574,8 @@ def step_launches(cfg, data, precision, sampled: bool) -> dict:
             k1[(rows, din, w, "float32")] += parts * h
             k1[(rows, dout, w, "float32")] += parts * h
         return {"k1": k1, "halo": halo, "wts": sum(k1.values()),
-                "table": parts * (sum(heads) + heads[0]
+                "table": parts * (sum(heads)
+                                  + (heads[0] if dedup else sum(heads))
                                   + 2 * cfg.num_layers)}
 
     def slab(n, feat, dtype, scaled):
@@ -1854,6 +1891,379 @@ def sampled_training(torch, dev, data, raw_epoch_ms, smi) -> dict:
                       for k, v in model.items())
           + f"; beside phase 7's measured device time an epoch "
           f"{splits['full batch']['device_ms_per_step']:.3f} ms", flush=True)
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def async_settings(storage="fp32", **kw):
+    """Phase 14's settings (interval 2, worker 0 the straggler, the
+    ``storage`` store), or ``kw``'s changes of them."""
+    from repro_torch.core import AsyncSettings
+    from repro_torch.core.halo_exchange import HaloPrecision
+
+    return AsyncSettings(**{"sync_interval": 2, "straggler": 0, "seed": 0,
+                            "precision": HaloPrecision(storage), **kw})
+
+
+def recording(opt, grads: list, stamps: list = None):
+    """``opt`` that also copies the gradient leaves of its first update
+    into ``grads`` (round 1's) and, with ``stamps``, reads the host clock
+    after a synchronize at every update: DIGEST-A updates once a round,
+    so the stamps are a round apart."""
+    import torch
+
+    from repro_torch.core.digest import _leaves
+    from repro_torch.optim import Optimizer
+
+    def update(g, state, params, step):
+        if stamps is not None:
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+        if not grads:
+            grads.extend(x.clone() for x in _leaves(g))
+        return opt.update(g, state, params, step)
+
+    return Optimizer(opt.name, opt.init, update)
+
+
+def round_launches(cfg, data) -> dict:
+    """The launches of one DIGEST-A worker gradient, read off the code
+    (``core/async_engine.py``): one subgraph's share of a full-batch step
+    (:func:`step_launches`) whose halo tables are the worker's plain fp32
+    cache, so the ladder picks its fp32 kernel whatever the store's
+    precision, and GAT projects every layer's table (no dedup).  The
+    pulls, pushes and the SAT sum are PyTorch gathers, scatters and adds:
+    none of the port's kernels."""
+    from repro_torch.core.halo_exchange import HaloPrecision
+
+    parts = int(data["local_ids"].shape[0])
+    full = step_launches(cfg, data, HaloPrecision("fp32"), False,
+                         dedup=False)
+
+    def one(n):
+        check(n % parts == 0, f"{n} launches do not split over {parts} "
+              "subgraphs")
+        return n // parts
+
+    return {"k1": collections.Counter({k: one(n)
+                                       for k, n in full["k1"].items()}),
+            "halo": collections.Counter({k: one(n)
+                                         for k, n in full["halo"].items()}),
+            "table": one(full["table"]), "wts": one(full["wts"])}
+
+
+def async_path(torch, cfg, data, settings, params, rounds, lr, label,
+               stamps=None, oracle_rounds=None) -> tuple:
+    """One DIGEST-A run through the kernels, held against the same run
+    through the gather-form oracles (``backend="jnp"``) as phase 7 holds
+    an epoch: round 1's per-leaf gradients within TOL of each leaf's max
+    |g| (or twice the oracle's own one-ulp sensitivity, where larger),
+    ``round_loss``, the eval ticks' loss and F1s within TRAJ_TOL, and the
+    event order, delays, cold rows, pull ages and simulated times equal.
+    The oracle runs ``oracle_rounds`` (default all, else a multiple of
+    ASYNC_EVAL): a shorter run's rounds and ticks are the first ones of
+    the longer run's, so it is held against that prefix.
+    Its launches, evaluation's taken out (one ``evaluate`` counted, times
+    the ticks), must equal :func:`round_launches` times its worker
+    gradients (the rounds and the warm start's one a worker).  Returns
+    its summary, final state and history."""
+    from repro_torch.core import digest_a_train
+    from repro_torch.core.digest import evaluate
+    from repro_torch.kernels._build import LAUNCHES
+    from repro_torch.optim import adam
+
+    def run(c, d, grads, n, stamps=None):
+        return digest_a_train(c, recording(adam(lr), grads, stamps), d,
+                              settings, n, eval_every_rounds=ASYNC_EVAL,
+                              params=params)
+
+    torch.cuda.synchronize()
+    c0, k1_0 = dict(LAUNCHES), collections.Counter(K1_SHAPES)
+    grads = []
+    t0 = time.perf_counter()
+    state, hist = run(cfg, data, grads, rounds, stamps)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    got = {k: LAUNCHES[k] - c0[k] for k in c0}
+    k1_got = K1_SHAPES - k1_0
+    c1, k1_1 = dict(LAUNCHES), collections.Counter(K1_SHAPES)
+    evaluate(cfg, state["params"], data)
+    torch.cuda.synchronize()
+    ev = {k: LAUNCHES[k] - c1[k] for k in c1}
+    ev_k1 = K1_SHAPES - k1_1
+    ticks = len(hist["round"])
+    parts = int(data["local_ids"].shape[0])
+    calls = rounds + (parts if settings.warm_start and cfg.num_layers > 1
+                      else 0)
+    want = round_launches(cfg, data)
+    path = {k: got[k] - ticks * ev[k] for k in got}
+    path_k1 = {f"{r}x{d} w{f} {dt}": k1_got[(r, d, f, dt)]
+               - ticks * ev_k1[(r, d, f, dt)]
+               for (r, d, f, dt) in set(k1_got) | set(ev_k1)}
+    want_k1 = {f"{r}x{d} w{f} {dt}": n * calls
+               for (r, d, f, dt), n in want["k1"].items()}
+    check({k: n for k, n in path_k1.items() if n} == want_k1,
+          f"{label}: K1 launched {path_k1} besides evaluation, expected "
+          f"{want_k1} from the code ({calls} worker gradients)")
+    for name in ("halo_spmm", "halo_spmm_stream", "halo_spmm_skip"):
+        check(path[name] == want["halo"][name] * calls,
+              f"{label}: {name} launched {path[name]} times besides "
+              f"evaluation, expected {want['halo'][name] * calls}")
+    for name, key in (("spmm_bwd_table", "table"), ("spmm_bwd_wts", "wts")):
+        check(path[name] == want[key] * calls,
+              f"{label}: {name} launched {path[name]} times, expected "
+              f"{want[key] * calls} from the code")
+
+    oracle = dataclasses.replace(cfg, backend="jnp")
+    o_rounds = oracle_rounds or rounds
+    o_grads = []
+    t0 = time.perf_counter()
+    _, o_hist = run(oracle, data, o_grads, o_rounds)
+    torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t0
+    check(sum(LAUNCHES.values()) == sum(c1.values()) + sum(ev.values()),
+          f"{label}: the oracle run launched a kernel")
+    rel = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+           for a, b in zip(grads, o_grads)]
+    check(len(grads) == len(o_grads) > 0
+          and all(bool(torch.isfinite(a).all()) for a in grads),
+          f"{label}: round-1 gradients missing or not finite")
+    floor = [0.0] * len(rel)
+    if max(rel) > TOL:
+        # Phase 7's rule: the oracle's own change under a one-ulp scaling
+        # of the input features.
+        for eps in (2.0 ** -23, 2.0 ** -22):
+            p_grads = []
+            run(oracle, dict(data, x_global=data["x_global"] * (1 + eps)),
+                p_grads, 1)
+            floor = [max(f, float((p - b).abs().max())
+                         / max(float(b.abs().max()), 1e-30))
+                     for f, p, b in zip(floor, p_grads, o_grads)]
+    for i, (r, f) in enumerate(zip(rel, floor)):
+        check(r <= max(TOL, 2 * f),
+              f"{label}: round-1 gradient of leaf {i} differs from the "
+              f"oracle's by {r:.3e} of its max |g| (bar {TOL}, the "
+              f"oracle's own one-ulp sensitivity {f:.3e})")
+    o_ticks = len(o_hist["round"])
+
+    def prefix(key):
+        return hist[key][:o_rounds if key.startswith("round_")
+                         else o_ticks]
+
+    for key in ("round_worker", "delay", "cold_rows", "pull_age", "round",
+                "sim_time"):
+        check(prefix(key) == o_hist[key],
+              f"{label}: {key} {prefix(key)} differs from the oracle run's "
+              f"{o_hist[key]}")
+    traj_err = 0.0
+    for key in ("round_loss", "loss", "val_f1", "test_f1"):
+        check(len(prefix(key)) == len(o_hist[key]),
+              f"{label}: the oracle's {key} does not align")
+        for i, (a, b) in enumerate(zip(prefix(key), o_hist[key])):
+            check(abs(a - b) <= TRAJ_TOL, f"{label}: {key}[{i}] {a} "
+                  f"differs from the oracle's {b}")
+            traj_err = max(traj_err, abs(a - b))
+    check(all(math.isfinite(x) for x in hist["round_loss"]),
+          f"{label}: loss not finite")
+    res = {"path": label, "model": cfg.model,
+           "storage": settings.precision.storage, "rounds": rounds,
+           "oracle_rounds": o_rounds, "warm_start": settings.warm_start,
+           "grad_rel_err": max(rel), "grad_rel_err_by_leaf": rel,
+           "oracle_ulp_sensitivity_by_leaf": floor,
+           "traj_max_err": traj_err, "val_f1": hist["val_f1"],
+           "delay": hist["delay"], "cold_rows": hist["cold_rows"],
+           "pull_age": hist["pull_age"], "worker_gradients": calls,
+           "eval_ticks": ticks, "launches": got, "eval_launches": ev,
+           "seconds": run_s, "oracle_seconds": oracle_s,
+           "derived_per_round": {
+               **{f"K1 {k}": n for k, n in sorted(
+                   (f"{r}x{d} w{f} {dt}", n)
+                   for (r, d, f, dt), n in want["k1"].items())},
+               **dict(want["halo"]), "spmm_bwd_table": want["table"],
+               "spmm_bwd_wts": want["wts"]}}
+    return res, state, hist
+
+
+def async_training(torch, dev, data, raw_epoch_ms, smi) -> dict:
+    """Phase 14: DIGEST-A (the asynchronous trainer) on phase 7's
+    partition and GCN at interval 2, worker 0 the straggler: (a) fp32 and
+    int8 stores and GAT against the oracle runs, the launches a round held
+    to the code; (b) an inert predictor, gamma = 0 and a zero-rate
+    schedule bit for bit against the plain run; (c) every fault class
+    under watchdog 6 with the SAT predictor; (d) killed after
+    ASYNC_KILL rounds and resumed, bit for bit; then the round's time,
+    its device split and the simulated time a round against the
+    synchronous barrier's.  Returns the path's summary with its
+    launches."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import digest_gcn
+    from repro_torch.core import (FaultConfig, PredictorConfig,
+                                  digest_a_train, sync_time_per_round)
+    from repro_torch.core.digest import _leaves
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serving_driver import profile_serve_loop
+    from repro_torch.optim import adam
+
+    lr = digest_gcn.CONFIG.learning_rate
+    parts = int(data["local_ids"].shape[0])
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t_phase = time.perf_counter()
+    out = {"path": "async training", "model": "gcn", "sync_interval": 2,
+           "straggler": 0, "rounds": ASYNC_ROUNDS, "section_seconds": {}}
+    t_lap = [t_phase]
+
+    def lap(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        out["section_seconds"][name] = now - t_lap[0]
+        t_lap[0] = now
+
+    # (a) Against the oracle; the fp32 run's rounds are timed.
+    cfg, params = train_model(torch, dev, data, "gcn")
+    stamps = []
+    res, base, base_h = async_path(torch, cfg, data, async_settings(),
+                                   params, ASYNC_ROUNDS, lr,
+                                   "async gcn/fp32", stamps)
+    check(base_h["delay"][-1] >= 8, f"async: the straggler's delay "
+          f"{base_h['delay']} never reached 8 server steps")
+    check(base_h["cold_rows"][-1] == 0,
+          f"async: pulls read {base_h['cold_rows']} never-pushed rows")
+    print(json.dumps(res), flush=True)
+    runs = {"gcn fp32": res}
+    lap("a gcn fp32")
+    res, _, _ = async_path(torch, cfg, data, async_settings("int8"), params,
+                           ASYNC_ROUNDS, lr, "async gcn/int8",
+                           oracle_rounds=ASYNC_INT8_ORACLE_ROUNDS)
+    print(json.dumps(res), flush=True)
+    runs["gcn int8"] = res
+    lap("a gcn int8")
+    # GAT without the warm start: its 8 gradients would take the oracle
+    # (autograd's serialised scatter-add over the ELL padding) ~13 s.
+    gcfg, gparams = train_model(torch, dev, data, "gat")
+    res, _, _ = async_path(torch, gcfg, data,
+                           async_settings(warm_start=False), gparams,
+                           ASYNC_GAT_ROUNDS, lr, "async gat/fp32")
+    print(json.dumps(res), flush=True)
+    runs["gat fp32"] = res
+    lap("a gat fp32")
+
+    def plain(settings, rounds=ASYNC_ROUNDS, **kw):
+        return digest_a_train(cfg, adam(lr), data, settings, rounds,
+                              eval_every_rounds=ASYNC_EVAL, params=params,
+                              **kw)
+
+    # (b) Bit for bit against the plain run of (a).
+    none, none_h = plain(async_settings(
+        predictor=PredictorConfig("none", gamma=0.5, beta=0.3)))
+    check(_tree_equal(torch, base, none) and none_h == base_h,
+          "async: PredictorConfig('none', ...) differs from no predictor")
+    g0, g0_h = plain(async_settings(
+        predictor=PredictorConfig("ema", gamma=0.0)))
+    check("pstore" in g0 and _tree_equal(torch, base["params"],
+                                         g0["params"])
+          and g0_h["round_loss"] == base_h["round_loss"]
+          and g0_h["round_worker"] == base_h["round_worker"],
+          "async: gamma = 0 differs from the predictor-free run")
+    quiet, quiet_h = plain(async_settings(faults=FaultConfig(seed=1),
+                                          max_staleness=10 ** 6))
+    check(_tree_equal(torch, base, quiet) and quiet_h == base_h,
+          "async: a zero-rate schedule under an unreachable watchdog "
+          "differs from the run with neither")
+    del none, g0, quiet
+    lap("b")
+
+    # (c) Every fault class under watchdog 6, with the SAT predictor.
+    faults = FaultConfig(seed=1, crash_rate=0.1, crash_rounds=2,
+                         drop_push_rate=0.3, delay_pull_rate=0.2,
+                         corrupt_rate=0.1)
+    fset = async_settings(faults=faults, max_staleness=6,
+                          predictor=PredictorConfig("ema", 1.0, 0.5))
+    faulty, faulty_h = plain(fset)
+    counters = faulty["fault_counters"]
+    check(all(n > 0 for n in counters.values()),
+          f"async faults: a fault class never fired: {counters}")
+    check(all(math.isfinite(x) for x in faulty_h["round_loss"])
+          and all(bool(torch.isfinite(p).all())
+                  for p in _leaves(faulty["params"])),
+          "async faults: loss or params not finite")
+    check(faulty["pull_age_max"] <= 6, f"async faults: pull age "
+          f"{faulty['pull_age_max']} above the watchdog bound 6")
+    out.update(fault_counters=counters,
+               faulty_pull_age_max=faulty["pull_age_max"],
+               clean_pull_age_max=base["pull_age_max"])
+    lap("c")
+
+    # (d) Killed after ASYNC_KILL rounds (a checkpoint at ASYNC_KILL, one
+    # round lost) and resumed to ASYNC_ROUNDS, against (c).
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_async_")
+    try:
+        plain(fset, ASYNC_KILL + 1, ckpt_dir=tmp,
+              ckpt_every_rounds=ASYNC_KILL)
+        resumed, res_h = plain(fset, ckpt_dir=tmp, resume=True)
+        check(set(resumed) == set(faulty)
+              and _tree_equal(torch, faulty, resumed) and res_h == faulty_h,
+              "async kill and resume: the resumed run differs from the "
+              "unbroken one")
+        nbytes = sum(p.stat().st_size for p in Path(tmp).iterdir())
+        out["checkpoint_bytes"] = nbytes
+        del resumed
+    finally:
+        shutil.rmtree(tmp)
+    del faulty
+    lap("d")
+
+    torch.cuda.synchronize()
+    out["launches"] = dict(_build.LAUNCHES)
+    for name in ("spmm", "halo_spmm_skip", "spmm_bwd_table", "spmm_bwd_wts"):
+        check(out["launches"][name] > 0,
+              f"async: {name} never launched: {out['launches']}")
+    out["runs"] = runs
+
+    # Times: a round on the host clock (the stamps of (a)'s fp32 run, one
+    # a round after a synchronize), then the device split of rounds
+    # ASYNC_TRACED+1 .. 2·ASYNC_TRACED, traced: a run of twice as many
+    # rounds less a run of ASYNC_TRACED (each with its warm start and one
+    # evaluation).
+    round_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    med = statistics.median(round_ms)
+
+    def traced(n):
+        def one(c, _):
+            h = digest_a_train(cfg, adam(lr), data, async_settings(), n,
+                               eval_every_rounds=n, params=params)[1]
+            torch.cuda.synchronize()
+            return c, h
+        return profile_serve_loop(one, [0])
+
+    short, long_ = traced(ASYNC_TRACED), traced(2 * ASYNC_TRACED)
+    dev_ms = (long_["device_ms"] - short["device_ms"]) / ASYNC_TRACED
+    busy = ((long_["device_ms"] - short["device_ms"])
+            / (long_["wall_ms"] - short["wall_ms"]))
+    lap("traced")
+    sim = base_h["sim_time"][-1] / base_h["round"][-1]
+    sync = sync_time_per_round(async_settings(), parts)
+    out.update(round_ms_median=med, round_ms=round_ms,
+               phase7_epoch_ms_median=raw_epoch_ms,
+               phase7_epoch_ms_eighth=raw_epoch_ms / parts,
+               traced={"rounds": ASYNC_TRACED, "device_ms_per_round": dev_ms,
+                       "busy_share": busy, "short": short, "long": long_},
+               sim_time_per_round=sim, sync_time_per_round=sync)
+    print(f"async round (untraced median, synchronised, {smi}): "
+          f"{med:.2f} ms; phase 7's epoch {raw_epoch_ms:.2f} ms, an eighth "
+          f"{raw_epoch_ms / parts:.2f} ms", flush=True)
+    print(f"traced ({ASYNC_TRACED} rounds by difference): {dev_ms:.3f} ms "
+          f"of device time a round, busy {busy:.3f}", flush=True)
+    print("phase 14 sections (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in out["section_seconds"].items()),
+        flush=True)
+    print(f"simulated time a round: async {sim:.4f} s against the "
+          f"synchronous barrier's {sync:.4f} s ({sync / sim:.2f}x)",
+          flush=True)
     torch.cuda.synchronize()
     out["seconds"] = time.perf_counter() - t_phase
     print(json.dumps(out), flush=True)
@@ -2326,6 +2736,7 @@ def main() -> None:
     train_records, train_launches, data, raw_ms = training(torch, dev)
     sat = sat_training(torch, dev, data, raw_ms, smi)
     sampled = sampled_training(torch, dev, data, raw_ms, smi)
+    asynchronous = async_training(torch, dev, data, raw_ms, smi)
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t0 - t_serve
     with torch.no_grad():
@@ -2340,7 +2751,8 @@ def main() -> None:
     torch.cuda.synchronize()
     print(f"phases: serving {t_serve:.1f} s, training {t_train:.1f} s (of "
           f"which SAT training {sat['seconds']:.1f} s, sampled training "
-          f"{sampled['seconds']:.1f} s), "
+          f"{sampled['seconds']:.1f} s, async training "
+          f"{asynchronous['seconds']:.1f} s), "
           f"LM and GAT {time.perf_counter() - t0 - t_serve - t_train:.1f} s",
           flush=True)
     records = serve_records + train_records + lm_records
@@ -2359,7 +2771,9 @@ def main() -> None:
                     "sat training": sat["launches"][kernel] if kernel
                     in TRAINING_KERNELS else 0,
                     "sampled training": sampled["launches"][kernel] if kernel
-                    in TRAINING_KERNELS else 0}
+                    in TRAINING_KERNELS else 0,
+                    "async training": asynchronous["launches"][kernel]
+                    if kernel in TRAINING_KERNELS else 0}
         if name in PATH_OF:
             launches[PATH_OF[name]] = path_launches[PATH_OF[name]][kernel]
         kernels.append({

@@ -1,5 +1,8 @@
 from repro_torch.core import (comm_model, faults, halo_exchange, predictor,
                               serving)
+from repro_torch.core.async_engine import (AsyncSettings, digest_a_train,
+                                           store_geometry,
+                                           sync_time_per_round)
 from repro_torch.core.comm_model import (CommConstants, epoch_comm_bytes,
                                          epoch_time_model, khop_halo_sizes)
 from repro_torch.core.digest import (MODES, TrainSettings,
@@ -18,7 +21,9 @@ from repro_torch.core.faults import (FaultConfig, FaultSchedule,
 from repro_torch.core.halo_exchange import HaloPrecision, HaloSpec
 from repro_torch.core.predictor import PredictorConfig
 from repro_torch.core.serving import (ServeConfig, ServePlan,
-                                      build_serve_plan, serve_query)
+                                      build_serve_plan, init_serve_store,
+                                      make_refresh_fn, refresh_or_degrade,
+                                      serve_query)
 
 __all__ = ["halo_exchange", "serving", "MODES", "TrainSettings",
            "check_worklist_geometry", "digest_train", "empty_halo_struct",
@@ -31,4 +36,7 @@ __all__ = ["halo_exchange", "serving", "MODES", "TrainSettings",
            "measure_error_and_bound", "quantization_eps", "predictor",
            "PredictorConfig", "comm_model", "CommConstants",
            "epoch_comm_bytes", "epoch_time_model", "khop_halo_sizes",
-           "init_sampled_state", "make_sampled_epoch_fn", "sampled_train"]
+           "init_sampled_state", "make_sampled_epoch_fn", "sampled_train",
+           "AsyncSettings", "digest_a_train", "store_geometry",
+           "sync_time_per_round", "init_serve_store", "make_refresh_fn",
+           "refresh_or_degrade"]

@@ -346,6 +346,11 @@ class TrainSettings:
     llcg_correction: bool = False
     correction_frac: float = 0.1
     correction_lr: float = 1e-3
+    # Sampled regime (make_sampled_epoch_fn): "cv" aggregates unsampled
+    # neighbours from the last step's representations (VR-GCN control
+    # variates); "plain" drops that term — scaled neighbour sampling, the
+    # variance baseline.
+    sample_estimator: str = "cv"
     # Bounded-staleness watchdog: a part whose last accepted push is
     # >= max_staleness rounds old is pushed on the next round whatever the
     # cadence or the fault mask.  Needs the fault-aware state leaves
@@ -355,11 +360,6 @@ class TrainSettings:
     # row) + gamma·dequant(pstore row).  kind="none" adds no state and
     # runs the predictor-free program.
     predictor: PredictorConfig = PredictorConfig()
-    # Sampled regime (make_sampled_epoch_fn): "cv" aggregates unsampled
-    # neighbours from the last step's representations (VR-GCN control
-    # variates); "plain" drops that term — scaled neighbour sampling, the
-    # variance baseline.
-    sample_estimator: str = "cv"
 
 
 def _check_settings(settings: TrainSettings) -> None:

@@ -18,7 +18,9 @@ on equal input.
 PULL (Algorithm 1 line 5) is :func:`pull_slab`: each subgraph's halo rows
 gathered into a device-local slab ``(M, L-1, H+1, hidden)`` in storage
 precision, row H the zero sentinel.  PUSH (lines 9-10) is :func:`push`, or
-:func:`push_ef` with the pusher's rounding residual carried forward.
+:func:`push_ef` with the pusher's rounding residual carried forward; a
+DIGEST-A worker pushes its own shard alone (:func:`owner_push`,
+:func:`owner_push_ef`).
 Theorem 1's per-layer staleness is :func:`staleness_error`.
 """
 from __future__ import annotations
@@ -291,6 +293,53 @@ def push_ef(store: dict, local_slots: torch.Tensor,
                      sentinels)
     return new_store, _ef_residual(compensated,
                                    local_valid[:, None, :, None],
+                                   precision_of(store))
+
+
+def owner_push(store: dict, owner: int, local_slots: torch.Tensor,
+               local_valid: torch.Tensor, reps: torch.Tensor,
+               shard_rows: int) -> dict:
+    """Single-part PUSH that only ever touches the owner's shard (the
+    DIGEST-A worker's push): quantise ``reps``, scatter them at
+    owner-local offsets ``local_slots - owner·shard_rows`` into the
+    ``shard_rows`` rows of shard ``owner`` (a row with ``~local_valid``
+    goes to offset ``shard_rows - 1``), then reset that shard's last row
+    (data 0, scale 1).
+
+    local_slots: (S,) global store slots of this part's local rows (its
+    own sentinel at non-boundary rows); local_valid: (S,) bool; reps:
+    (L-1, S, hidden) fp32.  The shard is written in the store's own
+    tensors (one shard a push, so no copy of the whole slab), no row
+    outside it changes, and the returned dict holds the very tensors of
+    ``store``.
+    """
+    data = store["data"]
+    start = int(owner) * shard_rows
+    off = torch.where(local_valid, local_slots.long() - start,
+                      shard_rows - 1)
+    vals = torch.where(local_valid[None, :, None], reps,
+                       torch.zeros((), dtype=reps.dtype, device=reps.device))
+    q, scale = quantize_rows(vals, precision_of(store))
+    shard = data[:, start:start + shard_rows]
+    shard[:, off, :] = q
+    shard[:, -1, :] = 0
+    if scale is not None:
+        sshard = store["scale"][:, start:start + shard_rows]
+        sshard[:, off, :] = scale
+        sshard[:, -1, :] = 1.0
+    return store
+
+
+def owner_push_ef(store: dict, owner: int, local_slots: torch.Tensor,
+                  local_valid: torch.Tensor, reps: torch.Tensor,
+                  residual: torch.Tensor, shard_rows: int
+                  ) -> tuple[dict, torch.Tensor]:
+    """Error-feedback form of :func:`owner_push` (see :func:`push_ef`),
+    in place as it is: returns (store, new_residual)."""
+    compensated = reps + residual
+    new_store = owner_push(store, owner, local_slots, local_valid,
+                           compensated, shard_rows)
+    return new_store, _ef_residual(compensated, local_valid[None, :, None],
                                    precision_of(store))
 
 

@@ -205,7 +205,7 @@ def store_bare(store: dict) -> dict:
     return {k: store[k] for k in ("data", "scale") if k in store}
 
 
-def make_refresh_fn(mesh=None, donate: bool = True):
+def make_refresh_fn(mesh=None, serve_rows: int = None, donate: bool = True):
     """Serving-store refresh ``refresh(store, reps_top, rdata) -> store``.
 
     ``reps_top`` is the (N_pad, hidden) top-layer input table
@@ -221,12 +221,14 @@ def make_refresh_fn(mesh=None, donate: bool = True):
     :func:`refresh_or_degrade` needs to keep serving the old store when a
     refresh fails.
 
-    ``mesh`` selects the multi-device refresh, which belongs to a later
-    slice of the port.
+    ``mesh`` selects the multi-device refresh, a shard-local scatter of
+    ``serve_rows`` (``ServePlan.serve_rows``) rows a shard, which belongs
+    to a later slice of the port; on one device ``serve_rows`` is unused.
     """
     if mesh is not None:
         raise NotImplementedError("the mesh refresh (shard_push) is ported "
-                                  "with the multi-device slice")
+                                  "with the multi-GPU exchange (ROADMAP.md "
+                                  "§1 item 6)")
 
     def refresh(store, reps_top, rdata):
         ids = torch.clamp_max(rdata["local_ids"].long(),

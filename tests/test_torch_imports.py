@@ -39,7 +39,9 @@ def test_port_sources_import_no_jax_and_no_reference():
     files = _port_files()
     assert len(files) > 20
     assert {PORT / "core" / "comm_model.py",
-            PORT / "graph" / "sampler.py"} <= set(files)
+            PORT / "core" / "async_engine.py",
+            PORT / "graph" / "sampler.py",
+            PORT / "launch" / "async_straggler.py"} <= set(files)
     for path in files:
         for name in _imported(path):
             root = name.split(".")[0]
@@ -48,6 +50,8 @@ def test_port_sources_import_no_jax_and_no_reference():
 
 def test_importing_every_module_loads_no_jax():
     mods = _modules()
+    assert {"repro_torch.core.async_engine",
+            "repro_torch.launch.async_straggler"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

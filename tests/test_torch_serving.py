@@ -255,6 +255,23 @@ def test_donated_refresh_updates_in_place():
     assert int(store["version"]) == 2
 
 
+def test_make_refresh_fn_parameters_match_reference():
+    """The reference's parameters, in its order and with its defaults, so
+    a positional ``make_refresh_fn(None, serve_rows)`` binds the same
+    argument in both packages; the mesh refresh names its roadmap item."""
+    import inspect
+
+    def params(fn):
+        return [(p.name, p.default, p.kind)
+                for p in inspect.signature(fn).parameters.values()]
+
+    assert params(ts.make_refresh_fn) == params(js.make_refresh_fn)
+    refresh = ts.make_refresh_fn(None, 4096)
+    assert callable(refresh)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        ts.make_refresh_fn(object(), 4096)
+
+
 def test_padding_and_disabled_cache_counters():
     g, _, tdata, _, tplan = _setup()
     _, _, tcfg, tparams = _model("gcn")

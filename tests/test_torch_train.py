@@ -277,6 +277,35 @@ def test_halo_spec_matches_reference():
         assert tuple(ts["data"].shape) == j.init()["data"].shape
 
 
+def test_train_settings_match_reference():
+    """The same field names, in the same order, with the same defaults:
+    a positional TrainSettings means the same run in both packages."""
+    jf = dataclasses.fields(jdigest.TrainSettings)
+    tf = dataclasses.fields(tdigest.TrainSettings)
+    assert [f.name for f in tf] == [f.name for f in jf]
+    jd, td = jdigest.TrainSettings(), tdigest.TrainSettings()
+    for f in tf:
+        want, got = getattr(jd, f.name), getattr(td, f.name)
+        if dataclasses.is_dataclass(got):
+            assert dataclasses.asdict(got) == dataclasses.asdict(want), f.name
+        else:
+            assert got == want, f.name
+
+
+def test_core_exports_match_reference():
+    """Every name of the reference's ``repro.core.__all__`` is exported by
+    the port's, but for the unported ones: the sharded serving engine and
+    the collective geometry check (ROADMAP §1 item 6) and the dense
+    oracle ``stale_store`` (not ported, by design)."""
+    import repro.core as jcore
+    import repro_torch.core as tcore
+    unported = {"check_collective_geometry", "serve_query_sharded",
+                "stale_store"}
+    assert set(jcore.__all__) - set(tcore.__all__) == unported
+    for name in set(jcore.__all__) - unported:
+        assert hasattr(tcore, name), name
+
+
 def test_later_slices_raise(tmp_path):
     """The collective pull (ROADMAP §1 item 6, with the multi-GPU
     exchange) still raises, in the full-batch epoch and in the sampled
