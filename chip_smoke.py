@@ -171,12 +171,36 @@ Phases, each ending the run with a non-zero exit on failure:
     7's epoch and an eighth of it, the device time a round and busy
     share (a traced 16-round run less a traced 8-round run), and the
     simulated time a round against ``sync_time_per_round``.
+15. (run right after phase 14, on phase 7's partition and GCN) the
+    multi-GPU exchange on the one card: (a) one rank over NCCL in this
+    process, phase 7's settings: the collective epoch equal to the
+    gather epoch (metrics every epoch, params, store) with the NCCL
+    census; (b)-(e) on 2 and 4 gloo ranks sharing the card
+    (``torch.multiprocessing``, the kernels built here first, each rank
+    loading them), each held against this process's single-process runs:
+    (b) GCN at interval 2, fp32 and int8 stores, 10 epochs: metrics,
+    state and every rank's pulled slab equal, the ranks' kernel launches
+    summed equal to the single process's, the census of each epoch as
+    read off the code; (c) on 4 ranks, the ("pod", "data") = 2 x 2 mesh,
+    2 int8 epochs equal, its slab equal to the single-pod collective's;
+    (d) on 2 ranks, GAT with the projected pull, 4 epochs equal; (e)
+    sharded serving on phase 4's graph and GCN for fp32, bf16 and int8
+    stores: the mesh refresh equal to the single refresh, a batch's
+    logits within the reference's bars of ``full_graph_forward``, one
+    all-to-all a store tensor a batch, and the p50 of 16 batches of 256
+    rows a part.  Printed: the pull and push epochs' medians (host
+    clock, every rank synchronised, a barrier on each side) beside the
+    single process's and phase 7's, the sharded p50s and each pull's
+    wire bytes against the replicated slab's.  W ranks on one card
+    measure contention, not scaling.
 
 Each path's launch counters are set to 0 just before it and read just
 after; the oracle runs launch nothing.  The last lines are the card's
 ``nvidia-smi`` line, one JSON object ``{"kernels": [...]}`` (each
 kernel's launches on its paths (phase 12's as "sat training", phase
-13's as "sampled training", phase 14's as "async training"), its
+13's as "sampled training", phase 14's as "async training", phase 15's
+as "collective training" and "sharded serving", summed over its ranks),
+its
 worst error, its bar and the times of its main-path variant; K3's also
 its chunk walk's and its times at the training shape; K6 one entry a
 body, the fp32 body's launches those of the fp32 prefill) and
@@ -332,6 +356,22 @@ ASYNC_KILL = 40
 ASYNC_EVAL = 24
 ASYNC_GAT_ROUNDS = 4
 ASYNC_TRACED = 8
+# Phase 15: the multi-GPU exchange on one card.  W ranks share the card
+# over gloo (NCCL refuses two ranks on one card), so its times measure W
+# processes contending for one H100, not scaling.  Collective training on
+# phase 7's partition and GCN at interval 2 (pulls at r = 2, 4, ...) for
+# DIST_EPOCHS epochs (GAT DIST_GAT_EPOCHS, W = 2 only); sharded serving on
+# phase 4's graph and GCN, 8 parts, SERVE_DIST_BATCHES batches of 256 rows
+# a part, held to full_graph_forward at the reference's bars
+# (tests/test_serving.py: fp32 2e-6, int8 5e-3) and bf16 at int8's (its
+# rounding, 2^-9 of a value, is finer than int8's 1/254 of a row's max).
+DIST_WORLDS = (2, 4)
+DIST_EPOCHS = 10
+DIST_INTERVAL = 2
+DIST_GAT_EPOCHS = 4
+SERVE_PARTS = 8
+SERVE_DIST_BATCHES = 16
+SERVE_DIST_TOL = {"fp32": 2e-6, "bf16": 5e-3, "int8": 5e-3}
 
 
 # Kernels redesigned for Hopper, by source: ptxas's register and spill
@@ -2271,6 +2311,431 @@ def async_training(torch, dev, data, raw_epoch_ms, smi) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 15: the multi-GPU exchange (collective training, sharded serving)
+# ---------------------------------------------------------------------------
+
+def dist_run(torch, cfg, data, settings, params, epochs, mesh=None) -> dict:
+    """``epochs`` DIGEST epochs from ``params`` on one process (``mesh``
+    None: the gather epoch) or on this rank of ``mesh`` (collective: data
+    and state placed with ``shard_data`` / ``shard_state``).  Per epoch:
+    the metrics, the collective census (counted from just before the
+    epoch to just after it) and the host-clock time around an epoch that
+    ends in a synchronize (on a mesh, with a barrier on each side);
+    beside them the kernel launches of the run and the final state (the
+    rank's part)."""
+    from repro_torch.configs import digest_gcn
+    from repro_torch.core import collectives, digest
+    from repro_torch.kernels import _build
+    from repro_torch.optim import adam
+
+    opt = adam(digest_gcn.CONFIG.learning_rate)
+    state = digest.init_state(cfg, opt, data, precision=settings.precision,
+                              params=params)
+    fn = digest.make_epoch_fn(cfg, opt, settings, mesh)
+    edata = data
+    if mesh is not None:
+        state = digest.shard_state(state, mesh)
+        edata = digest.shard_data(data, mesh)
+
+    def fence():
+        torch.cuda.synchronize()
+        if mesh is not None:
+            collectives.barrier()
+
+    metrics, census, times = [], [], []
+    l0 = dict(_build.LAUNCHES)
+    for _ in range(epochs):
+        fence()
+        t0 = time.perf_counter()
+        collectives.reset_collectives()
+        state, m = fn(state, edata)
+        census.append(dict(collectives.COLLECTIVES))
+        fence()
+        times.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: v.detach().cpu() for k, v in m.items()})
+    return {"metrics": metrics, "census": census, "times": times,
+            "launches": {k: _build.LAUNCHES[k] - l0[k] for k in l0},
+            "state": state}
+
+
+def split_ms(times: list) -> dict:
+    """Medians of an interval-2 run's epochs 2..n: the pull epochs (r
+    even) and the push epochs (r odd), apart, since a pull moves the
+    slab and a push does not."""
+    return {"pull_epoch_ms_median": statistics.median(times[1::2]),
+            "push_epoch_ms_median": statistics.median(times[2::2])}
+
+
+def _cpu_tree(torch, tree):
+    if isinstance(tree, dict):
+        return {k: _cpu_tree(torch, v) for k, v in tree.items()}
+    return tree.detach().cpu() if isinstance(tree, torch.Tensor) else tree
+
+
+def _dev_tree(torch, tree, dev):
+    if isinstance(tree, dict):
+        return {k: _dev_tree(torch, v, dev) for k, v in tree.items()}
+    return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
+
+
+def _metrics_equal(torch, a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        x.keys() == y.keys() and all(torch.equal(x[k], y[k]) for k in x)
+        for x, y in zip(a, b))
+
+
+def _pull_census(storage: str, model: str = "gcn", pods: int = 1) -> dict:
+    """A pull epoch's census read off the code: one all-to-all a store
+    tensor (GAT: a projected z tensor a hidden layer), on pods one send
+    and one receive a tensor a peer pod, and 2 all-reduces (the
+    gradient/metric buffer, the eps/age max)."""
+    from repro_torch.configs import digest_gcn
+    tensors = 2 if storage == "int8" else 1
+    if model == "gat":
+        tensors *= digest_gcn.CONFIG.num_layers - 1
+    out = {"all_to_all": tensors, "all_reduce": 2}
+    if pods > 1:
+        out.update(send=tensors * (pods - 1), recv=tensors * (pods - 1))
+    return out
+
+
+def _check_census(label: str, census: list, pull: dict) -> None:
+    for e, c in enumerate(census):
+        want = pull if (e + 1) % DIST_INTERVAL == 0 else {"all_reduce": 2}
+        check(c == want, f"{label}: epoch {e + 1}'s collectives {c}, "
+              f"expected {want}")
+
+
+def serve_model(torch, dev, g):
+    """Phase 4's GCN (3 x 128, random weights from seed 0)."""
+    from repro_torch.models.gnn import GNN, GNNConfig
+    cfg = GNNConfig(model="gcn", num_layers=3, in_dim=g.features.shape[1],
+                    hidden_dim=128, num_classes=int(g.labels.max()) + 1,
+                    heads=4)
+    return cfg, GNN.init(cfg, torch.Generator().manual_seed(0), dev).tree()
+
+
+def dist_rank(rank: int, world: int, tmp: str) -> None:
+    """One gloo rank of phase 15's (b)-(e), all ranks sharing card 0;
+    writes its report to ``tmp``.  A failed check exits the rank
+    non-zero, which fails the spawn and the script."""
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    torch.set_num_threads(2)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/gloo{world}",
+                            world_size=world, rank=rank)
+    try:
+        out = _dist_rank_work(torch, dev, world, rank, tmp)
+        torch.save(out, f"{tmp}/w{world}-r{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _dist_rank_work(torch, dev, world: int, rank: int, tmp: str) -> dict:
+    import numpy as np
+
+    from repro_torch.core import collectives, digest, serving
+    from repro_torch.core import halo_exchange as hx
+    from repro_torch.core.digest import (full_graph_forward, gather_state,
+                                         prepare_graph_data, top_layer_reps)
+    from repro_torch.graph import make_dataset
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_mesh
+
+    ref = torch.load(f"{tmp}/ref.pt", weights_only=False)
+    mesh = make_mesh(world)
+    g = make_dataset("papers-sim", scale=1.0, seed=0)
+    data = prepare_graph_data(g, TRAIN_PARTS, seed=0, order="rcm",
+                              stream_chunk_rows=TRAIN_CHUNK_ROWS, device=dev)
+    sl = hx.part_slice(TRAIN_PARTS, mesh)
+    halo = int(data["halo_ids"].shape[1])
+    out = {"rank": rank, "train": {}, "serve": {}}
+
+    def held(label, res, key, pods=1, model="gcn"):
+        """The run's metrics and whole state against the reference's,
+        its census, and its final pulled slab against pull_slab's."""
+        want = ref[key]
+        whole = gather_state(res["state"], mesh)
+        check(_metrics_equal(torch, res["metrics"], want["metrics"]),
+              f"{label}: metrics differ from the single-process run")
+        check(_tree_equal(torch, whole, _dev_tree(torch, want["state"], dev)),
+              f"{label}: state differs from the single-process run")
+        storage = res["storage"]
+        _check_census(label, res["census"], _pull_census(storage, model,
+                                                         pods))
+        if model == "gcn":
+            edata = digest.shard_data(data, mesh)
+            slab = hx.collective_pull(res["state"]["store"],
+                                      edata["pull_send"], edata["pull_recv"],
+                                      halo, res["mesh"])
+            full = hx.pull_slab(whole["store"], data["halo_slots"])
+            check(all(torch.equal(slab[k], full[k][sl]) for k in full),
+                  f"{label}: the collective slab differs from pull_slab's")
+            res["slab"] = slab
+        return {"times": res["times"], "launches": res["launches"],
+                "census_pull": res["census"][DIST_INTERVAL - 1]}
+
+    for storage in ("fp32", "int8"):
+        cfg, params = train_model(torch, dev, data, "gcn")
+        settings = train_settings(storage, sync_interval=DIST_INTERVAL,
+                                  pull_mode="collective")
+        res = dist_run(torch, cfg, data, settings, params, DIST_EPOCHS, mesh)
+        res.update(storage=storage, mesh=mesh)
+        out["train"][f"gcn/{storage}"] = held(
+            f"W={world} gcn/{storage}", res, f"gcn/{storage}")
+        if storage == "int8" and world == 4:
+            # (c) the (pod, data) = 2 x 2 mesh: 2 epochs, slabs equal to
+            # the single-pod collective's and pull_slab's.
+            pods = make_mesh(2, 2)
+            pres = dist_run(torch, cfg, data, settings, params, 2, pods)
+            pres.update(storage=storage, mesh=pods)
+            out["train"]["gcn/int8 pods"] = held(
+                "pods 2x2 gcn/int8", pres, "gcn/int8@2", pods=2)
+            flat = dist_run(torch, cfg, data, settings, params, 2, mesh)
+            edata = digest.shard_data(data, mesh)
+            flat_slab = hx.collective_pull(flat["state"]["store"],
+                                           edata["pull_send"],
+                                           edata["pull_recv"], halo, mesh)
+            check(all(torch.equal(pres["slab"][k], flat_slab[k])
+                      for k in flat_slab),
+                  "pods 2x2: the slab differs from the single-pod one")
+    if world == 2:
+        cfg, params = train_model(torch, dev, data, "gat")
+        settings = train_settings("fp32", sync_interval=DIST_INTERVAL,
+                                  pull_mode="collective")
+        res = dist_run(torch, cfg, data, settings, params, DIST_GAT_EPOCHS,
+                       mesh)
+        res.update(storage="fp32", mesh=mesh)
+        out["train"]["gat/fp32"] = held(f"W={world} gat/fp32", res,
+                                        "gat/fp32", model="gat")
+    del data
+
+    # (e) sharded serving on phase 4's graph and GCN.
+    gs = make_dataset("products-sim", scale=1.0, seed=0)
+    sdata_all = prepare_graph_data(gs, SERVE_PARTS, seed=0, device=dev)
+    plan = serving.build_serve_plan(sdata_all)
+    ssl = hx.part_slice(SERVE_PARTS, mesh)
+    cfg, params = serve_model(torch, dev, gs)
+    rng = np.random.default_rng(2)
+    first = np.full((SERVE_PARTS, BATCH), plan.part_rows, np.int32)
+    for m in range(SERVE_PARTS):
+        v = np.where(plan.local_valid[m])[0][:BATCH]
+        first[m, :len(v)] = v
+    rows = rng.integers(0, plan.part_rows,
+                        (SERVE_DIST_BATCHES, SERVE_PARTS, BATCH))
+    with torch.inference_mode():
+        reps = top_layer_reps(cfg, params, sdata_all)
+        want = full_graph_forward(cfg, params, sdata_all)[0]
+        for storage in ("fp32", "bf16", "int8"):
+            scfg = serving.ServeConfig(batch_size=BATCH, storage=storage)
+            store0 = serving.init_serve_store(plan, cfg.hidden_dim,
+                                              scfg.precision, dev)
+            single = serving.make_refresh_fn(donate=False)(
+                store0, reps, plan.refresh_data(dev))
+            lstore, sdata = serving.place_serving(
+                store0, plan.sharded_data(sdata_all), mesh)
+            rdata = hx.shard_parts(plan.refresh_data(dev), mesh)
+            store = serving.make_refresh_fn(mesh, plan.serve_rows)(
+                lstore, reps, rdata)
+            check(_tree_equal(torch, store,
+                              hx.shard_store(single, SERVE_PARTS, mesh)),
+                  f"W={world} serve/{storage}: the sharded refresh differs "
+                  f"from the single refresh")
+
+            def query(q):
+                return serving.serve_query_sharded(
+                    cfg, scfg, mesh, plan.halo_size, params, store, sdata,
+                    torch.from_numpy(q[ssl]).to(dev))
+
+            _build.reset_launches()
+            collectives.reset_collectives()
+            logits = query(first)
+            census = dict(collectives.COLLECTIVES)
+            check(census == {"all_to_all": 2 if storage == "int8" else 1},
+                  f"W={world} serve/{storage}: a batch's collectives "
+                  f"{census}")
+            err = 0.0
+            for i, m in enumerate(range(ssl.start, ssl.stop)):
+                v = np.where(plan.local_valid[m])[0][:BATCH]
+                gids = torch.from_numpy(plan.local_ids[m][v]).long().to(dev)
+                err = max(err, float((logits[i, :len(v)]
+                                      - want[gids]).abs().max()))
+            check(err <= SERVE_DIST_TOL[storage],
+                  f"W={world} serve/{storage}: logits {err:.3e} from "
+                  f"full_graph_forward (bar {SERVE_DIST_TOL[storage]})")
+            times = []
+            for q in rows:
+                torch.cuda.synchronize()
+                collectives.barrier()
+                t0 = time.perf_counter()
+                query(q)
+                torch.cuda.synchronize()
+                collectives.barrier()
+                times.append((time.perf_counter() - t0) * 1e3)
+            out["serve"][storage] = {
+                "err": err, "census": census, "times": times,
+                "launches": dict(_build.LAUNCHES)}
+    return out
+
+
+def distributed(torch, dev, data, raw_epoch_ms, smi) -> dict:
+    """Phase 15: the multi-GPU exchange on one card.  (a) one rank over
+    NCCL in this process: the collective epoch of phase 7's settings
+    equal to the gather epoch (metrics every epoch, the final state),
+    with the NCCL census; then the single-process references of (b)-(d)
+    in this process, and (b)-(e) on 2 and 4 gloo ranks sharing the card
+    (``dist_rank``).  Returns the path's summary with its launches."""
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from repro_torch.core import collectives
+    from repro_torch.core.halo_exchange import HaloSpec
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    out = {"phase": 15}
+    coll = collections.Counter()        # collective-path kernel launches
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) W = 1 over NCCL.
+        cfg, params = train_model(torch, dev, data, "gcn")
+        base = train_settings("fp32")
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl",
+                                world_size=1, rank=0, device_id=dev)
+        try:
+            mesh = make_mesh(1, 1, "cuda")
+            one = dist_run(torch, cfg, data, base, params, TRAIN_EPOCHS)
+            many = dist_run(torch, cfg, data, dataclasses.replace(
+                base, pull_mode="collective"), params, TRAIN_EPOCHS, mesh)
+        finally:
+            dist.destroy_process_group()
+        check(_metrics_equal(torch, one["metrics"], many["metrics"]),
+              "(a) NCCL W=1: metrics differ from the gather epoch")
+        check(_tree_equal(torch, one["state"], many["state"]),
+              "(a) NCCL W=1: state differs from the gather epoch")
+        check(one["launches"] == many["launches"],
+              f"(a) NCCL W=1: launches {many['launches']} against the "
+              f"gather epoch's {one['launches']}")
+        pulls = [c for e, c in enumerate(many["census"])
+                 if (e + 1) % base.sync_interval == 0]
+        check(pulls and all(c == _pull_census("fp32") for c in pulls)
+              and all(c == {"all_reduce": 2} for e, c in
+                      enumerate(many["census"])
+                      if (e + 1) % base.sync_interval),
+              f"(a) NCCL W=1: census {many['census']}")
+        coll.update(many["launches"])
+        out["a_nccl_w1"] = {
+            "epochs": TRAIN_EPOCHS, "equal": True,
+            "census_pull_epoch": pulls[0],
+            "epoch_ms_median": statistics.median(many["times"][1:]),
+            "gather_epoch_ms_median": statistics.median(one["times"][1:])}
+        print(f"phase 15 (a) NCCL W=1: {TRAIN_EPOCHS} collective epochs "
+              f"== gather epochs (metrics, params, store); pull-epoch "
+              f"census {pulls[0]}; epoch {out['a_nccl_w1']['epoch_ms_median']:.2f}"
+              f" ms against gather {out['a_nccl_w1']['gather_epoch_ms_median']:.2f}"
+              f" ms", flush=True)
+        del one, many
+
+        # The single-process references of (b)-(d).
+        ref, ref_launch = {}, {}
+        for key, model, storage, epochs in (
+                ("gcn/fp32", "gcn", "fp32", DIST_EPOCHS),
+                ("gcn/int8", "gcn", "int8", DIST_EPOCHS),
+                ("gcn/int8@2", "gcn", "int8", 2),
+                ("gat/fp32", "gat", "fp32", DIST_GAT_EPOCHS)):
+            cfg, params = train_model(torch, dev, data, model)
+            res = dist_run(torch, cfg, data, train_settings(
+                storage, sync_interval=DIST_INTERVAL), params, epochs)
+            ref[key] = {"metrics": res["metrics"],
+                        "state": _cpu_tree(torch, res["state"])}
+            ref_launch[key] = res["launches"]
+            if key == "gcn/fp32":
+                out["gather_interval2"] = split_ms(res["times"])
+        torch.save(ref, f"{tmp}/ref.pt")
+        del ref
+        torch.cuda.synchronize()
+        _build.build()              # the ranks load these libraries
+        for world in DIST_WORLDS:
+            t0 = time.perf_counter()
+            mp.spawn(dist_rank, args=(world, tmp), nprocs=world, join=True)
+            ranks = [torch.load(f"{tmp}/w{world}-r{r}.pt", weights_only=False)
+                     for r in range(world)]
+            summary = {"seconds": time.perf_counter() - t0}
+            for key in ranks[0]["train"]:
+                summed = collections.Counter()
+                for r in ranks:
+                    summed.update(r["train"][key]["launches"])
+                want = ref_launch[key.replace(" pods", "@2")]
+                check({k: summed[k] for k in want} == want,
+                      f"W={world} {key}: launches summed over ranks "
+                      f"{dict(summed)} against the single process's {want}")
+                coll.update(summed)
+                times = ranks[0]["train"][key]["times"]
+                summary[key] = {
+                    "launches_summed": dict(summed),
+                    "census_pull_epoch": ranks[0]["train"][key]["census_pull"],
+                    "epoch_ms": times}
+                if len(times) > 2:
+                    summary[key].update(split_ms(times))
+            for storage, res in ranks[0]["serve"].items():
+                summed = collections.Counter()
+                for r in ranks:
+                    summed.update(r["serve"][storage]["launches"])
+                summary[f"serve/{storage}"] = {
+                    "p50_ms": statistics.median(res["times"][1:]),
+                    "max_abs_err": max(r["serve"][storage]["err"]
+                                       for r in ranks),
+                    "bar": SERVE_DIST_TOL[storage],
+                    "census": res["census"], "launches": dict(summed)}
+                out.setdefault("serve_launches", collections.Counter()
+                               ).update(summed)
+            out[f"w{world}"] = summary
+            gcn, ref2 = summary["gcn/fp32"], out["gather_interval2"]
+            print(f"phase 15 W={world} gloo ranks on one card ({smi}): "
+                  f"gcn fp32/int8 {DIST_EPOCHS} epochs, "
+                  + ("pods 2x2 2 epochs, " if world == 4 else
+                     f"gat {DIST_GAT_EPOCHS} epochs, ")
+                  + f"== the single process (metrics, state, slabs, summed "
+                  f"launches); gcn fp32 epoch medians, pull "
+                  f"{gcn['pull_epoch_ms_median']:.2f} ms and push "
+                  f"{gcn['push_epoch_ms_median']:.2f} ms (one process at "
+                  f"interval 2: {ref2['pull_epoch_ms_median']:.2f} and "
+                  f"{ref2['push_epoch_ms_median']:.2f} ms; phase 7 "
+                  f"{raw_epoch_ms:.2f} ms); sharded serving p50 "
+                  + ", ".join(f"{s} {summary[f'serve/{s}']['p50_ms']:.2f} ms"
+                              for s in ("fp32", "bf16", "int8")),
+                  flush=True)
+        sp = data["_sp"]
+        for storage in ("fp32", "int8"):
+            spec = HaloSpec.from_partitions(
+                sp, 128, 3, train_settings(storage).precision)
+            out[f"wire_bytes/{storage}"] = {
+                "collective_pull": spec.collective_pull_nbytes(
+                    int(data["pull_send"].shape[2])),
+                "replicated_pull": spec.replicated_pull_nbytes(),
+                "ragged_ideal": spec.comm_bytes(sp.pull_rows(),
+                                                sp.push_rows())["pull_bytes"]}
+        print("phase 15 pull wire bytes: " + json.dumps(
+            {k: v for k, v in out.items() if k.startswith("wire")}),
+            flush=True)
+    out["launches"] = {k: coll.get(k, 0) for k in _build.LAUNCHES}
+    out["serve_launches"] = {k: out.get("serve_launches", {}).get(k, 0)
+                             for k in _build.LAUNCHES}
+    collectives.reset_collectives()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps(out), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phases 8-11: the LM slice (K6) and GAT's split aggregation (K5)
 # ---------------------------------------------------------------------------
 
@@ -2737,6 +3202,7 @@ def main() -> None:
     sat = sat_training(torch, dev, data, raw_ms, smi)
     sampled = sampled_training(torch, dev, data, raw_ms, smi)
     asynchronous = async_training(torch, dev, data, raw_ms, smi)
+    multi = distributed(torch, dev, data, raw_ms, smi)
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t0 - t_serve
     with torch.no_grad():
@@ -2752,7 +3218,8 @@ def main() -> None:
     print(f"phases: serving {t_serve:.1f} s, training {t_train:.1f} s (of "
           f"which SAT training {sat['seconds']:.1f} s, sampled training "
           f"{sampled['seconds']:.1f} s, async training "
-          f"{asynchronous['seconds']:.1f} s), "
+          f"{asynchronous['seconds']:.1f} s, multi-GPU exchange "
+          f"{multi['seconds']:.1f} s), "
           f"LM and GAT {time.perf_counter() - t0 - t_serve - t_train:.1f} s",
           flush=True)
     records = serve_records + train_records + lm_records
@@ -2773,7 +3240,9 @@ def main() -> None:
                     "sampled training": sampled["launches"][kernel] if kernel
                     in TRAINING_KERNELS else 0,
                     "async training": asynchronous["launches"][kernel]
-                    if kernel in TRAINING_KERNELS else 0}
+                    if kernel in TRAINING_KERNELS else 0,
+                    "collective training": multi["launches"][kernel],
+                    "sharded serving": multi["serve_launches"][kernel]}
         if name in PATH_OF:
             launches[PATH_OF[name]] = path_launches[PATH_OF[name]][kernel]
         kernels.append({

@@ -218,11 +218,18 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore_checkpoint(ckpt_dir: str, template: Pytree,
-                       step: Optional[int] = None) -> tuple[Pytree, int]:
+                       step: Optional[int] = None,
+                       sharding: Optional[Any] = None
+                       ) -> tuple[Pytree, int]:
     """``(tree, step)``: checkpoint ``step`` (default the newest valid
     one) in the structure, dtypes and devices of ``template``.  Raises
     ``FileNotFoundError`` when there is none, ``KeyError`` for a key the
-    checkpoint lacks and ``ValueError`` for a shape that differs."""
+    checkpoint lacks and ``ValueError`` for a shape that differs.
+
+    A checkpoint holds whole arrays, so ``template`` is the whole tree;
+    ``sharding`` (the reference's ``jax.device_put`` placement) is a
+    callable that takes the restored whole tree to this rank's part, e.g.
+    ``lambda t: repro_torch.core.digest.shard_state(t, mesh)``."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -241,4 +248,7 @@ def restore_checkpoint(ckpt_dir: str, template: Pytree,
                     f"shape mismatch for {key!r}: ckpt {arr.shape} vs "
                     f"template {want}")
             leaves.append(_from_numpy(arr, leaf))
-    return _rebuild(template, iter(leaves)), int(step)
+    tree = _rebuild(template, iter(leaves))
+    if sharding is not None:
+        tree = sharding(tree)
+    return tree, int(step)

@@ -1,0 +1,90 @@
+"""The port's one door to ``torch.distributed``: every collective the
+multi-GPU paths make goes through a function here, which adds one to its
+op's entry of :data:`COLLECTIVES` — the collective census, counted the
+way ``kernels._build.LAUNCHES`` counts kernel launches (it replaces the
+reference's census of the compiled HLO).
+
+Ops and their census names: ``all_to_all`` (``all_to_all_single``),
+``all_reduce``, ``all_gather``, ``send`` / ``recv`` (one each a
+point-to-point op of :func:`exchange`) and ``barrier``.
+
+NCCL and gloo both take the card's tensors in the collectives (gloo
+copies them through host memory itself; ``chip_smoke.py`` phase 15
+passes them so).  Gloo's point-to-point ops are handed host memory: on
+a gloo group :func:`exchange` copies CUDA tensors through pinned host
+buffers, chosen by the group's backend name, never as a fallback.
+"""
+from __future__ import annotations
+
+import collections
+
+import torch
+import torch.distributed as dist
+
+COLLECTIVES: collections.Counter = collections.Counter()
+
+
+def reset_collectives() -> None:
+    COLLECTIVES.clear()
+
+
+def all_to_all_single(output: torch.Tensor, input: torch.Tensor,
+                      group=None) -> torch.Tensor:
+    """``output`` ← the equal dim-0 blocks of every rank's ``input``
+    destined for this rank, in group-rank order."""
+    COLLECTIVES["all_to_all"] += 1
+    dist.all_to_all_single(output, input, group=group)
+    return output
+
+
+def all_reduce(tensor: torch.Tensor, op=dist.ReduceOp.SUM,
+               group=None) -> torch.Tensor:
+    """In-place all-reduce of ``tensor``."""
+    COLLECTIVES["all_reduce"] += 1
+    dist.all_reduce(tensor, op=op, group=group)
+    return tensor
+
+
+def all_gather(tensor: torch.Tensor, group=None) -> list:
+    """Every rank's ``tensor`` (equal shapes), in group-rank order."""
+    COLLECTIVES["all_gather"] += 1
+    tensor = tensor.contiguous()
+    outs = [torch.empty_like(tensor)
+            for _ in range(dist.get_world_size(group))]
+    dist.all_gather(outs, tensor, group=group)
+    return outs
+
+
+def _host(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` as gloo's point-to-point ops take it: a pinned host copy of
+    a CUDA tensor on a gloo group, else ``t``."""
+    if not t.is_cuda or dist.get_backend(group) != dist.Backend.GLOO:
+        return t
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t)
+    return out
+
+
+def exchange(sends: list, recvs: list, group=None) -> None:
+    """Point-to-point round: ``sends`` / ``recvs`` are ``(tensor, peer)``
+    pairs (``peer`` a global rank), posted together with
+    ``dist.batch_isend_irecv`` and waited on; each received tensor is
+    written in place."""
+    COLLECTIVES["send"] += len(sends)
+    COLLECTIVES["recv"] += len(recvs)
+    s_buf = [_host(t, group) for t, _ in sends]
+    r_buf = [_host(t, group) for t, _ in recvs]
+    ops = ([dist.P2POp(dist.isend, b, peer, group)
+            for b, (_, peer) in zip(s_buf, sends)]
+           + [dist.P2POp(dist.irecv, b, peer, group)
+              for b, (_, peer) in zip(r_buf, recvs)])
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    for b, (t, _) in zip(r_buf, recvs):
+        if b is not t:
+            t.copy_(b)
+
+
+def barrier(group=None) -> None:
+    COLLECTIVES["barrier"] += 1
+    dist.barrier(group=group)

@@ -1,5 +1,5 @@
-"""DIGEST — full-batch training with periodic stale sync, on one device
-(the single-device subset of ``src/repro/core/digest.py``).
+"""DIGEST — full-batch training with periodic stale sync (the port of
+``src/repro/core/digest.py``), on one device or over a mesh of ranks.
 
 One code path covers the three framework families the paper compares by
 swapping what the out-of-subgraph halo tables hold:
@@ -34,9 +34,21 @@ rest from each subgraph's own last-step representations (VR-GCN control
 variates, ``hist``), and the loss is masked to the batch's seeds.  The
 pull, push, faults and checkpoints are the full-batch epoch's.
 
-A later slice of the port (``ROADMAP.md`` §1): ``pull_mode="collective"``
-(item 6).  Asking for it, or passing a ``mesh``, raises
-``NotImplementedError``.
+``pull_mode="collective"`` spreads the M subgraphs over the ranks of a
+``torch.distributed`` DeviceMesh (``repro_torch.launch.mesh``), k = M /
+ranks each (:func:`check_collective_geometry`): :func:`shard_data`,
+:func:`shard_state` and :func:`shard_batch` give each rank its parts and
+owner shards, the PULL is ``halo_exchange.collective_pull`` (one
+all-to-all a store tensor), the PUSH and the staleness probe are
+shard-local, and Algorithm 1 line 13's mean is exact across ranks: each
+rank writes its parts' gradients, losses and F1 counts into their rows of
+a zero (M, ·) buffer, one ``all_reduce(SUM)`` fills it (every element has
+a single nonzero addend), and the mean runs over the M rows in M order,
+as on one device.  So a collective epoch computes what the single-process
+loop computes, bit for bit on one device type.  The epoch's collectives:
+that all-reduce, one ``all_reduce(MAX)`` of the staleness ε and the push
+age, and on a pull epoch one all-to-all a store tensor (on pods, the pod
+hop's sends beside); :func:`gather_state` (checkpoints) runs outside it.
 """
 from __future__ import annotations
 
@@ -46,8 +58,10 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import checkpoint as ckpt_io
+from repro_torch.core import collectives
 from repro_torch.core import faults as faults_mod
 from repro_torch.core import halo_exchange
 from repro_torch.core import predictor as predictor_mod
@@ -67,11 +81,6 @@ from repro_torch.optim import Optimizer
 Pytree = Any
 
 MODES = ("digest", "partition", "propagation")
-
-_LATER = {
-    "collective": "pull_mode='collective' is ported with the multi-GPU "
-                  "exchange (ROADMAP.md §1 item 6)",
-}
 
 # Output-row block of the reference's TPU kernels; the chunk worklists
 # are built at this geometry so they equal the reference's.
@@ -186,6 +195,102 @@ def check_worklist_geometry(cfg: GNNConfig, data: dict) -> None:
             f"would silently skip referenced slab rows)")
 
 
+def check_collective_geometry(data: dict, mesh, axis: str = "data") -> int:
+    """Fail before any work when the partition count cannot be laid over
+    the mesh's exchange dimensions (``halo_exchange.exchange_axes``:
+    "data", times "pod" on a pod mesh); returns k = parts a rank.  Only
+    shapes are read."""
+    num_parts = int(data["local_slots"].shape[0])
+    return halo_exchange.shards_per_device(num_parts, mesh, axis,
+                                           "pull_mode='collective'")
+
+
+# The entries of a prepare_graph_data dict every rank holds whole.
+_REPLICATED = ("x_global", "store_ids")
+
+
+def shard_data(data: dict, mesh, axis: str = "data") -> dict:
+    """This rank's view of a :func:`prepare_graph_data` dict (the
+    placement of the reference's ``subgraph_shardings``): every stacked
+    (M, …) tensor, the struct's and the PullPlan's ``pull_send`` (owner
+    rows) / ``pull_recv`` (requester rows) cut to the rank's k parts;
+    ``x_global``, ``store_ids`` and the ``full_*`` view whole; host-side
+    ``_*`` entries kept."""
+    sl = halo_exchange.part_slice(int(data["local_slots"].shape[0]), mesh,
+                                  axis)
+    out = {}
+    for key, v in data.items():
+        if key.startswith("_") or key in _REPLICATED \
+                or key.startswith("full_"):
+            out[key] = v
+        elif key == "struct":
+            out[key] = {kk: vv[sl].clone() for kk, vv in v.items()}
+        else:
+            out[key] = v[sl].clone()
+    return out
+
+
+def shard_batch(batch: dict, mesh, axis: str = "data") -> dict:
+    """This rank's parts of a sampler batch (every array (M, …); numpy or
+    tensors), the reference's ``batch_shardings``."""
+    sl = halo_exchange.part_slice(len(next(iter(batch.values()))), mesh,
+                                  axis)
+    return {k: v[sl] for k, v in batch.items()}
+
+
+# Training-state leaves stacked over the M parts (dim 0); "store" and
+# "pstore" are owner-sharded over their rows (dim 1); the rest (params,
+# opt_state, epoch, step) every rank holds whole.
+_PART_LEAVES = ("cache", "pcache", "push_residual", "predictor", "hist",
+                "push_ok", "last_push_round")
+_STORE_LEAVES = ("store", "pstore")
+
+
+def _num_parts(state: dict) -> int:
+    return int(_leaves(state["cache"])[0].shape[0])
+
+
+def shard_state(state: dict, mesh, axis: str = "data") -> dict:
+    """This rank's part of a whole training state (:func:`init_state`,
+    :func:`init_sampled_state`, or one restored from a checkpoint): its k
+    owner shards of the store and pstore, its k parts of every stacked
+    leaf, the rest whole."""
+    num_parts = _num_parts(state)
+    sl = halo_exchange.part_slice(num_parts, mesh, axis)
+    out = dict(state)
+    for key in _STORE_LEAVES:
+        if key in state:
+            out[key] = halo_exchange.shard_store(state[key], num_parts,
+                                                 mesh, axis)
+    for key in _PART_LEAVES:
+        if key in state:
+            v = state[key]
+            out[key] = ({kk: vv[sl].clone() for kk, vv in v.items()}
+                        if isinstance(v, dict) else v[sl].clone())
+    return out
+
+
+def gather_state(state: dict, mesh) -> dict:
+    """The whole training state from every rank's :func:`shard_state`
+    part, one ``all_gather`` a sharded leaf (for checkpoints: run outside
+    the epoch, so not in its collective census).  The mesh spans the
+    job, rank e holding block e."""
+    def whole(v, dim):
+        return torch.cat(collectives.all_gather(v.contiguous()), dim=dim)
+
+    out = dict(state)
+    for key in _STORE_LEAVES:
+        if key in state:
+            out[key] = {kk: (whole(vv, 1) if vv.dim() >= 2 else vv)
+                        for kk, vv in state[key].items()}
+    for key in _PART_LEAVES:
+        if key in state:
+            v = state[key]
+            out[key] = ({kk: whole(vv, 0) for kk, vv in v.items()}
+                        if isinstance(v, dict) else whole(v, 0))
+    return out
+
+
 def empty_halo_struct(cfg: GNNConfig, struct: dict, rows: int = 8
                       ) -> tuple[list, dict]:
     """Per-layer all-zero halo tables + a struct whose out-ELL is remapped
@@ -283,14 +388,19 @@ def _detach(table):
 
 def project_store_tables(store: dict, params: Pytree, cfg: GNNConfig,
                          precision: HaloPrecision, pstore: dict = None,
-                         gamma: float = 1.0) -> dict:
+                         gamma: float = 1.0,
+                         shard_rows: Optional[int] = None) -> dict:
     """GAT owner-shard projection dedup: ``z{ℓ} = dequant(store[ℓ]) ·
     W_{ℓ+1}`` over the R store rows, once per layer, re-encoded in the
     wire precision as pull-ready single-layer stores ``{"z{ℓ}": {"data":
     (1, R, heads·dh)[, "scale"]}}``.  The rows are stale state: nothing
     here is differentiated.  With a SAT ``pstore`` the rows are predicted
     before the projection, ``dequant(store) + gamma · dequant(pstore)``
-    (exact by linearity of W), so the pulled z slabs keep their shape."""
+    (exact by linearity of W), so the pulled z slabs keep their shape.
+    With ``shard_rows`` each owner shard is projected by its own product,
+    so a rank's shards give the bits the whole store gives (a GEMM's
+    summation order may follow its row count), and its sentinel row keeps
+    scale 1."""
     out = {}
     with torch.no_grad():
         for ell in range(cfg.num_layers - 1):
@@ -300,9 +410,18 @@ def project_store_tables(store: dict, params: Pytree, cfg: GNNConfig,
             if pstore is not None:
                 rows = rows + _f32(gamma) * halo_exchange.dequantize_rows(
                     *halo_exchange.layer_table(pstore, ell))
-            z = torch.einsum("rd,dhk->rhk", rows, w)
+            blocks = ([rows] if shard_rows is None
+                      else list(torch.split(rows, shard_rows)))
+            z = torch.cat([torch.einsum("rd,dhk->rhk", b, w)
+                           for b in blocks])
             z = z.reshape(z.shape[0], -1)               # (R, heads·dh)
             q, qs = halo_exchange.quantize_rows(z, precision)
+            if shard_rows is not None and qs is not None:
+                # Each shard's last row is its owner's zero sentinel: keep
+                # the store's convention there (data 0, scale 1), which
+                # collective_pull's padding assumes, so the pulled slab
+                # is the same by either route.
+                qs[shard_rows - 1::shard_rows] = 1.0
             zs = {"data": q[None]}
             if qs is not None:
                 zs["scale"] = qs[None]
@@ -337,8 +456,11 @@ class TrainSettings:
     pull_on_first_epoch: bool = False  # paper pulls only at r % N == 0
     # Wire/storage precision of the HaloExchange store.
     precision: HaloPrecision = HaloPrecision()
-    # PULL transport: "gather" (the only one on one device here);
-    # "collective" is ROADMAP.md §1 item 6.
+    # PULL transport: "gather" = the dense gather on one device;
+    # "collective" = the mesh epoch (pass the mesh; M must be a multiple of
+    # the exchange dimensions, pods x data): all-to-all pulls of only the
+    # referenced slots, shard-local pushes and staleness reads, k = M /
+    # ranks subgraphs and owner shards a rank.
     pull_mode: str = "gather"
     # LLCG-style server correction (partition baseline): one extra
     # server-side SGD step per round on a sampled node batch with FULL
@@ -362,52 +484,79 @@ class TrainSettings:
     predictor: PredictorConfig = PredictorConfig()
 
 
-def _check_settings(settings: TrainSettings) -> None:
+def _check_settings(settings: TrainSettings, mesh=None) -> None:
     if settings.mode not in MODES:
         raise ValueError(settings.mode)
     if settings.pull_mode not in ("gather", "collective"):
         raise ValueError(settings.pull_mode)
     if settings.pull_mode == "collective":
-        raise NotImplementedError(_LATER["collective"])
+        if mesh is None:
+            raise ValueError("pull_mode='collective' needs the mesh")
+        if not dist.is_initialized():
+            raise RuntimeError("pull_mode='collective' needs an "
+                               "initialised process group "
+                               "(repro_torch.launch.mesh)")
+    elif mesh is not None:
+        raise ValueError("a mesh is for pull_mode='collective'; the "
+                         "gather epoch runs every subgraph on one device")
     if settings.predictor.enabled and settings.mode != "digest":
         raise ValueError("the SAT predictor rides the stale store — "
                          f"mode must be 'digest', got {settings.mode!r}")
 
 
+def _shard_rows(state: dict, data: dict) -> int:
+    """Rows of one owner shard: the (rank's) store rows over its parts."""
+    return (state["store"]["data"].shape[1]
+            // int(data["local_slots"].shape[0]))
+
+
 def _digest_pull(cfg: GNNConfig, settings: TrainSettings, state: dict,
-                 data: dict, r: int) -> tuple[dict, Optional[dict]]:
-    """Algorithm-1 PULL (line 5) every ``sync_interval`` epochs: gather
-    each subgraph's halo slots from the store into its device-local slab
-    (GAT dedup: the store projected once per layer, then gathered).
-    Returns ``(cache, pcache)``: the pulled SAT predictor slab rides the
-    same gather (None without a predictor, and under GAT dedup, where the
-    prediction is folded in before the projection)."""
+                 data: dict, r: int, mesh=None
+                 ) -> tuple[dict, Optional[dict]]:
+    """Algorithm-1 PULL (line 5) every ``sync_interval`` epochs: each
+    subgraph's halo slots from the store into its device-local slab, by
+    the dense gather or, under ``pull_mode="collective"``, by
+    ``collective_pull`` over ``mesh`` (GAT dedup: the store projected
+    once per owner shard and layer, then pulled, one exchange a z
+    tensor).  Returns ``(cache, pcache)``: the pulled SAT predictor slab
+    rides the same routing (None without a predictor, and under GAT
+    dedup, where the prediction is folded in before the projection)."""
     do_pull = r % settings.sync_interval == 0
     if settings.pull_on_first_epoch:
         do_pull = do_pull or r == 1
     if not do_pull:
         return state["cache"], state.get("pcache")
+    if settings.pull_mode == "collective":
+        halo_size = int(data["halo_ids"].shape[1])
+
+        def pull_store(zs):
+            return halo_exchange.collective_pull(
+                zs, data["pull_send"], data["pull_recv"], halo_size, mesh)
+    else:
+        def pull_store(zs):
+            return halo_exchange.pull_slab(zs, data["halo_slots"])
     pred = settings.predictor.enabled and "pstore" in state
     if gat_projected(cfg):
         cache = {}
         for key, zs in project_store_tables(
                 state["store"], state["params"], cfg, settings.precision,
                 pstore=state["pstore"] if pred else None,
-                gamma=settings.predictor.gamma).items():
-            slab = halo_exchange.pull_slab(zs, data["halo_slots"])
+                gamma=settings.predictor.gamma,
+                shard_rows=_shard_rows(state, data)).items():
+            slab = pull_store(zs)
             cache[key] = slab["data"]
             if "scale" in slab:
                 cache[f"{key}_scale"] = slab["scale"]
         return cache, state.get("pcache")
-    cache = halo_exchange.pull_slab(state["store"], data["halo_slots"])
+    cache = pull_store(state["store"])
     if pred:
-        return cache, halo_exchange.pull_slab(state["pstore"],
-                                              data["halo_slots"])
+        return cache, pull_store(state["pstore"])
     return cache, None
 
 
 def _digest_push(cfg: GNNConfig, settings: TrainSettings, state: dict,
-                 data: dict, push_reps: torch.Tensor, r: int) -> tuple:
+                 data: dict, push_reps: torch.Tensor, r: int,
+                 mesh=None) -> tuple:
     """Periodic PUSH (Algorithm 1 lines 9–10; epochs r = 1, N+1, ...) and
     the Theorem-1 staleness probe, measured against the store before the
     push.
@@ -419,6 +568,11 @@ def _digest_push(cfg: GNNConfig, settings: TrainSettings, state: dict,
     pushed.  With the SAT predictor the probe reads the predicted rows
     ``dequant(store) + gamma·dequant(pstore)``, and the history advances
     and the pstore is pushed under the same mask as the store.
+
+    Under ``pull_mode="collective"`` every leaf is the rank's part and
+    the pushes and the probe are shard-local (``shard_push(_ef)``,
+    ``local_staleness_error``): the eps returned is this rank's, whose
+    mesh-wide max :func:`_end_round` takes.
 
     Returns (store, push_residual, eps, last_push_round, pstore,
     predictor_history)."""
@@ -450,24 +604,42 @@ def _digest_push(cfg: GNNConfig, settings: TrainSettings, state: dict,
             store["data"], store.get("scale"))
             + _f32(settings.predictor.gamma) * halo_exchange.dequantize_rows(
                 pstore["data"], pstore.get("scale"))}
-    eps = halo_exchange.staleness_error(eps_store, push_reps,
-                                        data["local_slots"],
-                                        data["local_boundary"])
+    slots = data["local_slots"]
+    if settings.pull_mode == "collective":
+        shard_rows = _shard_rows(state, data)
+        eps = halo_exchange.local_staleness_error(
+            eps_store, push_reps, slots, data["local_boundary"], shard_rows,
+            mesh)
+
+        def push_rows(st, reps):
+            return halo_exchange.shard_push(st, slots, local_valid, reps,
+                                            shard_rows, mesh)
+
+        def push_ef(st, reps, res):
+            return halo_exchange.shard_push_ef(st, slots, local_valid, reps,
+                                               res, shard_rows, mesh)
+    else:
+        eps = halo_exchange.staleness_error(eps_store, push_reps, slots,
+                                            data["local_boundary"])
+
+        def push_rows(st, reps):
+            return halo_exchange.push(st, slots, local_valid, reps,
+                                      data["sentinel_slots"])
+
+        def push_ef(st, reps, res):
+            return halo_exchange.push_ef(st, slots, local_valid, reps, res,
+                                         data["sentinel_slots"])
     if not do_push:
         return store, residual, eps, last, pstore, hist
     if settings.precision.error_feedback:
-        new_store, new_residual = halo_exchange.push_ef(
-            store, data["local_slots"], local_valid, push_reps, residual,
-            data["sentinel_slots"])
+        new_store, new_residual = push_ef(store, push_reps, residual)
         if ok is not None:
             # A masked part wrote nothing, so its residual must not take
             # this round's rounding error either.
             new_residual = torch.where(ok[:, None, None, None],
                                        new_residual, residual)
     else:
-        new_store = halo_exchange.push(store, data["local_slots"],
-                                       local_valid, push_reps,
-                                       data["sentinel_slots"])
+        new_store = push_rows(store, push_reps)
         new_residual = residual
     if pred:
         if ok is None:
@@ -476,9 +648,7 @@ def _digest_push(cfg: GNNConfig, settings: TrainSettings, state: dict,
         # No error feedback on the pstore: deltas do not telescope.
         hist, prows = predictor_mod.update_history(hist, push_reps, ok,
                                                    settings.predictor)
-        pstore = halo_exchange.push(pstore, data["local_slots"],
-                                    local_valid, prows,
-                                    data["sentinel_slots"])
+        pstore = push_rows(pstore, prows)
     return new_store, new_residual, eps, last, pstore, hist
 
 
@@ -555,11 +725,11 @@ def _subgraph_tables(cfg: GNNConfig, m: int, x_halo0: torch.Tensor,
 def make_epoch_fn(cfg: GNNConfig, opt: Optimizer, settings: TrainSettings,
                   mesh=None) -> Callable:
     """``epoch_fn(state, data) -> (state, metrics)``: one global round r
-    of Algorithm 1 over the M subgraphs on one device.  ``mesh`` belongs
-    to ``pull_mode="collective"`` (a later slice) and must be None."""
-    _check_settings(settings)
-    if mesh is not None:
-        raise NotImplementedError(_LATER["collective"])
+    of Algorithm 1 over the M subgraphs.  With ``pull_mode="collective"``
+    pass the ``mesh``: ``state`` and ``data`` are then this rank's parts
+    (:func:`shard_state`, :func:`shard_data`) and the metrics the
+    mesh-wide ones."""
+    _check_settings(settings, mesh)
     loss_fn = make_subgraph_loss(cfg)
 
     def epoch_fn(state: dict, data: dict) -> tuple[dict, dict]:
@@ -577,7 +747,7 @@ def make_epoch_fn(cfg: GNNConfig, opt: Optimizer, settings: TrainSettings,
                 cache = _propagation_cache(cfg, settings, state["params"],
                                            data)
         elif settings.mode == "digest":
-            cache, pcache = _digest_pull(cfg, settings, state, data, r)
+            cache, pcache = _digest_pull(cfg, settings, state, data, r, mesh)
         else:
             cache = state["cache"]
 
@@ -590,28 +760,34 @@ def make_epoch_fn(cfg: GNNConfig, opt: Optimizer, settings: TrainSettings,
             return loss_fn(params, x_local[m], tables, struct_m,
                            data["labels"][m], data["train_mask"][m])
 
-        losses, push_reps, logits, mean_grads = _subgraph_grads(
-            state["params"], x_local.shape[0], sub_loss)
+        loss, push_reps, train_acc, mean_grads = _subgraph_grads(
+            state["params"], x_local.shape[0], sub_loss, data["labels"],
+            data["train_mask"], mesh)
         new_params, opt_state = opt.update(mean_grads, state["opt_state"],
                                            state["params"], state["step"])
         if settings.llcg_correction:
             new_params = _llcg_step(cfg, settings, new_params, data, r)
-        train_acc = micro_f1(logits, data["labels"],
-                             data["train_mask"].float())
         return _end_round(cfg, settings, state, data, r, new_params,
-                          opt_state, cache, pcache, push_reps, losses,
-                          train_acc)
+                          opt_state, cache, pcache, push_reps, loss,
+                          train_acc, mesh)
 
     return epoch_fn
 
 
-def _subgraph_grads(params: Pytree, num_parts: int,
-                    sub_loss: Callable) -> tuple:
+def _subgraph_grads(params: Pytree, num_parts: int, sub_loss: Callable,
+                    labels: torch.Tensor, mask: torch.Tensor,
+                    mesh=None) -> tuple:
     """Each subgraph's ``sub_loss(params, m) -> (loss, (reps, logits))``
     differentiated by ``torch.autograd.grad`` in turn, and the M
     gradients averaged (Algorithm 1 line 13, as ``vmap`` + ``jnp.mean``
-    do).  Returns (losses (M,), push reps (M, L-1, S, hidden), logits
-    (M, S, classes), mean gradients as a tree like ``params``)."""
+    do).  Returns (mean loss, push reps (M, L-1, S, hidden), train F1
+    over ``mask``, mean gradients as a tree like ``params``).
+
+    With a ``mesh`` the ``num_parts`` are this rank's k of M: its parts'
+    flat gradients, losses and F1 counts (hits, masked rows) go into
+    their rows [e·k, (e+1)·k) of a zero (M, ·) buffer, one
+    ``all_reduce(SUM)`` fills the others' (exact: one nonzero addend an
+    element), and the mean runs over the M rows as on one device."""
     leaves = [p.detach().requires_grad_() for p in _leaves(params)]
     tree = _unflatten(params, leaves)
     losses, reps, logits, grads = [], [], [], []
@@ -621,18 +797,52 @@ def _subgraph_grads(params: Pytree, num_parts: int,
         losses.append(loss.detach())
         reps.append(rep.detach())
         logits.append(lg.detach())
-    return (torch.stack(losses), torch.stack(reps), torch.stack(logits),
-            _unflatten(params, mean_grads_of(grads, leaves)))
+    logits = torch.stack(logits)
+    mask = mask.float()
+    if mesh is None:
+        return (torch.stack(losses).mean(), torch.stack(reps),
+                micro_f1(logits, labels, mask),
+                _unflatten(params, mean_grads_of(grads, leaves)))
+    sizes = [p.numel() for p in leaves]
+    hits = ((torch.argmax(logits, dim=-1) == labels).float()
+            * mask).sum(dim=1)
+    rows = [torch.cat([(torch.zeros_like(p) if g is None else g).reshape(-1)
+                       for p, g in zip(leaves, gm)]
+                      + [losses[i][None], hits[i][None], mask[i].sum()[None]])
+            for i, gm in enumerate(grads)]
+    total = num_parts * halo_exchange.exchange_size(mesh)
+    sl = halo_exchange.part_slice(total, mesh)
+    buf = rows[0].new_zeros((total, rows[0].numel()))
+    buf[sl] = torch.stack(rows)
+    collectives.all_reduce(buf)
+    flat = sum(sizes)
+    all_grads = [tuple(v.reshape(p.shape) for v, p in zip(
+        torch.split(row[:flat], sizes), leaves)) for row in buf]
+    n_hits, n_rows = buf[:, flat + 1].sum(), buf[:, flat + 2].sum()
+    return (buf[:, flat].contiguous().mean(), torch.stack(reps),
+            n_hits / torch.clamp_min(n_rows, 1.0),
+            _unflatten(params, mean_grads_of(all_grads, leaves)))
 
 
 def _end_round(cfg: GNNConfig, settings: TrainSettings, state: dict,
                data: dict, r: int, params: Pytree, opt_state: Pytree,
                cache: dict, pcache: Optional[dict], push_reps: torch.Tensor,
-               losses: torch.Tensor, train_acc: torch.Tensor) -> tuple:
+               loss: torch.Tensor, train_acc: torch.Tensor,
+               mesh=None) -> tuple:
     """The round's PUSH (:func:`_digest_push`) and the new state and
-    metrics, shared by the full-batch epoch and the sampled step."""
+    metrics, shared by the full-batch epoch and the sampled step.  With a
+    ``mesh``: one ``all_reduce(MAX)`` of this rank's eps and push age
+    gives the mesh-wide ones."""
     store, residual, eps, last, pstore, hist = _digest_push(
-        cfg, settings, state, data, push_reps, r)
+        cfg, settings, state, data, push_reps, r, mesh)
+    age = (None if last is None
+           else faults_mod.measured_staleness(last, r))
+    if mesh is not None:
+        top = eps if age is None else torch.cat([eps, age.float()[None]])
+        collectives.all_reduce(top, dist.ReduceOp.MAX)
+        eps = top[:eps.shape[0]]
+        if age is not None:
+            age = top[-1].to(torch.int32)
     new_state = {"params": params, "opt_state": opt_state,
                  "store": store, "cache": cache, "epoch": r,
                  "step": state["step"] + 1}
@@ -643,12 +853,11 @@ def _end_round(cfg: GNNConfig, settings: TrainSettings, state: dict,
         new_state["predictor"] = hist
     if pcache is not None:
         new_state["pcache"] = pcache
-    metrics = {"loss": losses.mean(), "train_f1": train_acc,
-               "staleness_eps": eps}
+    metrics = {"loss": loss, "train_f1": train_acc, "staleness_eps": eps}
     if last is not None:
         new_state["push_ok"] = state["push_ok"]
         new_state["last_push_round"] = last
-        metrics["push_age"] = faults_mod.measured_staleness(last, r)
+        metrics["push_age"] = age
     return new_state, metrics
 
 
@@ -748,29 +957,43 @@ def digest_train(cfg: GNNConfig, opt: Optimizer, data: dict,
     continues to ``epochs``: the epoch is deterministic in its state, so
     a killed and resumed run ends equal to an unbroken one.  ``params``
     replaces the drawn initial parameters (parity tests pass the
-    reference's); ``mesh`` belongs to a later slice and must be None."""
-    if mesh is not None or settings.pull_mode == "collective":
-        raise NotImplementedError(_LATER["collective"])
+    reference's).
+
+    ``pull_mode="collective"`` needs the ``mesh`` and runs on every rank
+    of it: ``data`` is the whole :func:`prepare_graph_data` dict (every
+    rank builds the same partition), the state is placed with
+    :func:`shard_state`, the history is the mesh-wide one on every rank,
+    and checkpoints hold whole arrays (:func:`gather_state`; rank 0
+    writes), so a sharded run resumes from an unsharded run's checkpoint
+    and the other way round."""
+    _check_settings(settings, mesh)
+    if mesh is not None:
+        check_collective_geometry(data, mesh)
     state = init_state(cfg, opt, data, seed=seed,
                        precision=settings.precision,
                        predictor=settings.predictor, params=params)
-    epoch_fn = make_epoch_fn(cfg, opt, settings)
+    epoch_fn = make_epoch_fn(cfg, opt, settings, mesh)
+    edata = data if mesh is None else shard_data(data, mesh)
     return _train_loop(cfg, data, settings, state,
-                       lambda st, _: epoch_fn(st, data), epochs, eval_every,
+                       lambda st, _: epoch_fn(st, edata), epochs, eval_every,
                        f"[{settings.mode}] epoch", verbose, faults, ckpt_dir,
-                       ckpt_every, resume)
+                       ckpt_every, resume, mesh)
 
 
 def _train_loop(cfg: GNNConfig, data: dict, settings: TrainSettings,
                 state: dict, advance: Callable, rounds: int,
                 eval_every: int, label: str, verbose: bool, faults,
                 ckpt_dir: Optional[str], ckpt_every: int,
-                resume: bool) -> tuple[dict, dict]:
+                resume: bool, mesh=None) -> tuple[dict, dict]:
     """The loop of :func:`digest_train` and :func:`sampled_train` over
     ``advance(state, t) -> (state, metrics)``, round t + 1: the fault
     leaves and each round's ``push_ok``, resume from the newest valid
     checkpoint, the history every ``eval_every``-th round and the last,
-    and a checkpoint every ``ckpt_every`` rounds."""
+    and a checkpoint every ``ckpt_every`` rounds.  ``state`` is whole;
+    with a ``mesh`` it is placed with :func:`shard_state` (restored
+    ones too), each ``push_ok`` cut to the rank's parts, and each
+    checkpoint gathered whole and written by rank 0; the returned state
+    is the rank's part."""
     if resume and ckpt_dir is None:
         raise ValueError("resume=True needs ckpt_dir")
     schedule = faults_mod.check_schedule(faults)
@@ -778,12 +1001,17 @@ def _train_loop(cfg: GNNConfig, data: dict, settings: TrainSettings,
     fault_aware = schedule is not None or settings.max_staleness is not None
     if fault_aware:
         state = faults_mod.attach_fault_state(state, num_parts)
+    place = None if mesh is None else (lambda tree: shard_state(tree, mesh))
+    parts = (slice(None) if mesh is None
+             else halo_exchange.part_slice(num_parts, mesh))
     start = 0
-    if resume:
-        step = ckpt_io.latest_step(ckpt_dir)
-        if step is not None:
-            state, _ = ckpt_io.restore_checkpoint(ckpt_dir, state, step=step)
-            start = state["epoch"]
+    step = ckpt_io.latest_step(ckpt_dir) if resume else None
+    if step is not None:
+        state, _ = ckpt_io.restore_checkpoint(ckpt_dir, state, step=step,
+                                              sharding=place)
+        start = state["epoch"]
+    elif place is not None:
+        state = place(state)
     hist: dict[str, list] = {"epoch": [], "loss": [], "train_f1": [],
                              "val_f1": [], "test_f1": [], "time": [],
                              "staleness_eps": []}
@@ -795,7 +1023,7 @@ def _train_loop(cfg: GNNConfig, data: dict, settings: TrainSettings,
         if fault_aware:
             ok = (schedule.push_ok(t + 1, num_parts) if schedule is not None
                   else np.ones(num_parts, dtype=bool))
-            state["push_ok"] = torch.from_numpy(ok).to(dev)
+            state["push_ok"] = torch.from_numpy(ok[parts]).to(dev)
         state, m = advance(state, t)
         if (t + 1) % eval_every == 0 or t == rounds - 1:
             ev = evaluate(cfg, state["params"], data)
@@ -813,8 +1041,20 @@ def _train_loop(cfg: GNNConfig, data: dict, settings: TrainSettings,
                 print(f"{label} {t+1:4d} loss {float(m['loss']):.4f} "
                       f"val_f1 {float(ev['val_f1']):.4f}")
         if ckpt_dir and ckpt_every and (t + 1) % ckpt_every == 0:
-            ckpt_io.save_checkpoint(ckpt_dir, t + 1, state)
+            save_state(ckpt_dir, t + 1, state, mesh)
     return state, hist
+
+
+def save_state(ckpt_dir: str, step: int, state: dict, mesh=None) -> None:
+    """Checkpoint ``state`` whole: on a mesh every rank joins the gather,
+    rank 0 writes, and no rank goes on before the files are in place."""
+    if mesh is None:
+        ckpt_io.save_checkpoint(ckpt_dir, step, state)
+        return
+    whole = gather_state(state, mesh)
+    if dist.get_rank() == 0:
+        ckpt_io.save_checkpoint(ckpt_dir, step, whole)
+    collectives.barrier()
 
 
 # ---------------------------------------------------------------------------
@@ -838,15 +1078,14 @@ def make_sampled_epoch_fn(cfg: GNNConfig, opt: Optimizer,
 
     ``settings.sample_estimator``: "cv" (VR-GCN) or "plain" — plain
     neighbour sampling is the CV estimator against an all-zero history,
-    so it is fed zeros.  ``mesh`` belongs to a later slice and must be
-    None.
+    so it is fed zeros.  With ``pull_mode="collective"`` pass the
+    ``mesh``; ``state``, ``data`` and ``batch`` are then this rank's
+    parts (:func:`shard_state`, :func:`shard_data`, :func:`shard_batch`).
     """
     if settings.mode != "digest":
         raise ValueError("sampled training rides the stale store — "
                          f"mode must be 'digest', got {settings.mode!r}")
-    _check_settings(settings)
-    if mesh is not None:
-        raise NotImplementedError(_LATER["collective"])
+    _check_settings(settings, mesh)
     if settings.sample_estimator not in ("cv", "plain"):
         raise ValueError(f"sample_estimator must be 'cv' or 'plain', "
                          f"got {settings.sample_estimator!r}")
@@ -857,7 +1096,7 @@ def make_sampled_epoch_fn(cfg: GNNConfig, opt: Optimizer,
         x_global = data["x_global"]
         struct = data["struct"]
         x_halo0 = x_global[data["halo_ids_x"].long()]
-        cache, pcache = _digest_pull(cfg, settings, state, data, r)
+        cache, pcache = _digest_pull(cfg, settings, state, data, r, mesh)
         x_local = x_global[data["local_ids"].long()]
         hist = state["hist"]
         if settings.sample_estimator == "plain":
@@ -880,15 +1119,14 @@ def make_sampled_epoch_fn(cfg: GNNConfig, opt: Optimizer,
                     else x_local.new_zeros((0,) + tuple(x_local.shape[1:])))
             return loss, (reps, logits)
 
-        losses, push_reps, logits, mean_grads = _subgraph_grads(
-            state["params"], x_local.shape[0], sub_loss)
+        loss, push_reps, train_acc, mean_grads = _subgraph_grads(
+            state["params"], x_local.shape[0], sub_loss, data["labels"],
+            batch["seed_mask"], mesh)
         params, opt_state = opt.update(mean_grads, state["opt_state"],
                                        state["params"], state["step"])
-        train_acc = micro_f1(logits, data["labels"],
-                             batch["seed_mask"].float())
         new_state, metrics = _end_round(cfg, settings, state, data, r,
                                         params, opt_state, cache, pcache,
-                                        push_reps, losses, train_acc)
+                                        push_reps, loss, train_acc, mesh)
         # The history refreshes every step (every local row's
         # representation is computed anyway), so the in-subgraph
         # baseline is one step stale; the halo side keeps the store's
@@ -921,13 +1159,20 @@ def batch_tensors(batch: dict, device) -> dict:
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
-def sampled_advance(step_fn: Callable, sampler, data: dict) -> Callable:
+def sampled_advance(step_fn: Callable, sampler, data: dict,
+                    mesh=None) -> Callable:
     """``advance(state, t) -> (state, metrics)``: ``step_fn`` (from
     :func:`make_sampled_epoch_fn`) on ``sampler.sample(t)``, uploaded to
-    ``data``'s device."""
+    ``data``'s device — with a ``mesh`` only this rank's parts of the
+    draw (every rank draws all M from the same seed)."""
     dev = data["x_global"].device
+
+    def draw(t):
+        batch = sampler.sample(t)
+        return batch if mesh is None else shard_batch(batch, mesh)
+
     return lambda state, t: step_fn(state, data,
-                                    batch_tensors(sampler.sample(t), dev))
+                                    batch_tensors(draw(t), dev))
 
 
 def sampled_train(cfg: GNNConfig, opt: Optimizer, data: dict, sampler,
@@ -943,16 +1188,18 @@ def sampled_train(cfg: GNNConfig, opt: Optimizer, data: dict, sampler,
     ``ckpt_every``/``resume`` and ``params`` behave as in
     :func:`digest_train`: the batches and the fault schedule are pure
     functions of the step, so a resumed run replays the same ones and
-    ends equal to an unbroken run.  ``mesh`` belongs to a later slice and
-    must be None."""
-    if mesh is not None or settings.pull_mode == "collective":
-        raise NotImplementedError(_LATER["collective"])
+    ends equal to an unbroken run.  ``mesh`` as in :func:`digest_train`
+    (the sampler draws all M parts on every rank; each keeps its own)."""
+    _check_settings(settings, mesh)
+    if mesh is not None:
+        check_collective_geometry(data, mesh)
     state = init_sampled_state(cfg, opt, data, seed=seed,
                                precision=settings.precision,
                                predictor=settings.predictor, params=params)
+    step_fn = make_sampled_epoch_fn(cfg, opt, settings, mesh)
+    edata = data if mesh is None else shard_data(data, mesh)
     return _train_loop(
         cfg, data, settings, state,
-        sampled_advance(make_sampled_epoch_fn(cfg, opt, settings), sampler,
-                        data),
+        sampled_advance(step_fn, sampler, edata, mesh),
         steps, eval_every, f"[sampled/{settings.sample_estimator}] step",
-        verbose, faults, ckpt_dir, ckpt_every, resume)
+        verbose, faults, ckpt_dir, ckpt_every, resume, mesh)

@@ -1,7 +1,7 @@
 """HaloExchange — the stale-representation store, owner-sharded and
-precision-aware (the single-device subset of the reference module: the
-store, its pull and push, error feedback and the staleness probe; the
-collective forms are later work).
+precision-aware (the port of ``src/repro/core/halo_exchange.py``: the
+store, its pull and push, error feedback and the staleness probe, on one
+device and over a ``torch.distributed`` mesh).
 
 A store is a plain dict of tensors:
 
@@ -22,6 +22,22 @@ precision, row H the zero sentinel.  PUSH (lines 9-10) is :func:`push`, or
 DIGEST-A worker pushes its own shard alone (:func:`owner_push`,
 :func:`owner_push_ef`).
 Theorem 1's per-layer staleness is :func:`staleness_error`.
+
+The mesh forms (``pull_mode="collective"``): the M parts lie over the
+ranks of a ``("data",)`` or ``("pod", "data")`` DeviceMesh
+(``repro_torch.launch.mesh``), rank e = p·data + d holding parts and owner
+shards ``[e·k, (e+1)·k)`` (:func:`part_slice`), its store the
+``(L-1, k·shard_rows, hidden)`` block of its shards.
+:func:`collective_pull` routes the rows each requester's halo references
+by the :class:`~repro_torch.graph.partition.PullPlan` with one
+``all_to_all`` a store tensor (on pods: an intra-pod all-to-all, then
+one point-to-point exchange over the pod axis, each row crossing pods
+once), gathers and scatters only, so its slab equals
+:func:`pull_slab`'s rows bit for bit.  :func:`shard_push` /
+:func:`shard_push_ef` scatter into the rank's own shards and
+communicate nothing; :func:`shard_staleness_error` reads them and
+all-reduces the (L-1,) max.  Every collective goes through
+``core.collectives``, which counts it.
 """
 from __future__ import annotations
 
@@ -30,7 +46,11 @@ from typing import Optional
 
 import torch
 
+import torch.distributed as dist
+
+from repro_torch.core import collectives
 from repro_torch.device import resolve_device
+from repro_torch.graph.partition import parts_per_device
 
 PRECISIONS = ("fp32", "bf16", "int8")
 
@@ -125,6 +145,14 @@ class HaloSpec:
         push = int(push_rows) * self.num_hidden_layers * rb
         return {"pull_bytes": pull, "push_bytes": push,
                 "total_bytes": pull + push}
+
+    def collective_pull_nbytes(self, plan_max_rows: int) -> int:
+        """Wire bytes of one :func:`collective_pull`: the all-to-all pads
+        every (owner, requester) pair to the plan's width K, so M·M·K
+        rows a hidden layer."""
+        return (self.num_shards * self.num_shards * int(plan_max_rows)
+                * self.num_hidden_layers
+                * self.precision.row_bytes(self.hidden))
 
 
 def precision_of(store: dict) -> HaloPrecision:
@@ -355,3 +383,245 @@ def staleness_error(store: dict, fresh: torch.Tensor,
     diff = torch.where(served[:, None, :], diff,
                        torch.zeros((), dtype=diff.dtype, device=diff.device))
     return torch.amax(diff, dim=(0, 2))
+
+
+# ---------------------------------------------------------------------------
+# The mesh forms (pull_mode="collective")
+# ---------------------------------------------------------------------------
+
+def exchange_axes(mesh, axis: str = "data") -> tuple:
+    """Mesh dimensions M is laid over: ``("pod", axis)`` on a mesh with a
+    "pod" dimension (rank (p, d) owns combined block e = p·data + d),
+    else ``(axis,)``."""
+    names = mesh.mesh_dim_names or ()
+    return ("pod", axis) if "pod" in names else (axis,)
+
+
+def _dim_size(mesh, name: str) -> int:
+    return int(mesh.shape[mesh.mesh_dim_names.index(name)])
+
+
+def exchange_size(mesh, axis: str = "data") -> int:
+    """Ranks along the exchange dimensions (pods · data)."""
+    num = 1
+    for a in exchange_axes(mesh, axis):
+        num *= _dim_size(mesh, a)
+    return num
+
+
+def _combined_index(mesh, axis: str = "data") -> int:
+    """This rank's combined block index e = p·data + d (the data index
+    on a single-pod mesh)."""
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise RuntimeError("this rank is not on the mesh")
+    names = mesh.mesh_dim_names
+    e = coord[names.index(axis)]
+    if "pod" in names:
+        e += coord[names.index("pod")] * _dim_size(mesh, axis)
+    return int(e)
+
+
+def shards_per_device(num_parts: int, mesh, axis: str = "data",
+                      what: str = "collective halo exchange") -> int:
+    """k = num_parts / (pods · data): owner shards (and subgraphs) a rank
+    holds; raises the spelled-out ValueError of
+    :func:`repro_torch.graph.partition.parts_per_device` when M is not a
+    multiple of the exchange dimensions."""
+    return parts_per_device(num_parts, exchange_size(mesh, axis), what)
+
+
+def part_slice(num_parts: int, mesh, axis: str = "data") -> slice:
+    """This rank's parts ``[e·k, (e+1)·k)`` of the M stacked ones."""
+    k = shards_per_device(num_parts, mesh, axis)
+    e = _combined_index(mesh, axis)
+    return slice(e * k, (e + 1) * k)
+
+
+def shard_parts(tree: dict, mesh, axis: str = "data") -> dict:
+    """This rank's k parts (dim 0) of every tensor of a dict of stacked
+    (M, …) tensors (copies)."""
+    sl = part_slice(int(next(iter(tree.values())).shape[0]), mesh, axis)
+    return {k: v[sl].clone() for k, v in tree.items()}
+
+
+def shard_store(store: dict, num_parts: int, mesh,
+                axis: str = "data") -> dict:
+    """This rank's k owner shards of a whole ``(L-1, R, w)`` store (each
+    leaf's rows ``[e·k·shard_rows, (e+1)·k·shard_rows)``; a 0-d leaf such
+    as serving's ``version`` stays whole).  Copies, so the whole store
+    can be freed."""
+    sl = part_slice(num_parts, mesh, axis)
+    out = {}
+    for key, v in store.items():
+        if v.dim() < 2:
+            out[key] = v
+            continue
+        rows = v.shape[1] // num_parts
+        out[key] = v[:, sl.start * rows:sl.stop * rows].clone()
+    return out
+
+
+def _pod_exchange(got: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Stage 2 of a pod pull: ``got`` (p_r, d_o, b, a, …) holds the rows
+    this rank's pod owns, keyed by the requester's pod p_r; one
+    point-to-point round over the pod dimension (a send to and a receive
+    from each other pod, (p ± s) mod pods) returns (p_o, d_o, b, a, …):
+    the rows pod p_o owns that are destined for this rank."""
+    pods = _dim_size(mesh, "pod")
+    names = mesh.mesh_dim_names
+    my = mesh.get_coordinate()[names.index("pod")]
+    group = mesh.get_group("pod")
+    out = got.new_empty(got.shape)                 # contiguous
+    out[my] = got[my]
+    sends, recvs = [], []
+    for s in range(1, pods):
+        dst, src = (my + s) % pods, (my - s) % pods
+        sends.append((got[dst].contiguous(),
+                      dist.get_global_rank(group, dst)))
+        recvs.append((out[src], dist.get_global_rank(group, src)))
+    collectives.exchange(sends, recvs, group)
+    return out
+
+
+def collective_pull(store: dict, send_offsets: torch.Tensor,
+                    recv_positions: torch.Tensor, halo_size: int,
+                    mesh, axis: str = "data") -> dict:
+    """Collective PULL: the mesh form of :func:`pull_slab`, shipping only
+    the rows each requester's halo references.
+
+    store: this rank's k owner shards ``{"data": (L-1, k·shard_rows, w)
+    [, "scale"]}``; send_offsets / recv_positions: this rank's (k, M, K)
+    rows of ``PullPlan.send_offsets`` (its owners) and
+    ``PullPlan.recv_positions`` (its requesters).  Each rank gathers from
+    its shards the rows its owners ship to every requester, and one
+    ``all_to_all`` a store tensor routes them, the layers batched inside
+    (on a pod mesh: over "data", then :func:`_pod_exchange` over "pod");
+    each requester scatters its rows into its ``(L-1, H+1, w)`` slab,
+    pad 0 (scale 1).  Returns ``{"data": (k, L-1, H+1, w)[, "scale"]}``,
+    this rank's parts of :func:`pull_slab`'s slab, bit for bit.  Raises
+    ValueError when M is not a multiple of the exchange dimensions."""
+    k, num_parts, width_k = send_offsets.shape
+    if shards_per_device(num_parts, mesh, axis, "collective_pull") != k:
+        raise ValueError(f"collective_pull: {k} plan rows on this rank, "
+                         f"expected M / ranks for M = {num_parts}")
+    l1, rows_local, _ = store["data"].shape
+    shard_rows = rows_local // k
+    num_data = _dim_size(mesh, axis)
+    pods = _dim_size(mesh, "pod") if len(exchange_axes(mesh, axis)) == 2 \
+        else 1
+    dev = store["data"].device
+    base = (torch.arange(k, device=dev) * shard_rows)[:, None, None]
+    # Rows in send order (d_r, p_r, b, a, K): the requester m = (p_r·data
+    # + d_r)·k + b of owner a's row, first by the requester's data
+    # coordinate (the all-to-all's destination).
+    idx = (send_offsets.long() + base).reshape(k, pods, num_data, k,
+                                               width_k)
+    idx = idx.permute(2, 1, 3, 0, 4).reshape(-1)
+    pos = recv_positions.long().reshape(k, num_parts * width_k)
+    parts = torch.arange(k, device=dev)[:, None].expand_as(pos)
+    out = {}
+    for key, pad in (("data", 0), ("scale", 1.0)):
+        if key not in store:
+            continue
+        table = store[key]
+        width = table.shape[-1]
+        rows = table.transpose(0, 1)[idx]              # (n, L-1, w)
+        got = torch.empty_like(rows)
+        collectives.all_to_all_single(got, rows, mesh.get_group(axis))
+        # got[d_o, p_r, b, a]: what data-peer d_o of this pod ships
+        # toward (pod p_r, this data column).
+        got = got.view(num_data, pods, k, k, width_k, l1, width)
+        got = got.transpose(0, 1)                      # (p_r, d_o, …)
+        if pods > 1:
+            got = _pod_exchange(got, mesh, axis)       # (p_o, d_o, …)
+        # Owner j = (p_o·data + d_o)·k + a, in the (M, K) order of
+        # recv_positions[b].
+        vals = got.permute(2, 0, 1, 3, 4, 5, 6).reshape(
+            k, num_parts * width_k, l1, width)
+        slab = table.new_full((k, l1, halo_size + 1, width), pad)
+        # Duplicate positions occur only at the sentinel row H, where
+        # every routed row is an owner sentinel (data 0, scale 1).
+        slab[parts, :, pos] = vals
+        out[key] = slab
+    return out
+
+
+def shard_push(store: dict, local_slots: torch.Tensor,
+               local_valid: torch.Tensor, reps: torch.Tensor,
+               shard_rows: int, mesh, axis: str = "data",
+               inplace: bool = False) -> dict:
+    """Shard-local PUSH: :func:`push` for this rank's k parts into its own
+    k shards, at owner-local offsets ``slot - e·k·shard_rows`` (a row with
+    ``~local_valid`` goes to its part's sentinel, re-zeroed after).  No
+    communication; ``store`` is the rank's ``(L-1, k·shard_rows, w)``
+    block, local_slots / local_valid (k, S), reps (k, L-1, S, w).
+    ``inplace`` as for :func:`push`."""
+    k = local_slots.shape[0]
+    e = _combined_index(mesh, axis)
+    data = store["data"]
+    l1, _, hidden = data.shape
+    dev = data.device
+    sent = (torch.arange(k, device=dev) + 1) * shard_rows - 1
+    off = torch.where(local_valid, local_slots.long() - e * k * shard_rows,
+                      sent[:, None]).reshape(-1)
+    vals = torch.where(local_valid[:, None, :, None], reps,
+                       torch.zeros((), dtype=reps.dtype, device=reps.device))
+    q, scale = quantize_rows(vals, precision_of(store))
+    new_data = data if inplace else data.clone()
+    new_data[:, off, :] = q.transpose(0, 1).reshape(l1, -1, hidden)
+    new_data[:, sent, :] = 0
+    new = {"data": new_data}
+    if scale is not None:
+        new_scale = store["scale"] if inplace else store["scale"].clone()
+        new_scale[:, off, :] = scale.transpose(0, 1).reshape(l1, -1, 1)
+        new_scale[:, sent, :] = 1.0
+        new["scale"] = new_scale
+    return new
+
+
+def shard_push_ef(store: dict, local_slots: torch.Tensor,
+                  local_valid: torch.Tensor, reps: torch.Tensor,
+                  residual: torch.Tensor, shard_rows: int, mesh,
+                  axis: str = "data") -> tuple[dict, torch.Tensor]:
+    """Error-feedback form of :func:`shard_push` (see :func:`push_ef`);
+    the residual is the rank's own (k, …) block."""
+    compensated = reps + residual
+    new_store = shard_push(store, local_slots, local_valid, compensated,
+                           shard_rows, mesh, axis)
+    return new_store, _ef_residual(compensated,
+                                   local_valid[:, None, :, None],
+                                   precision_of(store))
+
+
+def local_staleness_error(store: dict, fresh: torch.Tensor,
+                          local_slots: torch.Tensor, served: torch.Tensor,
+                          shard_rows: int, mesh,
+                          axis: str = "data") -> torch.Tensor:
+    """:func:`staleness_error` over this rank's k parts alone, read from
+    its own shards: the (L-1,) max before the mesh-wide one."""
+    k, s = local_slots.shape
+    e = _combined_index(mesh, axis)
+    off = (local_slots.long() - e * k * shard_rows).reshape(-1)
+    l1 = store["data"].shape[0]
+    stale = store["data"][:, off, :].float()
+    if "scale" in store:
+        stale = stale * store["scale"][:, off, :]
+    stale = stale.reshape(l1, k, s, -1).transpose(0, 1)
+    diff = torch.linalg.vector_norm(fresh - stale, dim=-1)
+    diff = torch.where(served[:, None, :], diff,
+                       torch.zeros((), dtype=diff.dtype, device=diff.device))
+    return torch.amax(diff, dim=(0, 2))
+
+
+def shard_staleness_error(store: dict, fresh: torch.Tensor,
+                          local_slots: torch.Tensor, served: torch.Tensor,
+                          shard_rows: int, mesh,
+                          axis: str = "data") -> torch.Tensor:
+    """:func:`staleness_error` with owner-local reads: each rank's
+    :func:`local_staleness_error`, then one ``all_reduce(MAX)`` of the
+    (L-1,) vector over the mesh.  Equal to the single-device value (max
+    is order-free; the reads do no arithmetic)."""
+    eps = local_staleness_error(store, fresh, local_slots, served,
+                                shard_rows, mesh, axis)
+    return collectives.all_reduce(eps, dist.ReduceOp.MAX)

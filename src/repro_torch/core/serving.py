@@ -25,7 +25,16 @@ miss-fill are vectorised, and the fill is deterministic: among one set's
 misses the highest batch index wins (a scatter-max), and losers write a
 padded dummy set row that is sliced off.
 
-The multi-device engine (``serve_query_sharded``) belongs to a later slice.
+The multi-device engine, :func:`serve_query_sharded`, answers per-part
+query rows over a store laid over a ``torch.distributed`` DeviceMesh
+(:func:`place_serving`: rank e holds owner shards ``[e·k, (e+1)·k)``):
+out-of-shard halo rows arrive by ``halo_exchange.collective_pull`` with
+the serving PullPlan (one all-to-all a store tensor), in-shard rows are
+read from the rank's own shards, and the top layer runs in the training
+epoch's split form (in-ELL + out-ELL sides, both through the kernels).
+A mesh refresh (``make_refresh_fn(mesh, serve_rows)``) scatters into the
+rank's own shards (``halo_exchange.shard_push``) and communicates
+nothing.
 """
 from __future__ import annotations
 
@@ -95,8 +104,9 @@ class ServeConfig:
 class ServePlan:
     """Host-side serving layout/routing (numpy; build once per graph).
 
-    ``query_data(device)`` / ``refresh_data(device)`` bundle the tensors
-    :func:`serve_query` and the refresh take.
+    ``query_data(device)`` / ``refresh_data(device)`` /
+    ``sharded_data(data)`` bundle the tensors :func:`serve_query`, the
+    refresh and :func:`serve_query_sharded` take.
     """
 
     num_nodes: int
@@ -127,6 +137,19 @@ class ServePlan:
         return {k: torch.from_numpy(getattr(self, k)).to(dev)
                 for k in ("local_ids", "local_valid", "local_slots",
                           "sentinel_slots")}
+
+    def sharded_data(self, data: dict) -> dict:
+        """Tensors of :func:`serve_query_sharded`, on ``data``'s device:
+        the serving PullPlan's routing and the per-part training ELLs (the
+        out-ELL addresses the pulled slab by halo position, which is where
+        the plan's ``recv_positions`` land each row).  Whole; each rank
+        keeps its parts with :func:`place_serving`."""
+        struct = data["struct"]
+        dev = struct["in_nbr"].device
+        return {"send": torch.from_numpy(self.pull.send_offsets).to(dev),
+                "recv": torch.from_numpy(self.pull.recv_positions).to(dev),
+                "in_nbr": struct["in_nbr"], "in_wts": struct["in_wts"],
+                "out_nbr": struct["out_nbr"], "out_wts": struct["out_wts"]}
 
 
 def build_serve_plan(data: dict) -> ServePlan:
@@ -221,22 +244,32 @@ def make_refresh_fn(mesh=None, serve_rows: int = None, donate: bool = True):
     :func:`refresh_or_degrade` needs to keep serving the old store when a
     refresh fails.
 
-    ``mesh`` selects the multi-device refresh, a shard-local scatter of
-    ``serve_rows`` (``ServePlan.serve_rows``) rows a shard, which belongs
-    to a later slice of the port; on one device ``serve_rows`` is unused.
+    With ``mesh`` the store and ``rdata`` are this rank's parts
+    (:func:`place_serving`, ``halo_exchange.shard_parts``) and the
+    scatter is the shard-local ``halo_exchange.shard_push`` of
+    ``serve_rows`` (``ServePlan.serve_rows``) rows a shard; a mesh without
+    ``serve_rows`` raises ValueError.  On one device ``serve_rows`` is
+    unused.
     """
-    if mesh is not None:
-        raise NotImplementedError("the mesh refresh (shard_push) is ported "
-                                  "with the multi-GPU exchange (ROADMAP.md "
-                                  "§1 item 6)")
+    if mesh is not None and serve_rows is None:
+        raise ValueError("mesh refresh needs serve_rows "
+                         "(ServePlan.serve_rows)")
 
     def refresh(store, reps_top, rdata):
         ids = torch.clamp_max(rdata["local_ids"].long(),
                               reps_top.shape[0] - 1)
         reps = reps_top[ids][:, None]                   # (M, 1, S, hidden)
-        new = halo_exchange.push(store_bare(store), rdata["local_slots"],
-                                 rdata["local_valid"], reps,
-                                 rdata["sentinel_slots"], inplace=donate)
+        if mesh is None:
+            new = halo_exchange.push(store_bare(store),
+                                     rdata["local_slots"],
+                                     rdata["local_valid"], reps,
+                                     rdata["sentinel_slots"],
+                                     inplace=donate)
+        else:
+            new = halo_exchange.shard_push(store_bare(store),
+                                           rdata["local_slots"],
+                                           rdata["local_valid"], reps,
+                                           serve_rows, mesh, inplace=donate)
         if donate:
             new["version"] = store["version"].add_(1)
         else:
@@ -468,6 +501,59 @@ def serve_query(cfg, scfg: ServeConfig, params, store, cache, qdata,
     new_cache = _cache_commit(cache, slots, store["version"], fresh, hit,
                               line, way, valid)
     return logits, new_cache
+
+
+def serve_query_sharded(cfg, scfg: ServeConfig, mesh, halo_size: int,
+                        params, store, sdata, q_rows) -> torch.Tensor:
+    """Batched query over the mesh-sharded serving store, on every rank.
+
+    ``store`` and ``sdata`` are this rank's parts (:func:`place_serving`);
+    q_rows: (k, B) part-local rows of its k parts (``part_rows`` pads).
+    Out-of-shard halo rows arrive through ``collective_pull`` with the
+    serving PullPlan — one all-to-all a store tensor, no all-gather —
+    in-shard rows are read from the rank's own shards re-viewed (k, S+1,
+    hidden), and the top layer runs over the in and out sides, each
+    through ``halo_spmm``'s kernel ladder.  Returns (k, B, classes)."""
+    bare = store_bare(store)
+    slab = halo_exchange.collective_pull(bare, sdata["send"], sdata["recv"],
+                                         halo_size, mesh)
+    k, s_rows = sdata["in_nbr"].shape[:2]
+    hidden = store["data"].shape[-1]
+    loc = store["data"][0].reshape(k, s_rows + 1, hidden)
+    loc_scale = (store["scale"][0].reshape(k, s_rows + 1, 1)
+                 if "scale" in store else None)
+    qc = torch.clamp_max(q_rows.long(), s_rows - 1)         # (k, B)
+    p = params[f"layer_{cfg.num_layers - 1}"]
+    out = []
+    for i in range(k):
+        in_nbr = sdata["in_nbr"][i][qc[i]]
+        out_nbr = sdata["out_nbr"][i][qc[i]]
+        side_in = {"nbr": in_nbr, "wts": sdata["in_wts"][i][qc[i]],
+                   "valid": in_nbr < s_rows, "data": loc[i]}
+        side_out = {"nbr": out_nbr, "wts": sdata["out_wts"][i][qc[i]],
+                    "valid": out_nbr < halo_size,
+                    "data": slab["data"][i, 0]}
+        scale = None
+        if loc_scale is not None:
+            scale = loc_scale[i]
+            side_in["scale"] = scale
+            side_out["scale"] = slab["scale"][i, 0]
+        h_self = halo_gather(qc[i], loc[i], scale)
+        out.append(_batch_top_layer(cfg, scfg, p, h_self,
+                                    [side_in, side_out]))
+    return torch.stack(out)
+
+
+def place_serving(store: dict, sdata: dict, mesh,
+                  axis: str = "data") -> tuple[dict, dict]:
+    """This rank's parts for :func:`serve_query_sharded` (the placement
+    of the reference's ``serve_shardings``): the store's k owner shards
+    (``version`` whole) and the k rows of every (M, …) tensor of
+    ``sdata`` (the PullPlan tables by their leading owner / requester
+    axis).  Queries take the same ``halo_exchange.part_slice``."""
+    num_parts = int(sdata["in_nbr"].shape[0])
+    return (halo_exchange.shard_store(store, num_parts, mesh, axis),
+            halo_exchange.shard_parts(sdata, mesh, axis))
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,14 @@ latency, queries/sec and cache hit-rate.  Runs on the card by default:
 prints the device's busy share of it and its top ops.
 Weights are random, drawn from ``torch.Generator`` seed 0: serving cost is
 independent of training state.
+
+``--sharded`` also times the sharded engine
+(``serving.serve_query_sharded``) over the ranks ``torchrun`` starts,
+each holding ``--parts`` / ranks owner shards (``--dist-backend nccl`` or
+``gloo``); rank 0 prints:
+
+  torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve_gnn \
+      --device cpu --sharded --dist-backend gloo --scale 0.1
 """
 from __future__ import annotations
 
@@ -24,11 +32,14 @@ import json
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import serving
 from repro_torch.core.digest import prepare_graph_data, top_layer_reps
 from repro_torch.device import resolve_device
+from repro_torch.core.halo_exchange import part_slice
 from repro_torch.graph import make_dataset
+from repro_torch.launch.mesh import BACKENDS, init_distributed
 from repro_torch.launch.serving_driver import (profile_serve_loop,
                                                run_serve_loop)
 from repro_torch.models.gnn import GNN, GNNConfig
@@ -57,14 +68,38 @@ def main(argv=None):
                     help="store refreshes to run (in place)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: the card)")
+    ap.add_argument("--sharded", action="store_true",
+                    help="also time the sharded engine over the torchrun "
+                         "ranks (needs --dist-backend)")
+    ap.add_argument("--dist-backend", default=None, choices=BACKENDS,
+                    help="torch.distributed backend of --sharded")
     ap.add_argument("--profile", action="store_true",
                     help="after the timed loop, trace it once more with "
                          "torch.profiler (card only) and print the "
                          "device's busy share and top ops as JSON")
     args = ap.parse_args(argv)
-    dev = resolve_device(args.device)
+    mesh = None
+    if args.sharded:
+        if args.dist_backend is None:
+            ap.error("--sharded needs --dist-backend")
+        mesh, dev = init_distributed(args.dist_backend, args.device)
+    else:
+        dev = resolve_device(args.device)
     if args.profile and dev.type != "cuda":
         ap.error("--profile traces the card; it needs --device cuda")
+    try:
+        return _serve(args, dev, mesh)
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
+
+
+def _serve(args, dev, mesh):
+    rank0 = mesh is None or dist.get_rank() == 0
+
+    def log(*a, **kw):
+        if rank0:
+            print(*a, **kw)
 
     g = make_dataset(args.dataset, scale=args.scale, seed=0)
     data = prepare_graph_data(g, args.parts, seed=0, device=dev)
@@ -85,9 +120,9 @@ def main(argv=None):
     reps = top_layer_reps(cfg, params, data)
     for _ in range(max(args.refreshes, 1)):
         store = refresh(store, reps, rdata)
-    print(f"store: {plan.store_rows} slots x{cfg.hidden_dim} "
-          f"({args.storage}), {args.parts} shards, "
-          f"version {int(store['version'])}")
+    log(f"store: {plan.store_rows} slots x{cfg.hidden_dim} "
+        f"({args.storage}), {args.parts} shards, "
+        f"version {int(store['version'])}")
 
     # Zipf traffic, hubs hottest (popularity rank = descending degree).
     hot = np.argsort(-g.degrees()).astype(np.int32)
@@ -106,15 +141,37 @@ def main(argv=None):
         cache, _, stats = run_serve_loop(step, queries, carry=cache,
                                          warmup=args.warmup,
                                          items_per_call=args.batch)
-    print(f"query[{args.model}] batch={args.batch} skew={args.skew}: "
-          f"p50 {stats.p50_ms:.2f} ms  p99 {stats.p99_ms:.2f} ms  "
-          f"{stats.per_sec:,.0f} q/s  "
-          f"cache hit-rate {serving.hit_rate(cache):.3f} "
-          f"({args.cache_rows} rows, {args.cache_ways}-way) on {dev}")
+    log(f"query[{args.model}] batch={args.batch} skew={args.skew}: "
+        f"p50 {stats.p50_ms:.2f} ms  p99 {stats.p99_ms:.2f} ms  "
+        f"{stats.per_sec:,.0f} q/s  "
+        f"cache hit-rate {serving.hit_rate(cache):.3f} "
+        f"({args.cache_rows} rows, {args.cache_ways}-way) on {dev}")
     if args.profile:
         with torch.inference_mode():
             split = profile_serve_loop(step, queries, carry=cache)
-        print("profile: " + json.dumps(split))
+        log("profile: " + json.dumps(split))
+    if mesh is not None:
+        lstore, sdata = serving.place_serving(
+            store, plan.sharded_data(data), mesh)
+        mine = part_slice(args.parts, mesh)
+        rng = np.random.default_rng(2)
+        rows = rng.integers(0, plan.part_rows,
+                            (args.batches, args.parts, args.batch))
+
+        def sstep(carry, q_rows):
+            out = serving.serve_query_sharded(
+                cfg, scfg, mesh, plan.halo_size, params, lstore, sdata,
+                torch.from_numpy(q_rows[mine]).to(dev))
+            return carry, out
+
+        with torch.inference_mode():
+            _, _, sstats = run_serve_loop(
+                sstep, rows, warmup=args.warmup,
+                items_per_call=args.parts * args.batch)
+        log(f"sharded[{dist.get_world_size()} ranks] "
+            f"{args.parts}x{args.batch} rows/call: "
+            f"p50 {sstats.p50_ms:.2f} ms  p99 {sstats.p99_ms:.2f} ms  "
+            f"{sstats.per_sec:,.0f} q/s")
     return stats, cache
 
 

@@ -1,9 +1,9 @@
 #!/usr/bin/env python
-"""Single-device DIGEST GNN training launcher (PyTorch port).
+"""DIGEST GNN training launcher (PyTorch port of ``repro.launch.train_gnn``).
 
-The port of ``repro.launch.train_gnn`` for one card: the M subgraphs are
-batched on the device (``repro_torch.core.digest.make_epoch_fn``), PULL
-is the dense gather.  Runs on the card by default:
+By default the M subgraphs run on one card
+(``repro_torch.core.digest.make_epoch_fn``) and PULL is the dense gather.
+Runs on the card by default:
 
   PYTHONPATH=src python -m repro_torch.launch.train_gnn \
       --dataset papers-sim --scale 1.0 --parts 8 --order rcm \
@@ -26,6 +26,16 @@ rates and ``--max-staleness`` the fault schedule and its watchdog, and
 ``--sampling`` trains mini-batches instead (``--fanout`` neighbours a
 row, ``--batch-seeds`` seeds a part, ``--estimator cv|plain``), with the
 same faults, checkpoints and final lines; ``--epochs`` then counts steps.
+
+``--pull collective`` spreads the M subgraphs over the ranks ``torchrun``
+starts, k = M / ranks each, on a ("data",) mesh of ``--data-axis`` ranks,
+or ("pod", "data") with ``--pods`` > 1, over ``--dist-backend nccl``
+(one card a rank) or ``gloo`` (ranks may share a card, or run on the
+CPU); every rank builds the same partition, and rank 0 prints:
+
+  torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train_gnn \
+      --device cpu --pull collective --data-axis 2 --dist-backend gloo \
+      --scale 0.1 --parts 4 --epochs 4
 """
 from __future__ import annotations
 
@@ -35,47 +45,53 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import checkpoint
 from repro_torch.core import (HaloPrecision, HaloSpec, PredictorConfig,
-                              TrainSettings, evaluate, faults,
+                              TrainSettings, check_collective_geometry,
+                              evaluate, faults, gather_state,
                               init_sampled_state, init_state, make_epoch_fn,
-                              make_sampled_epoch_fn, prepare_graph_data)
-from repro_torch.core.digest import sampled_advance
+                              make_sampled_epoch_fn, prepare_graph_data,
+                              shard_data, shard_state)
+from repro_torch.core.digest import sampled_advance, save_state
+from repro_torch.core.halo_exchange import part_slice
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.graph import build_sampler, make_dataset
+from repro_torch.launch.mesh import BACKENDS, init_distributed
 from repro_torch.launch.serving_driver import profile_serve_loop
 from repro_torch.models.gnn import GNNConfig
 from repro_torch.optim import adam
 
 
-def _push_ok(schedule, rnd: int, num_parts: int, dev):
+def _push_ok(schedule, rnd: int, num_parts: int, dev, parts=slice(None)):
     ok = (schedule.push_ok(rnd, num_parts) if schedule is not None
           else np.ones(num_parts, dtype=bool))
-    return torch.from_numpy(ok).to(dev)
+    return torch.from_numpy(ok[parts]).to(dev)
 
 
-def _maybe_resume(args) -> int:
+def _maybe_resume(args, log) -> int:
     """Epoch to start from: the newest valid checkpoint's, or 0."""
     if not args.resume:
         return 0
     step = checkpoint.latest_step(args.ckpt_dir)
     if step is None:
-        print(f"resume: no valid checkpoint in {args.ckpt_dir}, "
-              f"starting fresh")
+        log(f"resume: no valid checkpoint in {args.ckpt_dir}, "
+            f"starting fresh")
         return 0
     return int(step)
 
 
-def _restore(args, state):
-    state, step = checkpoint.restore_checkpoint(args.ckpt_dir, state)
-    print(f"resume: restored step {step} from {args.ckpt_dir}")
+def _restore(args, state, place, log):
+    state, step = checkpoint.restore_checkpoint(args.ckpt_dir, state,
+                                                sharding=place)
+    log(f"resume: restored step {step} from {args.ckpt_dir}")
     return state, step
 
 
-def _maybe_ckpt(args, step: int, state) -> None:
+def _maybe_ckpt(args, step: int, state, mesh) -> None:
     if args.ckpt_dir and args.ckpt_every and step % args.ckpt_every == 0:
-        checkpoint.save_checkpoint(args.ckpt_dir, step, state)
+        save_state(args.ckpt_dir, step, state, mesh)
 
 
 def main(argv=None):
@@ -96,9 +112,21 @@ def main(argv=None):
                          "pusher (unbiased repeated pushes)")
     ap.add_argument("--pull", default="gather",
                     choices=("gather", "collective"),
-                    help="PULL transport; one device runs 'gather' "
-                         "('collective' is the multi-GPU exchange, not "
-                         "ported yet, and raises)")
+                    help="PULL transport: 'gather' runs every subgraph on "
+                         "one device; 'collective' spreads them over the "
+                         "torchrun ranks (all-to-all pulls of the "
+                         "referenced rows, shard-local pushes); needs "
+                         "--parts to be a multiple of pods x data-axis")
+    ap.add_argument("--data-axis", type=int, default=None,
+                    help="mesh data-axis size (default: ranks / pods)")
+    ap.add_argument("--pods", type=int, default=1,
+                    help="mesh pod-axis size; > 1 builds the ('pod', "
+                         "'data') mesh, whose pull is an intra-pod "
+                         "all-to-all then one exchange between pods")
+    ap.add_argument("--dist-backend", default=None, choices=BACKENDS,
+                    help="torch.distributed backend of --pull collective: "
+                         "nccl (one card a rank) or gloo (host memory; "
+                         "ranks may share a card or run on the CPU)")
     ap.add_argument("--halo-weight", type=float, default=0.0,
                     help="boundary-aware partitioning: weight of the "
                          "marginal-new-halo-rows term in the greedy "
@@ -181,7 +209,27 @@ def main(argv=None):
         ap.error("--profile measures the card; it needs a CUDA device")
     if args.resume and not args.ckpt_dir:
         ap.error("--resume needs --ckpt-dir")
-    dev = resolve_device(args.device)
+    mesh = None
+    if args.pull == "collective":
+        if args.dist_backend is None:
+            ap.error("--pull collective needs --dist-backend")
+        mesh, dev = init_distributed(args.dist_backend, args.device,
+                                     data=args.data_axis, pod=args.pods)
+    else:
+        dev = resolve_device(args.device)
+    try:
+        _train(args, dev, mesh)
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
+
+
+def _train(args, dev, mesh) -> None:
+    rank0 = mesh is None or dist.get_rank() == 0
+
+    def log(*a, **kw):
+        if rank0:
+            print(*a, **kw)
 
     g = make_dataset(args.dataset, scale=args.scale)
     t_part = time.perf_counter()
@@ -189,9 +237,9 @@ def main(argv=None):
                               stream_chunk_rows=args.stream_chunk_rows,
                               order=args.order, device=dev)
     t_part = time.perf_counter() - t_part
-    print(f"partition: {args.parts} parts, order={args.order}, "
-          f"halo_weight={args.halo_weight} built in {t_part:.2f}s "
-          f"({g.num_nodes} nodes, {len(g.indices) // 2} edges)")
+    log(f"partition: {args.parts} parts, order={args.order}, "
+        f"halo_weight={args.halo_weight} built in {t_part:.2f}s "
+        f"({g.num_nodes} nodes, {len(g.indices) // 2} edges)")
     cfg = GNNConfig(model=args.model, num_layers=3,
                     in_dim=g.features.shape[1], hidden_dim=args.hidden,
                     num_classes=int(g.labels.max()) + 1,
@@ -211,76 +259,99 @@ def main(argv=None):
         max_staleness=args.max_staleness, predictor=predictor,
         sample_estimator=args.estimator)
     if predictor.enabled:
-        print(f"predictor: kind={predictor.kind} gamma={predictor.gamma} "
-              f"beta={predictor.beta}")
+        log(f"predictor: kind={predictor.kind} gamma={predictor.gamma} "
+            f"beta={predictor.beta}")
     schedule = faults.check_schedule(faults.FaultConfig(
         seed=args.fault_seed, crash_rate=args.fault_crash_rate,
         drop_push_rate=args.fault_drop_rate,
         corrupt_rate=args.fault_corrupt_rate))
     fault_aware = schedule is not None or args.max_staleness is not None
     if schedule is not None:
-        print(f"faults: crash={args.fault_crash_rate} "
-              f"drop={args.fault_drop_rate} "
-              f"corrupt={args.fault_corrupt_rate} seed={args.fault_seed} "
-              f"max_staleness={args.max_staleness}")
+        log(f"faults: crash={args.fault_crash_rate} "
+            f"drop={args.fault_drop_rate} "
+            f"corrupt={args.fault_corrupt_rate} seed={args.fault_seed} "
+            f"max_staleness={args.max_staleness}")
+    edata, parts, place = data, slice(None), None
+    if mesh is not None:
+        ppd = check_collective_geometry(data, mesh)
+        shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        log(f"collective mode: {ppd} subgraph(s)/owner shard(s) per "
+            f"device over mesh {shape} ({args.dist_backend}, {dev})")
+        edata = shard_data(data, mesh)
+        parts = part_slice(args.parts, mesh)
+
+        def place(tree):
+            return shard_state(tree, mesh)
     if args.sampling:
         sampler = build_sampler(data, args.fanout, args.batch_seeds)
-        print(f"sampling: fanout={args.fanout} (max in-degree "
-              f"{sampler.max_in_degree}), batch_seeds={args.batch_seeds}, "
-              f"estimator={args.estimator}")
+        log(f"sampling: fanout={args.fanout} (max in-degree "
+            f"{sampler.max_in_degree}), batch_seeds={args.batch_seeds}, "
+            f"estimator={args.estimator}")
         advance = sampled_advance(
-            make_sampled_epoch_fn(cfg, opt, settings), sampler, data)
+            make_sampled_epoch_fn(cfg, opt, settings, mesh), sampler, edata,
+            mesh)
         state = init_sampled_state(cfg, opt, data,
                                    precision=settings.precision,
                                    predictor=predictor)
     else:
-        epoch_fn = make_epoch_fn(cfg, opt, settings)
+        epoch_fn = make_epoch_fn(cfg, opt, settings, mesh)
 
         def advance(st, _):
-            return epoch_fn(st, data)
+            return epoch_fn(st, edata)
 
         state = init_state(cfg, opt, data, precision=settings.precision,
                            predictor=predictor)
     if fault_aware:
         state = faults.attach_fault_state(state, args.parts)
-    start = _maybe_resume(args)
+    start = _maybe_resume(args, log)
     if start:
-        state, _ = _restore(args, state)
+        state, _ = _restore(args, state, place, log)
+    elif place is not None:
+        state = place(state)
     t0 = time.perf_counter()
     m = {"loss": float("nan")}
     for e in range(start, args.epochs):
         if fault_aware:
-            state["push_ok"] = _push_ok(schedule, e + 1, args.parts, dev)
+            state["push_ok"] = _push_ok(schedule, e + 1, args.parts, dev,
+                                        parts)
         state, m = advance(state, e)
-        _maybe_ckpt(args, e + 1, state)
+        _maybe_ckpt(args, e + 1, state, mesh)
     synchronize(state)
     elapsed = time.perf_counter() - t0
     if fault_aware:
-        age = state["epoch"] - state["last_push_round"].cpu().numpy()
-        print(f"fault staleness: max push age {int(age.max())} round(s) "
-              f"(bound {args.max_staleness})")
+        last = (state if mesh is None
+                else gather_state(state, mesh))["last_push_round"]
+        age = state["epoch"] - last.cpu().numpy()
+        log(f"fault staleness: max push age {int(age.max())} round(s) "
+            f"(bound {args.max_staleness})")
     ev = evaluate(cfg, state["params"], data)
     sp = data["_sp"]
     spec = HaloSpec.from_partitions(sp, cfg.hidden_dim, cfg.num_layers,
                                     settings.precision)
     sync = spec.comm_bytes(sp.pull_rows(), sp.push_rows())
     wl = data["_worklist"]
-    print(f"device={dev} epochs={args.epochs} "
-          f"loss={float(m['loss']):.4f} val_f1={float(ev['val_f1']):.4f} "
-          f"test_f1={float(ev['test_f1']):.4f} "
-          f"({elapsed / max(args.epochs - start, 1):.3f}s/epoch)")
-    print(f"halo worklist: {wl.visited_chunks}/{wl.total_pairs} "
-          f"(row-block x chunk) pairs occupied "
-          f"({100 * wl.occupancy:.1f}%; chunk_rows={wl.chunk_rows})")
-    print(f"store: {spec.store_nbytes()/1e6:.2f} MB total, "
-          f"{spec.shard_nbytes()/1e6:.2f} MB/shard; pull/sync: "
-          f"sharded {sync['pull_bytes']/1e6:.2f} MB vs replicated "
-          f"{spec.replicated_pull_nbytes()/1e6:.2f} MB")
+    where = (f"device={dev}" if mesh is None else
+             f"mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+    log(f"{where} epochs={args.epochs} "
+        f"loss={float(m['loss']):.4f} val_f1={float(ev['val_f1']):.4f} "
+        f"test_f1={float(ev['test_f1']):.4f} "
+        f"({elapsed / max(args.epochs - start, 1):.3f}s/epoch)")
+    log(f"halo worklist: {wl.visited_chunks}/{wl.total_pairs} "
+        f"(row-block x chunk) pairs occupied "
+        f"({100 * wl.occupancy:.1f}%; chunk_rows={wl.chunk_rows})")
+    log(f"store: {spec.store_nbytes()/1e6:.2f} MB total, "
+        f"{spec.shard_nbytes()/1e6:.2f} MB/shard; pull/sync: "
+        f"sharded {sync['pull_bytes']/1e6:.2f} MB vs replicated "
+        f"{spec.replicated_pull_nbytes()/1e6:.2f} MB")
+    if mesh is not None:
+        wire = spec.collective_pull_nbytes(int(data["pull_send"].shape[2]))
+        log(f"collective pull: {wire/1e6:.2f} MB on the wire a pull "
+            f"(M x M x K padded rows)")
     if args.profile:
         split = profile_serve_loop(
             advance, range(args.epochs, args.epochs + args.profile),
             carry=state)
-        print(json.dumps({"profile_epochs": args.profile, **split}))
+        log(json.dumps({"profile_epochs": args.profile, **split}))
 
 
 if __name__ == "__main__":

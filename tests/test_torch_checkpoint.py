@@ -209,3 +209,19 @@ def test_reference_checkpoint_resumes_in_the_port(tmp_path):
     assert read_manifest(str(tmp_path / "t"), 8)["keys"] == \
         jckpt.read_manifest(d, 4)["keys"]
 
+
+
+def test_sharded_run_checkpoints_whole_and_resumes(tmp_path):
+    """A collective run on 2 gloo ranks (GCN int8 with error feedback, the
+    ema predictor, drop faults and watchdog 3; tests/test_torch_mesh.py)
+    checkpoints whole arrays: restored whole it equals the single-process
+    run's state, restored with ``sharding=`` each rank's part, and resumed
+    from epoch 4 to 6 it equals the unbroken collective run and, gathered,
+    the single-process run — all bit for bit."""
+    import test_torch_mesh as tm
+    for rank in tm.spawn("checkpoint_job", 2, ckpt_dir=str(tmp_path)):
+        assert rank["step"] == 4
+        assert rank["whole_is_single"]
+        assert rank["placed_is_rank_state"]
+        assert rank["resumed_is_unbroken"]
+        assert rank["resumed_is_single"]

@@ -41,7 +41,9 @@ def test_port_sources_import_no_jax_and_no_reference():
     assert {PORT / "core" / "comm_model.py",
             PORT / "core" / "async_engine.py",
             PORT / "graph" / "sampler.py",
-            PORT / "launch" / "async_straggler.py"} <= set(files)
+            PORT / "launch" / "async_straggler.py",
+            PORT / "launch" / "mesh.py",
+            PORT / "core" / "collectives.py"} <= set(files)
     for path in files:
         for name in _imported(path):
             root = name.split(".")[0]
@@ -51,7 +53,9 @@ def test_port_sources_import_no_jax_and_no_reference():
 def test_importing_every_module_loads_no_jax():
     mods = _modules()
     assert {"repro_torch.core.async_engine",
-            "repro_torch.launch.async_straggler"} <= set(mods)
+            "repro_torch.launch.async_straggler",
+            "repro_torch.launch.mesh",
+            "repro_torch.core.collectives"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

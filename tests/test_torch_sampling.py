@@ -451,10 +451,10 @@ def test_sampled_settings_are_checked():
     with pytest.raises(ValueError, match="sample_estimator"):
         tdigest.make_sampled_epoch_fn(
             cfg, opt, _settings(tdigest, sample_estimator="x"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="needs the mesh"):
         tdigest.make_sampled_epoch_fn(
             cfg, opt, _settings(tdigest, pull_mode="collective"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="a mesh is for"):
         tdigest.sampled_train(cfg, opt, tdata, None, _settings(tdigest), 1,
                               mesh=object())
     state = tdigest.init_sampled_state(cfg, opt, tdata)

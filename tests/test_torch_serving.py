@@ -258,7 +258,8 @@ def test_donated_refresh_updates_in_place():
 def test_make_refresh_fn_parameters_match_reference():
     """The reference's parameters, in its order and with its defaults, so
     a positional ``make_refresh_fn(None, serve_rows)`` binds the same
-    argument in both packages; the mesh refresh names its roadmap item."""
+    argument in both packages; a mesh refresh without ``serve_rows``
+    raises, as the reference's does."""
     import inspect
 
     def params(fn):
@@ -268,8 +269,10 @@ def test_make_refresh_fn_parameters_match_reference():
     assert params(ts.make_refresh_fn) == params(js.make_refresh_fn)
     refresh = ts.make_refresh_fn(None, 4096)
     assert callable(refresh)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ts.make_refresh_fn(object(), 4096)
+    assert callable(ts.make_refresh_fn(object(), 4096))
+    for fn in (ts.make_refresh_fn, js.make_refresh_fn):
+        with pytest.raises(ValueError, match="serve_rows"):
+            fn(object())
 
 
 def test_padding_and_disabled_cache_counters():
@@ -308,3 +311,37 @@ def test_serve_loop_stats():
     assert carry == 6 and len(outs) == 6 and calls == list(range(6))
     assert len(stats.steady) == 4 and stats.per_sec > 0
     assert stats.summary()["calls"] == 6
+
+
+# ---------------------------------------------------------------------------
+# The sharded engine over a mesh of 2 gloo ranks (tests/test_torch_mesh.py)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def sharded():
+    import test_torch_mesh as tm
+    params = {m: jax.tree.map(np.asarray, _model(m)[1])
+              for m in ("gcn", "sage", "gat")}
+    reps = {m: _reps(m) for m in params}
+    return tm.spawn("serve_job", 2, params=params, reps=reps)
+
+
+# The reference's bars (tests/test_serving.py): 2e-6 for an fp32 store,
+# 5e-3 for int8; bf16 at int8's bar (its rounding, 2^-9 of a value, is
+# finer than int8's 1/254 of a row's max).
+SHARDED_TOL = {"fp32": 2e-6, "bf16": 5e-3, "int8": 5e-3}
+
+
+@pytest.mark.parametrize("model,storage", [("gcn", "fp32"), ("sage", "int8"),
+                                           ("gat", "bf16")])
+def test_serve_query_sharded_matches_full_forward(sharded, model, storage):
+    """On every rank the mesh refresh equals the single refresh bit for
+    bit (checked in the rank), the (k, B) logits of its 2 parts are within
+    the bar of ``full_graph_forward``'s rows, and a query batch moved its
+    rows by one all-to-all a store tensor and nothing else."""
+    for rank in sharded:
+        res = rank[(model, storage)]
+        assert res["shape"][0] == 2
+        assert res["err"] <= SHARDED_TOL[storage], res["err"]
+        assert res["census"] == {
+            "all_to_all": 2 if storage == "int8" else 1}

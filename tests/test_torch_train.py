@@ -294,35 +294,38 @@ def test_train_settings_match_reference():
 
 def test_core_exports_match_reference():
     """Every name of the reference's ``repro.core.__all__`` is exported by
-    the port's, but for the unported ones: the sharded serving engine and
-    the collective geometry check (ROADMAP §1 item 6) and the dense
-    oracle ``stale_store`` (not ported, by design)."""
+    the port's, but for the dense oracle ``stale_store`` (not ported, by
+    design); the sharded serving engine and the collective geometry check
+    (ROADMAP §1 item 6) are ported."""
     import repro.core as jcore
     import repro_torch.core as tcore
-    unported = {"check_collective_geometry", "serve_query_sharded",
-                "stale_store"}
+    unported = {"stale_store"}
     assert set(jcore.__all__) - set(tcore.__all__) == unported
     for name in set(jcore.__all__) - unported:
         assert hasattr(tcore, name), name
 
 
 def test_later_slices_raise(tmp_path):
-    """The collective pull (ROADMAP §1 item 6, with the multi-GPU
-    exchange) still raises, in the full-batch epoch and in the sampled
-    step; the predictor, the watchdog and checkpoints (items 3 and 5) and
-    the sampled regime (item 4), ported since, run."""
+    """Every slice is ported now; what stays is that the collective pull
+    (ROADMAP §1 item 6, ported since) never quietly becomes the
+    single-process loop: without a mesh, with a mesh under
+    ``pull_mode="gather"`` or without a process group it raises, in the
+    full-batch epoch, ``digest_train`` and the sampled step; the
+    predictor, the watchdog and checkpoints (items 3 and 5) and the
+    sampled regime (item 4) run."""
     g, _, tdata = _data()
     _, cfg = _configs(g, "gcn")
     opt = toptim.adam(5e-3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdigest.make_epoch_fn(cfg, opt,
-                              tdigest.TrainSettings(pull_mode="collective"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    coll = tdigest.TrainSettings(pull_mode="collective")
+    with pytest.raises(ValueError, match="needs the mesh"):
+        tdigest.make_epoch_fn(cfg, opt, coll)
+    with pytest.raises(ValueError, match="a mesh is for"):
         tdigest.digest_train(cfg, opt, tdata, tdigest.TrainSettings(), 1,
                              mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdigest.make_sampled_epoch_fn(
-            cfg, opt, tdigest.TrainSettings(pull_mode="collective"))
+    with pytest.raises(ValueError, match="needs the mesh"):
+        tdigest.make_sampled_epoch_fn(cfg, opt, coll)
+    with pytest.raises(RuntimeError, match="process group"):
+        tdigest.make_epoch_fn(cfg, opt, coll, mesh=object())
     with pytest.raises(ValueError):
         tdigest.make_epoch_fn(cfg, opt, tdigest.TrainSettings(mode="x"))
     assert callable(tdigest.make_sampled_epoch_fn(
