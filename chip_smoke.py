@@ -81,10 +81,12 @@ Phases, each ending the run with a non-zero exit on failure:
    the weight gradient's launches per epoch by (rows, deg, feat, dtype)
    are printed;
 8. K6 (flash attention) at the LM slice's shape (B 4, S 1024, H 16 over
-   KV 8, D 128, causal; and non-causal at S 512), in bf16 and fp32, on
-   (B, H, S, D) views of (B, S, H, D) tensors, against its plain
-   version: fp32 within 2e-5, bf16 within 2e-5 plus one bf16 ulp of the
-   output; K5 (GAT edge softmax) at GAT's per-head shape on subgraph 0
+   KV 8, D 128, causal; and non-causal at S 512), at kimi-k2's attention
+   widths (H 64 over KV 8, D 112, the same four) and at llama4-scout's
+   (H 40 over KV 8, D 128: five query heads a KV head; causal), in bf16
+   and fp32, on (B, H, S, D) views of (B, S, H, D) tensors, against its
+   plain version: fp32 within 2e-5, bf16 within 2e-5 plus one bf16 ulp
+   of the output; K5 (GAT edge softmax) at GAT's per-head shape on subgraph 0
    of the training partition (in-ELL 5256 x 56 over 5257 x 32, out-ELL
    5256 x 64 over 14289 x 32) and at the reference's test shape ((128, 8)
    over (65, 128)): m equal to its plain version's bit for bit, l within
@@ -193,6 +195,23 @@ Phases, each ending the run with a non-zero exit on failure:
     single process's and phase 7's, the sharded p50s and each pull's
     wire bytes against the replicated slab's.  W ranks on one card
     measure contention, not scaling.
+16. MoE serving: llama4-scout at its published widths cut to 2 layers
+    (25.9 GB of fp32 weights drawn on the card from a CUDA
+    ``torch.Generator``, seed 0), ``forward`` on phase 9's 4 x 1024
+    tokens with the kernel backend: (a) with the dropless ``moe_ref``
+    (``moe_impl="auto"``) K6 exactly twice and no other kernel, against
+    the dense-oracle backend under phase 9's bars (bf16: twice the
+    oracle's one-ulp sensitivity; fp32: 1e-4 of max |logit|), the
+    (token, layer) top-k sets that differ between the two runs printed
+    with their router-logit gaps, a token moved by a tie (gap under
+    1e-5 of the router logits' scale) left out of the bars and counted;
+    (b) the capacity path (``moe_impl="ep"``) at capacity 16 (dropless)
+    within 1e-4 of (a) in fp32, and at the config's 1.25 its dropped
+    assignments a layer, a correlation with (a) above 0.9 and two runs
+    bit for bit, in bf16; (c) decode as phase 10 (full and ``long``
+    caches, ms/token, p50/p99; teacher-forced ``decode_step`` within
+    2e-2 of max |logit| of (a)'s logits in bf16 and fp32); (d) one
+    prefill and 8 decode steps traced (K6's device share, top ops).
 
 Each path's launch counters are set to 0 just before it and read just
 after; the oracle runs launch nothing.  The last lines are the card's
@@ -203,7 +222,8 @@ as "collective training" and "sharded serving", summed over its ranks),
 its
 worst error, its bar and the times of its main-path variant; K3's also
 its chunk walk's and its times at the training shape; K6 one entry a
-body, the fp32 body's launches those of the fp32 prefill) and
+body, the fp32 body's launches those of the fp32 prefills, qwen3's and
+the MoE one's) and
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a
 checkout, it exits non-zero and prints no result.
 TF32 is off throughout (fp32 products run in full fp32).
@@ -259,6 +279,13 @@ LM_SEQ = 1024
 LM_MAX_SEQ = 1056
 LM_GEN = 32
 LM_TEACHER = 128
+# K6's shapes in phase 8, each (variant suffix, H, KV, D, runs): the LM
+# slice's (qwen3-0.6b), kimi-k2's attention widths (head dim 112) and
+# llama4-scout's (five query heads a KV head: the bf16 body's
+# one-warpgroup blocks).  "all": bf16 and fp32, causal at LM_SEQ and
+# non-causal at 512; "causal": the causal pair only.
+K6_SHAPES = (("", 16, 8, 128, "all"), (" H64/KV8 D112", 64, 8, 112, "all"),
+             (" H40/KV8 D128", 40, 8, 128, "causal"))
 TRACE_ATTEMPTS = 3  # traces of the fp32 prefill, for a dropped record
 BATCH = 256
 BATCHES = 64
@@ -320,9 +347,10 @@ TOLERANCES = {
 SERVING_KERNELS = ("spmm", "halo_spmm", "halo_spmm_stream")
 TRAINING_KERNELS = ("spmm", "halo_spmm", "halo_spmm_skip", "spmm_bwd_table",
                     "spmm_bwd_wts")
-# The path each later kernel runs on, beside serving and training.
-PATH_OF = {"flash_attention": "prefill", "flash_attention_fp32": "fp32 prefill",
-           "gat_edge_partial": "gat_aggregate"}
+# The paths each later kernel runs on, beside serving and training.
+PATH_OF = {"flash_attention": ("prefill", "moe prefill"),
+           "flash_attention_fp32": ("fp32 prefill", "moe fp32 prefill"),
+           "gat_edge_partial": ("gat_aggregate",)}
 # The training configuration: the paper's GCN widths on papers-sim, whose
 # rcm / 256-row-chunk partition has worklist occupancy 0.475, so the fp32
 # store's hidden layers select K4.
@@ -372,6 +400,23 @@ DIST_GAT_EPOCHS = 4
 SERVE_PARTS = 8
 SERVE_DIST_BATCHES = 16
 SERVE_DIST_TOL = {"fp32": 2e-6, "bf16": 5e-3, "int8": 5e-3}
+# Phase 16: MoE serving.  llama4-scout at its published widths, its depth
+# cut to MOE_LAYERS (25.9 GB of fp32 weights; kimi-k2's experts alone
+# take 67.6 GB a layer), at the LM slice's prefill and decode shapes.
+# The capacity path at a factor that drops nothing (16 = E: an expert
+# may take every token) is held to moe_ref at the reference's bar
+# (tests/test_moe.py:23), and at the config's factor by its correlation
+# with moe_ref (tests/test_moe.py:34).  A top-k set that differs between
+# two runs where the router logits that decide it lie within MOE_TIE of
+# their scale is a tie, not a fault: its token's logits are left out of
+# the bars and counted.
+MOE_ARCH = "llama4-scout-17b-a16e"
+MOE_LAYERS = 2
+MOE_DROPLESS_CF = 16.0
+MOE_EP_TOL = 1e-4
+MOE_MIN_CORR = 0.9
+MOE_TIE = 1e-5
+MOE_TRACED = 8
 
 
 # Kernels redesigned for Hopper, by source: ptxas's register and spill
@@ -2786,11 +2831,14 @@ def lm_kernel_phase(torch, dev, data):
                                               gat_edge_partial_plain)
     gen = torch.Generator().manual_seed(3)
     records = []
-    b, h, kv, d = LM_BATCH, 16, 8, 128
-    for dtype, causal, s in ((torch.bfloat16, True, LM_SEQ),
-                             (torch.float32, True, LM_SEQ),
-                             (torch.bfloat16, False, 512),
-                             (torch.float32, False, 512)):
+    b = LM_BATCH
+    bf, f32 = torch.bfloat16, torch.float32
+    every = ((bf, True, LM_SEQ), (f32, True, LM_SEQ), (bf, False, 512),
+             (f32, False, 512))
+    cases = [(suffix, h, kv, d, dtype, causal, s)
+             for suffix, h, kv, d, runs in K6_SHAPES
+             for dtype, causal, s in (every if runs == "all" else every[:2])]
+    for suffix, h, kv, d, dtype, causal, s in cases:
         # The main path's layout: (B, H, S, D) views of (B, S, H, D).
         q = torch.randn((b, s, h, d), generator=gen).to(dev, dtype)
         k = torch.randn((b, s, kv, d), generator=gen).to(dev, dtype)
@@ -2803,7 +2851,7 @@ def lm_kernel_phase(torch, dev, data):
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         measure(torch, records, "flash_attention",
                 f"{'bf16' if bf16 else 'fp32'} "
-                f"{'causal' if causal else 'non-causal'} S{s}",
+                f"{'causal' if causal else 'non-causal'} S{s}{suffix}",
                 [b, s, h, kv, d], got, want,
                 lambda: flash_attention_cuda(qt, kt, vt, causal),
                 lambda: flash_attention_plain(qt, kt, vt, causal),
@@ -3158,6 +3206,371 @@ def gat_path(torch, dev, data) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: MoE serving (llama4-scout at its published widths, depth cut)
+# ---------------------------------------------------------------------------
+
+def record_routes() -> list:
+    """Make the MoE router (``repro_torch.models.moe._route``, which
+    ``moe_ref`` and the capacity path call once a layer) also append each
+    call's (top-k ids, router logits) to the returned list; the caller
+    clears it before a run."""
+    from repro_torch.models import moe
+    log = []
+    route = moe._route
+
+    def recorded(x, w, k):
+        out = route(x, w, k)
+        log.append((out[1], out[2]))
+        return out
+
+    moe._route = recorded
+    return log
+
+
+def route_diff(torch, got: list, want: list, batch: int) -> dict:
+    """The (token, layer) routes whose top-k sets differ between two runs
+    (per layer: ``(ids (N, k), logits (N, E))``, tokens in (sequence,
+    position) order over ``batch`` sequences), each with the gap in
+    ``want``'s router logits that decides its set (the k-th largest less
+    the (k+1)-th) over the layer's max |logit|.  A flip moves its token
+    and, through causal attention, every later token of its sequence
+    from the next layer on.  Returns ``flips`` (layer, token, gap), the
+    (N,) masks of the tokens moved by ties (gaps under MOE_TIE) and by
+    any flip (``ties``, ``moved``), and per layer the ``noise``: the
+    largest change of a router logit between the runs over the tokens
+    no flip moved, on the gaps' scale.  A flip at a gap up to twice the
+    noise (a difference of two logits) is what the runs' own rounding
+    can do."""
+    n, layers = got[0][0].shape[0], len(got)
+    ties = torch.zeros((batch, n // batch), dtype=torch.bool,
+                       device=got[0][0].device)
+    moved = torch.zeros_like(ties)
+    flips = []
+    for layer, ((ids, _), (ids_w, logits)) in enumerate(zip(got, want)):
+        k = ids.shape[1]
+        differ = (ids.sort(dim=1).values
+                  != ids_w.sort(dim=1).values).any(dim=1)
+        top = logits.topk(k + 1, dim=1).values
+        gap = (top[:, k - 1] - top[:, k]) / logits.abs().max()
+        flips += [{"layer": layer, "token": t, "gap": float(gap[t])}
+                  for t in differ.nonzero()[:, 0].tolist()]
+        for mask, where in ((moved, differ), (ties, differ & (gap < MOE_TIE))):
+            where = where.reshape(batch, -1)
+            if layer < layers - 1:
+                where = where.int().cummax(dim=1).values.bool()
+            mask |= where
+    ties, moved = ties.reshape(-1), moved.reshape(-1)
+    noise = [float(torch.where(moved[:, None], 0.0, (lg - lw).abs()).max()
+                   / lw.abs().max())
+             for (_, lg), (_, lw) in zip(got, want)]
+    return {"flips": flips, "ties": ties, "moved": moved, "noise": noise}
+
+
+def rows_rel_err(got, want, skip) -> float:
+    """max |got - want| over the rows (tokens) not in ``skip``, over max
+    |want|."""
+    import torch
+    diff = (got.float() - want.float()).abs().amax(dim=-1).reshape(-1)
+    return float(torch.where(skip, 0.0, diff).max()) / float(
+        want.abs().max())
+
+
+def top_ops(prof: dict) -> list:
+    """(op name cut to 48 characters, device ms) of a trace's top ops."""
+    return [(e["op"][:48], round(e["device_ms"], 3)) for e in prof["top"]]
+
+
+def correlation(torch, a, b) -> float:
+    """Pearson correlation of two tensors' elements, summed in fp64."""
+    a = a.double().reshape(-1) - a.double().mean()
+    b = b.double().reshape(-1) - b.double().mean()
+    return float((a * b).sum() / torch.sqrt((a * a).sum() * (b * b).sum()))
+
+
+def decode_routes(log: list, layers: int, batch: int) -> list:
+    """Per layer, the routes of a teacher-forced decode (one router call a
+    layer a step, step-major) in prefill's token order (b, t)."""
+    import torch
+    out = []
+    for layer in range(layers):
+        calls = log[layer::layers]
+        out.append(tuple(torch.stack([c[i] for c in calls], 1).reshape(
+            batch * len(calls), -1) for i in (0, 1)))
+    return out
+
+
+def moe_serving(torch, dev, smi) -> dict:
+    """Phase 16: llama4-scout at its published widths, MOE_LAYERS layers,
+    weights drawn on the card (a CUDA ``torch.Generator``, seed 0):
+    prefill through K6 against the dense oracle, the capacity path
+    against ``moe_ref``, decode, and traces."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import long_config, serve
+    from repro_torch.launch.serving_driver import profile_serve_loop
+    from repro_torch.models.transformer import (arch_specs, decode_step,
+                                                forward, init_cache)
+    from repro_torch.nn import init_params, param_bytes, param_count
+    from repro_torch.train import make_serve_step
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_arch(MOE_ARCH), num_layers=MOE_LAYERS,
+                              attn_backend="kernel")
+    specs = arch_specs(cfg)
+    n_params, n_bytes = param_count(specs), param_bytes(specs)
+    print(f"moe: {cfg.name} cut to {cfg.num_layers} layers of "
+          f"{get_arch(MOE_ARCH).num_layers}, d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads / {cfg.num_kv_heads} kv, head_dim "
+          f"{cfg.hd}, {cfg.num_experts} experts top-{cfg.experts_per_token} "
+          f"+ shared, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: {n_params} "
+          f"params, {n_bytes / 1e9:.2f} GB ({cfg.param_dtype})", flush=True)
+    t0 = time.perf_counter()
+    params = init_params(specs, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ),
+                           generator=torch.Generator().manual_seed(1)
+                           ).to(dev)
+    log = record_routes()
+    n_tok = LM_BATCH * LM_SEQ
+
+    def run(c, label, p=params):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        log.clear()
+        t = time.perf_counter()
+        out = forward(c, p, tokens)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        launches = dict(_build.LAUNCHES)
+        check(out.shape == (LM_BATCH, LM_SEQ, cfg.vocab_size)
+              and bool(torch.isfinite(out).all()),
+              f"moe prefill [{label}]: logits malformed")
+        want_k6 = cfg.num_layers if c.attn_backend == "kernel" else 0
+        check(launches["flash_attention"] == want_k6
+              and sum(launches.values()) == want_k6,
+              f"moe prefill [{label}]: launches {launches}, expected K6 "
+              f"{want_k6} times and nothing else")
+        check(len(log) == cfg.num_layers,
+              f"moe prefill [{label}]: {len(log)} router calls")
+        return out, ms, launches, list(log)
+
+    def flips_of(label, got, want):
+        d = route_diff(torch, got, want, LM_BATCH)
+        n = len(got[0][0]) * cfg.num_layers
+        print(f"moe routes [{label}]: {len(d['flips'])} of {n} (token, "
+              f"layer) top-{cfg.experts_per_token} sets differ, moving "
+              f"{int(d['moved'].sum())} tokens, {int(d['ties'].sum())} by "
+              f"a tie (gap < {MOE_TIE} of the router logits' scale); gaps "
+              f"{sorted(f['gap'] for f in d['flips'])[:8]}; router-logit "
+              f"noise a layer {d['noise']}", flush=True)
+        return {"flips": len(d["flips"]), "tie_tokens": int(d["ties"].sum()),
+                "moved_tokens": int(d["moved"].sum()),
+                "gaps": [f["gap"] for f in d["flips"]],
+                "noise": d["noise"]}, d
+
+    out = {"path": "moe serving", "arch": cfg.name, "layers": cfg.num_layers,
+           "batch": LM_BATCH, "seq": LM_SEQ, "params": n_params,
+           "param_bytes": n_bytes, "init_s": init_s}
+    with torch.inference_mode():
+        # (a) prefill through K6 (moe_impl "auto": the dropless moe_ref)
+        # against the dense oracle, bf16 then fp32 activations.
+        run(cfg, "warm-up")
+        logits, ms, launches, r_k6 = run(cfg, "bf16 kernel")
+        _, ms2, _, _ = run(cfg, "bf16 kernel")
+        dense_cfg = dataclasses.replace(cfg, attn_backend="dense")
+        dense, dense_ms, _, r_dense = run(dense_cfg, "bf16 dense")
+        out["routes_bf16"], d = flips_of("bf16 K6 vs dense", r_k6, r_dense)
+        ties = d["ties"]
+        bf16_rel = rows_rel_err(logits, dense, ties)
+        # Reported: the error over the tokens whose routes agree.
+        out["bf16_rel_err_vs_dense_same_routes"] = rows_rel_err(
+            logits, dense, d["moved"])
+        emb = params["embed"].to(torch.bfloat16)
+        bumped = (emb.view(torch.int16) + 1).view(torch.bfloat16).float()
+        del emb
+        moved, _, _, _ = run(dense_cfg, "bf16 dense, embeddings + 1 ulp",
+                             dict(params, embed=bumped))
+        del bumped
+        bf16_sens = rows_rel_err(moved, dense, torch.zeros_like(ties))
+        del moved, dense
+        ratio = bf16_rel / max(bf16_sens, 1e-30)
+        print(f"moe prefill bf16: K6 path vs dense oracle {bf16_rel:.4e} of "
+              f"max |logit| ({int(ties.sum())} tie tokens left out; "
+              f"{out['bf16_rel_err_vs_dense_same_routes']:.4e} over the "
+              f"tokens whose routes agree); the oracle's one-ulp "
+              f"sensitivity {bf16_sens:.4e}; ratio {ratio:.3f} (bar "
+              f"{LM_BF16_SENS_FACTOR})", flush=True)
+        check(bf16_rel <= LM_BF16_SENS_FACTOR * bf16_sens,
+              f"moe bf16 prefill through K6 differs from the dense oracle "
+              f"by {bf16_rel:.3e} of max |logit|, more than "
+              f"{LM_BF16_SENS_FACTOR} x its one-ulp sensitivity "
+              f"{bf16_sens:.3e}")
+        c32 = dataclasses.replace(cfg, dtype="float32")
+        l32, ms32, launches32, r32 = run(c32, "fp32 kernel")
+        d32, dense32_ms, _, r32_dense = run(
+            dataclasses.replace(c32, attn_backend="dense"), "fp32 dense")
+        out["routes_fp32"], d = flips_of("fp32 K6 vs dense", r32, r32_dense)
+        fp32_rel = rows_rel_err(l32, d32, d["ties"])
+        del d32
+        print(f"moe prefill fp32: K6 path vs dense oracle {fp32_rel:.4e} of "
+              f"max |logit| (bar {LM_FP32_TOL})", flush=True)
+        check(fp32_rel <= LM_FP32_TOL,
+              f"moe fp32 prefill through K6 differs from the dense oracle "
+              f"by {fp32_rel:.3e} of max |logit| (bar {LM_FP32_TOL})")
+        out.update(prefill_ms=ms, prefill_ms_again=ms2,
+                   dense_prefill_ms=dense_ms, fp32_prefill_ms=ms32,
+                   fp32_dense_prefill_ms=dense32_ms,
+                   tokens_per_s=n_tok / (min(ms, ms2) / 1e3),
+                   bf16_rel_err_vs_dense=bf16_rel,
+                   bf16_oracle_ulp_sensitivity=bf16_sens,
+                   bf16_err_over_sensitivity=ratio,
+                   fp32_rel_err_vs_dense=fp32_rel, launches=launches,
+                   fp32_launches=launches32)
+
+        # (b) the capacity path: at a factor that drops nothing against
+        # moe_ref (fp32), at the config's factor its drops, its
+        # correlation with moe_ref and two runs bit for bit (bf16).
+        ep16 = dataclasses.replace(c32, moe_impl="ep",
+                                   moe_capacity_factor=MOE_DROPLESS_CF)
+        l_ep, ep16_ms, _, r_ep = run(ep16, "fp32 ep, dropless")
+        out["routes_ep_dropless"], d = flips_of(
+            "fp32 ep dropless vs moe_ref", r_ep, r32)
+        ep_rel = rows_rel_err(l_ep, l32, d["ties"])
+        del l_ep
+        check(ep_rel <= MOE_EP_TOL,
+              f"moe_ep at capacity {MOE_DROPLESS_CF} differs from moe_ref "
+              f"by {ep_rel:.3e} of max |logit| (bar {MOE_EP_TOL})")
+        logits32 = l32[:, :LM_TEACHER].clone()
+        r32_teacher = [tuple(x.reshape(LM_BATCH, LM_SEQ, -1)[:, :LM_TEACHER]
+                             .reshape(LM_BATCH * LM_TEACHER, -1) for x in r)
+                       for r in r32]
+        del l32
+        ep = dataclasses.replace(cfg, moe_impl="ep")
+        l_a, ep_ms, _, r_a = run(ep, "bf16 ep")
+        l_b, ep_ms2, _, _ = run(ep, "bf16 ep")
+        check(torch.equal(l_a, l_b), "moe_ep: two runs differ")
+        del l_b
+        c_e = max(int(cfg.moe_capacity_factor * n_tok
+                      * cfg.experts_per_token / cfg.num_experts), 1)
+        dropped = [int(torch.clamp_min(torch.bincount(
+            ids.reshape(-1).long(), minlength=cfg.num_experts) - c_e,
+            0).sum()) for ids, _ in r_a]
+        corr = correlation(torch, l_a, logits)
+        del l_a
+        print(f"moe ep: capacity {MOE_DROPLESS_CF} vs moe_ref (fp32) "
+              f"{ep_rel:.4e} of max |logit| (bar {MOE_EP_TOL}); capacity "
+              f"{cfg.moe_capacity_factor} ({c_e} rows an expert) drops "
+              f"{dropped} of {n_tok * cfg.experts_per_token} assignments a "
+              f"layer, correlation with moe_ref {corr:.5f} (bar "
+              f"{MOE_MIN_CORR}); two runs bit for bit; bf16 prefill "
+              f"{min(ep_ms, ep_ms2):.2f} ms against moe_ref's "
+              f"{min(ms, ms2):.2f}, fp32 dropless {ep16_ms:.2f}", flush=True)
+        check(corr > MOE_MIN_CORR,
+              f"moe_ep at capacity {cfg.moe_capacity_factor}: correlation "
+              f"{corr:.4f} with moe_ref (bar {MOE_MIN_CORR})")
+        out.update(ep_dropless_rel_err=ep_rel, ep_dropless_ms=ep16_ms,
+                   ep_ms=min(ep_ms, ep_ms2), ep_capacity_rows=c_e,
+                   ep_dropped=dropped, ep_corr=corr)
+        logits = logits[:, :LM_TEACHER].clone()
+        r_teacher = [tuple(x.reshape(LM_BATCH, LM_SEQ, -1)[:, :LM_TEACHER]
+                           .reshape(LM_BATCH * LM_TEACHER, -1) for x in r)
+                     for r in r_k6]
+
+        # (d) where a prefill's device time goes (one more bf16 forward,
+        # traced; its launches counted above).
+        prof = profile_serve_loop(
+            lambda c, _: (c, forward(cfg, params, tokens)), range(1),
+            top=200)
+        k6 = [e for e in prof["top"] if "flash_attention" in e["op"]]
+        prof["k6_device_ms"] = sum(e["device_ms"] for e in k6)
+        prof["k6_share"] = prof["k6_device_ms"] / prof["device_ms"]
+        prof["top"] = prof["top"][:6]
+        out["prefill_profile"] = prof
+        print(f"moe prefill bf16 traced: device {prof['device_ms']:.2f} ms, "
+              f"K6 {prof['k6_device_ms']:.3f} ms "
+              f"({100 * prof['k6_share']:.2f}%), busy "
+              f"{100 * prof['busy_share']:.1f}%; top {top_ops(prof)}",
+              flush=True)
+
+    # (c) decode: the serve loop (full and long caches), 8 steps traced,
+    # and teacher forcing against the prefill (moe_ref) logits.
+    _build.reset_launches()
+    for long in (False, True):
+        c = long_config(cfg) if long else cfg
+        stats, outs, _ = serve(c, params, LM_BATCH, LM_MAX_SEQ, LM_GEN,
+                               long=long, device=dev)
+        check(all(o.shape == (LM_BATCH, 1, cfg.vocab_size)
+                  and bool(torch.isfinite(o).all()) for o in outs),
+              f"moe serve [long={long}]: logits malformed")
+        key = "long" if long else "full"
+        out[key] = {"ms_per_token": stats.total_s / LM_GEN * 1e3,
+                    "p50_ms": stats.p50_ms, "p99_ms": stats.p99_ms,
+                    "tokens_per_s": stats.per_sec}
+        print(f"moe serve {cfg.name} long={long} batch={LM_BATCH}: "
+              f"{out[key]['ms_per_token']:.3f} ms/token (steady p50 "
+              f"{stats.p50_ms:.3f} / p99 {stats.p99_ms:.3f} ms)", flush=True)
+    out["decode_launches"] = dict(_build.LAUNCHES)
+    with torch.inference_mode():
+        step = make_serve_step(cfg)
+
+        def traced(carry, _):
+            cache, toks = carry
+            lg, cache = step(params, cache, toks)
+            return (cache, torch.argmax(lg, dim=-1)), lg
+
+        dprof = profile_serve_loop(
+            traced, range(MOE_TRACED), top=6,
+            carry=(init_cache(cfg, LM_BATCH, LM_MAX_SEQ, device=dev),
+                   tokens[:, :1]))
+        out["full"]["profile"] = dprof
+        print(f"moe decode traced ({MOE_TRACED} steps): device "
+              f"{dprof['device_ms']:.2f} ms, busy "
+              f"{100 * dprof['busy_share']:.1f}%; top {top_ops(dprof)}",
+              flush=True)
+        for key, c, ref, r_ref in (
+                ("bf16", cfg, logits, r_teacher),
+                ("fp32", c32, logits32, r32_teacher)):
+            cache = init_cache(c, LM_BATCH, LM_MAX_SEQ, device=dev)
+            log.clear()
+            steps = []
+            for t in range(LM_TEACHER):
+                lg, cache = decode_step(c, params, cache, tokens[:, t:t + 1])
+                steps.append(lg)
+            dec = torch.cat(steps, dim=1)
+            # A flipped token takes another expert's output from there on
+            # (top-1 here: its logits move by tens of percent of max
+            # |logit|, and the later tokens of its sequence see it), so
+            # the tokens a flip moved are left out of the bar and
+            # counted, and each flip must be a tie or within what the
+            # two paths' rounding does to the router logits.
+            out[f"routes_decode_{key}"], d = flips_of(
+                f"{key} decode vs prefill",
+                decode_routes(log, cfg.num_layers, LM_BATCH), r_ref)
+            wild = [f for f in d["flips"] if f["gap"] >= MOE_TIE
+                    and f["gap"] > 2 * d["noise"][f["layer"]]]
+            check(not wild, f"moe {key} decode: routes flipped beyond the "
+                  f"router-logit noise {d['noise']}: {wild}")
+            rel = rows_rel_err(dec, ref, d["moved"])
+            check(rel < DECODE_TOL, f"moe teacher-forced {key} decode "
+                  f"differs from the prefill logits by {rel:.3e} of max "
+                  f"|logit| (bar {DECODE_TOL})")
+            out[f"decode_vs_prefill_rel_err_{key}"] = rel
+            out[f"decode_vs_prefill_bar_ratio_{key}"] = rel / DECODE_TOL
+            out[f"decode_moved_tokens_{key}"] = int(d["moved"].sum())
+            if bool(d["moved"].any()):
+                out[f"decode_moved_rel_err_{key}"] = rows_rel_err(
+                    dec, ref, ~d["moved"])
+            del cache, steps, dec
+    out["seconds"] = time.perf_counter() - t_phase
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    print(f"moe serving ({smi}): " + json.dumps(out), flush=True)
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it "
@@ -3214,14 +3627,18 @@ def main() -> None:
                      "fp32 prefill": pre["fp32_launches"],
                      "gat_aggregate": gat_path(torch, dev, data)["launches"]}
     del pre
+    torch.cuda.empty_cache()
+    moe = moe_serving(torch, dev, smi)
+    path_launches.update({"moe prefill": moe["launches"],
+                          "moe fp32 prefill": moe["fp32_launches"]})
     torch.cuda.synchronize()
     print(f"phases: serving {t_serve:.1f} s, training {t_train:.1f} s (of "
           f"which SAT training {sat['seconds']:.1f} s, sampled training "
           f"{sampled['seconds']:.1f} s, async training "
           f"{asynchronous['seconds']:.1f} s, multi-GPU exchange "
           f"{multi['seconds']:.1f} s), "
-          f"LM and GAT {time.perf_counter() - t0 - t_serve - t_train:.1f} s",
-          flush=True)
+          f"LM, GAT and MoE {time.perf_counter() - t0 - t_serve - t_train:.1f}"
+          f" s (of which MoE serving {moe['seconds']:.1f} s)", flush=True)
     records = serve_records + train_records + lm_records
     kernels = []
     for name, (title, source, replaces, variant) in KERNELS.items():
@@ -3243,8 +3660,8 @@ def main() -> None:
                     if kernel in TRAINING_KERNELS else 0,
                     "collective training": multi["launches"][kernel],
                     "sharded serving": multi["serve_launches"][kernel]}
-        if name in PATH_OF:
-            launches[PATH_OF[name]] = path_launches[PATH_OF[name]][kernel]
+        for path in PATH_OF.get(name, ()):
+            launches[path] = path_launches[path][kernel]
         kernels.append({
             "name": name, "title": title, "route": "cuda",
             "source": source, "replaces": replaces,

@@ -3,9 +3,11 @@
 
 ``get_arch(name)`` returns the full published ArchConfig and
 ``get_smoke_arch(name)`` the reduced same-family variant of the CPU tests.
-The dense family is ported (qwen3-0.6b, phi3-mini-3.8b,
-deepseek-coder-33b, minitron-8b); the other six architectures raise
-``NotImplementedError`` naming their ROADMAP item.
+The dense family (qwen3-0.6b, phi3-mini-3.8b, deepseek-coder-33b,
+minitron-8b, musicgen-large) and the MoE family (llama4-scout-17b-a16e,
+kimi-k2-1t-a32b) are ported; the other three architectures raise
+``NotImplementedError`` naming their ROADMAP item, as does
+:func:`all_archs`.
 """
 from __future__ import annotations
 
@@ -24,9 +26,13 @@ ARCH_IDS = [
     "phi3_mini_3_8b",
 ]
 
-# The dense architectures (pattern ("attn",)): the ported ones.
-PORTED = ("deepseek_coder_33b", "minitron_8b", "phi3_mini_3_8b",
-          "qwen3_0_6b")
+# The ported architectures: patterns of "attn" and "moe" blocks.
+PORTED = ("deepseek_coder_33b", "kimi_k2_1t_a32b", "llama4_scout_17b_a16e",
+          "minitron_8b", "musicgen_large", "phi3_mini_3_8b", "qwen3_0_6b")
+# The others, with the ROADMAP.md §1 item that ports their blocks.
+UNPORTED = {"recurrentgemma_9b": ("swa and rec", "8b"),
+            "xlstm_1_3b": ("mlstm and slstm", "8c"),
+            "llama_3_2_vision_11b": ("xattn and the vision cache", "8d")}
 
 # CLI-friendly aliases (the assignment's dashed ids).
 ALIASES = {
@@ -48,9 +54,10 @@ def _module(name: str):
     if name not in ARCH_IDS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ALIASES)}")
     if name not in PORTED:
+        blocks, item = UNPORTED[name]
         raise NotImplementedError(
-            f"arch {name!r} needs MoE, recurrent, xLSTM, VLM or audio "
-            "blocks, which are not ported yet: ROADMAP.md §1 item 8")
+            f"arch {name!r} needs its {blocks} blocks, which are not ported "
+            f"yet: ROADMAP.md §1 item {item}")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 
@@ -60,3 +67,10 @@ def get_arch(name: str):
 
 def get_smoke_arch(name: str):
     return _module(name).SMOKE
+
+
+def all_archs():
+    raise NotImplementedError(
+        "all_archs needs every architecture, and recurrentgemma-9b, "
+        "xlstm-1.3b and llama-3.2-vision-11b are not ported yet: ROADMAP.md "
+        "§1 item 8f")

@@ -14,7 +14,9 @@ process each, started at once.
 
 Launch counters live here too: each wrapper adds one to its entry of
 :data:`LAUNCHES` where it launches its kernel, and nowhere else, so a run
-can show that its main path went through the kernels.
+can show that its main path went through the kernels.  So does
+:func:`no_backward`, the guard of the wrappers whose kernels have no
+backward.
 """
 from __future__ import annotations
 
@@ -153,6 +155,17 @@ def launch(fn, t, *args) -> int:
     with torch.cuda.device(t.device):
         stream = torch.cuda.current_stream().cuda_stream
         return fn(*args, ctypes.c_void_p(stream))
+
+
+def no_backward(what: str, *tensors, hint: str) -> None:
+    """Raise on an input that requires grad while grad mode is on: the
+    kernel has no backward, and a result cut off from autograd would drop
+    gradients silently.  The wrappers check this on every device, so a
+    loss that trains on the CPU does not lose its gradients on the card."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what} has no backward: {hint}")
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -51,7 +51,7 @@ from repro_torch.kernels import _build
 # warpgroup.  The plain version blocks the same way.
 BLOCKS = {torch.float32: (128, 64), torch.bfloat16: (64, 64)}
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 96, 128)   # head dims the kernel is built for
+HEAD_DIMS = (16, 32, 64, 96, 112, 128)   # head dims the kernel is built for
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -183,7 +183,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
       causal: mask keys after the query position.
       sm_scale: the logits' scale; ``D ** -0.5`` when None.
     Inputs are float32 or bfloat16, all one dtype.  On the card D must be
-    one of :data:`HEAD_DIMS`.
+    one of :data:`HEAD_DIMS`.  The kernel has no backward: inputs that
+    require grad under grad mode raise, on every device.
     Returns:
       q's shape and dtype; for a 4-D q, the strides of ``empty_like(q)``
       (a ``transpose(1, 2)`` view of a (B, S, H, D) tensor gives such a
@@ -191,6 +192,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     q4, k4, v4 = _as_bhsd(q, k, v)
     _check(q4, k4, v4)
+    _build.no_backward("flash_attention_cuda (K6)", q, k, v, hint=(
+        "as the reference's Pallas kernel, it is a forward only; "
+        "differentiate through the chunked or dense attention backend"))
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, sm_scale)
     b, h, s, d = q4.shape

@@ -110,8 +110,14 @@ def gat_edge_partial_cuda(nbr: torch.Tensor, valid: torch.Tensor,
       z:     (n_tab, feat) float32 value table (incl. sentinel row).
     Returns:
       (acc (rows, feat), m (rows,), l (rows,)), all float32.
+    The kernel has no backward: scores or values that require grad under
+    grad mode raise, on every device.
     """
     _check(nbr, valid, s_dst, s_src, z)
+    _build.no_backward("gat_edge_partial_cuda (K5)", s_dst, s_src, z,
+                       hint=("as the reference's Pallas kernel, it is a "
+                             "forward only; differentiate through "
+                             "gat_aggregate's jnp backend"))
     if z.device.type == "cpu":
         return gat_edge_partial_plain(nbr, valid, s_dst, s_src, z)
     rows, deg = nbr.shape

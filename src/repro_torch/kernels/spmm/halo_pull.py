@@ -169,15 +169,9 @@ def _check_worklist(nbr, data, wl_ids, wl_cnt, chunk_rows) -> int:
 
 
 def _no_backward(what: str, *tensors) -> None:
-    """Raise on an input that requires grad: these kernels have no
-    backward, and a result cut off from autograd would drop gradients
-    silently."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{what} has no backward: its slab, scales and weights must "
-            "not require grad (detach them, as DIGEST detaches its halo "
-            "tables)")
+    _build.no_backward(what, *tensors, hint=(
+        "its slab, scales and weights must not require grad (detach them, "
+        "as DIGEST detaches its halo tables)"))
 
 
 def _check_slab(nbr, wts, data, scale, pdata, pscale) -> None:

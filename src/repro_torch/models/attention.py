@@ -13,7 +13,7 @@ Backend policy of :func:`prefill_attention` (``ArchConfig.attn_backend``):
   * decode (1 token) → :func:`decode_attention`, a plain einsum over the
     cache.
 
-Cross-attention (VLM) is not ported yet (ROADMAP.md §1 item 8).
+Cross-attention (VLM) is not ported yet (ROADMAP.md §1 item 8d).
 """
 from __future__ import annotations
 

@@ -1,8 +1,11 @@
-"""Decoder-only transformer: the dense subset of the reference's family.
+"""Decoder-only transformer: the dense and MoE members of the reference's
+family.
 
 One config dataclass (:class:`ArchConfig`, every field of the
-reference's, so its config files copy verbatim) and the block kind
-``"attn"``: GQA self-attention (RoPE, optional qk-norm) + SwiGLU MLP.  The
+reference's, so its config files copy verbatim) and the block kinds
+``"attn"`` (GQA self-attention with RoPE and optional qk-norm, then a
+SwiGLU MLP) and ``"moe"`` (the same attention, then the MoE FFN of
+:mod:`repro_torch.models.moe`, plus an optional shared expert).  The
 layer stack is ``pattern × repeats + tail``; each ``pattern`` leaf keeps
 the reference's stacked layout with a leading ``repeats`` dimension, and
 the layers run as a Python loop over it.  The reference's ``remat`` and
@@ -17,9 +20,9 @@ or the stale-KV ``long`` cache (:mod:`repro_torch.models.stale_kv`); the
 new K/V rows are written into the cache's tensors in place, so a step
 copies no cache.
 
-The block kinds ``moe``, ``swa``, ``rec``, ``mlstm``, ``slstm`` and
-``xattn`` and the vision inputs raise ``NotImplementedError``: they are
-ROADMAP.md §1 item 8.
+The block kinds ``swa`` and ``rec`` (ROADMAP.md §1 item 8b), ``mlstm``
+and ``slstm`` (item 8c), ``xattn`` and the vision inputs (item 8d) raise
+``NotImplementedError`` naming their item.
 """
 from __future__ import annotations
 
@@ -30,19 +33,28 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import decode_attention, prefill_attention
+from repro_torch.models.moe import load_balance_loss, moe_ffn
 from repro_torch.models.stale_kv import StaleKVConfig, stale_kv_decode
 from repro_torch.nn import ParamSpec, apply_rope, rms_norm, swiglu
 
 Pytree = Any
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-PORTED_KINDS = ("attn",)
+PORTED_KINDS = ("attn", "moe")
+# The ROADMAP.md §1 item that ports each block kind not ported yet.
+UNPORTED_KINDS = {"swa": "8b", "rec": "8b", "mlstm": "8c", "slstm": "8c",
+                  "xattn": "8d"}
 
 
-def _unported(what: str):
+def _unported(what: str, item: str):
     raise NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md §1 item 8 (MoE, "
-        "sliding-window, recurrent, xLSTM and VLM blocks)")
+        f"{what} is not ported yet: ROADMAP.md §1 item {item}")
+
+
+def _unported_kind(cfg, kind: str, what: str = "block kind"):
+    if kind not in UNPORTED_KINDS:
+        raise ValueError(kind)
+    _unported(f"{cfg.name}: {what} {kind!r}", UNPORTED_KINDS[kind])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,7 +127,7 @@ class ArchConfig:
 def _check_kinds(cfg: ArchConfig) -> None:
     for kind in (*cfg.pattern, *cfg.tail):
         if kind not in PORTED_KINDS:
-            _unported(f"{cfg.name}: block kind {kind!r}")
+            _unported_kind(cfg, kind)
 
 
 def _map_specs(fn, tree):
@@ -160,10 +172,34 @@ def _mlp_specs(cfg: ArchConfig) -> dict:
     }
 
 
+def _moe_specs(cfg: ArchConfig) -> dict:
+    d, e, ff = cfg.d_model, cfg.num_experts, cfg.d_ff
+    s = _attn_specs(cfg)
+    s.update({
+        "ln2": _norm(d),
+        "router": ParamSpec((d, e), ("embed", "expert"), init="normal"),
+        "w_gate_e": ParamSpec((e, d, ff), ("expert", "embed", "expert_mlp"),
+                              fan_in_dims=(1,)),
+        "w_up_e": ParamSpec((e, d, ff), ("expert", "embed", "expert_mlp"),
+                            fan_in_dims=(1,)),
+        "w_down_e": ParamSpec((e, ff, d), ("expert", "expert_mlp", "embed"),
+                              fan_in_dims=(1,)),
+    })
+    if cfg.shared_expert:
+        s.update({
+            "ws_gate": ParamSpec((d, ff), ("embed", "mlp")),
+            "ws_up": ParamSpec((d, ff), ("embed", "mlp")),
+            "ws_down": ParamSpec((ff, d), ("mlp", "embed")),
+        })
+    return s
+
+
 def _block_specs(cfg: ArchConfig, kind: str) -> dict:
     if kind == "attn":
         return {**_attn_specs(cfg), **_mlp_specs(cfg)}
-    _unported(f"{cfg.name}: block kind {kind!r}")
+    if kind == "moe":
+        return _moe_specs(cfg)
+    _unported_kind(cfg, kind)
 
 
 def _stack_spec(spec: ParamSpec, n: int) -> ParamSpec:
@@ -229,13 +265,31 @@ def _mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
                       p["w_down"].to(h.dtype))
 
 
-def _fwd_attn(cfg, p, x, ctx, *, window=0):
+def _moe(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """x + the MoE FFN of rms_norm(x) (+ the shared expert)."""
+    h2 = rms_norm(x, p["ln2"])
+    moe_params = {"router": p["router"], "w_gate": p["w_gate_e"],
+                  "w_up": p["w_up_e"], "w_down": p["w_down_e"]}
+    out = moe_ffn(h2, moe_params, cfg.experts_per_token,
+                  impl=cfg.moe_impl, capacity_factor=cfg.moe_capacity_factor)
+    if cfg.shared_expert:
+        out = out + swiglu(h2, p["ws_gate"].to(h2.dtype),
+                           p["ws_up"].to(h2.dtype),
+                           p["ws_down"].to(h2.dtype))
+    return x + out
+
+
+def _ffn(cfg: ArchConfig, kind: str, p: dict,
+         x: torch.Tensor) -> torch.Tensor:
+    """The block's second half: the MLP of "attn", the MoE of "moe"."""
+    return _mlp(p, x) if kind == "attn" else _moe(cfg, p, x)
+
+
+def _fwd_block(cfg, kind, p, x, ctx):
     h = rms_norm(x, p["ln1"])
     q, k, v = _qkv(cfg, p, h, ctx["positions"])
-    attn = prefill_attention(q, k, v, window=window,
-                             backend=cfg.attn_backend)
-    x = _attn_out(p, attn, x)
-    return _mlp(p, x)
+    attn = prefill_attention(q, k, v, backend=cfg.attn_backend)
+    return _ffn(cfg, kind, p, _attn_out(p, attn, x))
 
 
 def _layer(tree: dict, r: int) -> dict:
@@ -260,15 +314,35 @@ def forward(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
     """tokens: (B, S) int → logits (B, S, vocab) f32."""
     _check_kinds(cfg)
     if vision is not None:
-        _unported("vision input (VLM)")
+        _unported("vision input (VLM)", "8d")
     x = _embed(cfg, params, tokens)
     ctx = {"positions": torch.arange(tokens.shape[1], device=x.device)}
     for r in range(cfg.repeats):
-        for block in params["pattern"]:
-            x = _fwd_attn(cfg, _layer(block, r), x, ctx)
-    for block in params["tail"]:
-        x = _fwd_attn(cfg, block, x, ctx)
+        for kind, block in zip(cfg.pattern, params["pattern"]):
+            x = _fwd_block(cfg, kind, _layer(block, r), x, ctx)
+    for kind, block in zip(cfg.tail, params["tail"]):
+        x = _fwd_block(cfg, kind, block, x, ctx)
     return _logits(params, x)
+
+
+def aux_moe_loss(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
+                 x_embed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Router load-balance loss, from the first repeat's router of each
+    MoE block of the pattern, on the unscaled fp32 token embeddings (the
+    reference's; ``x_embed`` is unused there too)."""
+    if cfg.num_experts == 0:
+        return torch.zeros((), device=params["embed"].device)
+    x = params["embed"][tokens.long()].float().reshape(-1, cfg.d_model)
+    total = torch.zeros((), device=x.device)
+    count = 0
+    for kind, block in zip(cfg.pattern, params["pattern"]):
+        if kind != "moe":
+            continue
+        logits = x @ block["router"][0].float()
+        ids = torch.topk(logits, cfg.experts_per_token, dim=-1).indices
+        total = total + load_balance_loss(logits, ids, cfg.num_experts)
+        count += 1
+    return total / max(count, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -277,9 +351,10 @@ def forward(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
 
 def _cache_block_specs(cfg: ArchConfig, kind: str, batch: int, max_seq: int,
                        long: bool, dtype) -> dict:
-    """ParamSpec tree of one block's decode cache (shape, axes, dtype)."""
-    if kind != "attn":
-        _unported(f"{cfg.name}: decode cache of block kind {kind!r}")
+    """ParamSpec tree of one block's decode cache (shape, axes, dtype):
+    "attn" and "moe" blocks keep the same K/V (or stale-KV) cache."""
+    if kind not in PORTED_KINDS:
+        _unported_kind(cfg, kind, "decode cache of block kind")
     kv, hd = cfg.num_kv_heads, cfg.hd
     kvh = ("batch", "kv_seq", "kv_heads", "head_dim")
     row = ("batch", None, "kv_heads", "head_dim")
@@ -337,7 +412,7 @@ def _dec_attn(cfg, p, x, cache, pos, skv: Optional[StaleKVConfig]):
 
 def precompute_vision_cache(cfg: ArchConfig, params: Pytree, cache: dict,
                             vision: torch.Tensor) -> dict:
-    _unported("precompute_vision_cache (VLM)")
+    _unported("precompute_vision_cache (VLM)", "8d")
 
 
 def decode_step(cfg: ArchConfig, params: Pytree, cache: dict,
@@ -354,10 +429,11 @@ def decode_step(cfg: ArchConfig, params: Pytree, cache: dict,
         n_slots = cache["pattern"][0]["k_sum"].shape[2]
         skv = StaleKVConfig(n_slots * cfg.long_ratio, cfg.long_window,
                             cfg.long_ratio)
-    layers = [(_layer(p, r), _layer(c, r)) for r in range(cfg.repeats)
-              for p, c in zip(params["pattern"], cache["pattern"])]
-    layers += list(zip(params["tail"], cache["tail"]))
-    for p, c in layers:
-        x = _mlp(p, _dec_attn(cfg, p, x, c, pos, skv))
+    layers = [(kind, _layer(p, r), _layer(c, r)) for r in range(cfg.repeats)
+              for kind, p, c in zip(cfg.pattern, params["pattern"],
+                                    cache["pattern"])]
+    layers += list(zip(cfg.tail, params["tail"], cache["tail"]))
+    for kind, p, c in layers:
+        x = _ffn(cfg, kind, p, _dec_attn(cfg, p, x, c, pos, skv))
     return _logits(params, x), {"pattern": cache["pattern"],
                                 "tail": cache["tail"], "pos": pos + 1}

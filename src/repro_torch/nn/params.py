@@ -43,10 +43,11 @@ class ParamSpec:
 
 
 def _init_leaf(spec: ParamSpec, generator: torch.Generator) -> torch.Tensor:
+    dev = generator.device
     if spec.init == "zeros":
-        return torch.zeros(spec.shape, dtype=spec.dtype)
+        return torch.zeros(spec.shape, dtype=spec.dtype, device=dev)
     if spec.init == "ones":
-        return torch.ones(spec.shape, dtype=spec.dtype)
+        return torch.ones(spec.shape, dtype=spec.dtype, device=dev)
     fan_in = max(1, int(np.prod([spec.shape[d] for d in spec.fan_in_dims])))
     if spec.init == "lecun":
         std = spec.scale * math.sqrt(1.0 / fan_in)
@@ -56,16 +57,19 @@ def _init_leaf(spec: ParamSpec, generator: torch.Generator) -> torch.Tensor:
         std = spec.scale * 1.0
     else:
         raise ValueError(f"unknown init {spec.init!r}")
-    draw = torch.randn(spec.shape, generator=generator, dtype=torch.float32)
-    return (std * draw).to(spec.dtype)
+    draw = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
+                       device=dev)
+    return draw.mul_(std).to(spec.dtype)
 
 
 def init_params(specs: Pytree, generator: torch.Generator,
                 device="cuda") -> Pytree:
     """Tensor tree from a ParamSpec tree (dicts and lists, as the
     transformer's ``pattern``/``tail`` lists of stacked block dicts).
-    Values are drawn on the CPU from ``generator`` and then moved to
-    ``device``, so a seed gives the same parameters on every device."""
+    Values are drawn from ``generator`` on its own device and then moved
+    to ``device``: a CPU generator gives the same parameters on every
+    device, a CUDA one draws a model too large for the host on the card
+    (other numbers than the CPU's for the same seed)."""
     dev = resolve_device(device)
 
     def build(node):
@@ -98,3 +102,22 @@ def params_from_numpy(tree: Pytree, device="cuda") -> Pytree:
         return torch.from_numpy(arr).to(dev)
 
     return conv(tree)
+
+
+def _spec_leaves(specs: Pytree) -> list:
+    if isinstance(specs, ParamSpec):
+        return [specs]
+    if isinstance(specs, (list, tuple)):
+        return [s for v in specs for s in _spec_leaves(v)]
+    return [s for v in specs.values() for s in _spec_leaves(v)]
+
+
+def param_count(specs: Pytree) -> int:
+    """Number of parameters of a ParamSpec tree (nothing allocated)."""
+    return int(sum(math.prod(s.shape) for s in _spec_leaves(specs)))
+
+
+def param_bytes(specs: Pytree) -> int:
+    """Bytes of a ParamSpec tree's tensors at their dtypes."""
+    return int(sum(math.prod(s.shape) * s.dtype.itemsize
+                   for s in _spec_leaves(specs)))

@@ -1,6 +1,6 @@
 """The LM trainer's serving step (the counterpart of
 ``repro.train.trainer.make_serve_step``).  The rest of the LM trainer —
-train step, optimizers, data — is not ported yet (ROADMAP.md §1 item 8).
+train step, optimizers, data — is not ported yet (ROADMAP.md §1 item 8a).
 """
 from __future__ import annotations
 

@@ -58,7 +58,7 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
 
 @pytest.mark.parametrize("seq,hd,bq,bk", [
     (128, 64, 128, 128), (256, 64, 128, 64), (256, 128, 64, 128),
-    (512, 32, 128, 128), (256, 128, 128, 64),
+    (512, 32, 128, 128), (256, 128, 128, 64), (256, 112, 128, 64),
 ])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_plain_matches_pallas(seq, hd, bq, bk, causal):
@@ -145,7 +145,8 @@ def test_flash_plain_bf16_within_one_ulp():
 
 
 @pytest.mark.parametrize("seq,hd", [(1, 16), (64, 16), (100, 32),
-                                    (130, 96), (256, 64), (192, 128)])
+                                    (130, 96), (256, 64), (192, 112),
+                                    (192, 128)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_plain_bf16_tensor_core_arithmetic(seq, hd, causal):
     """The bf16 plain version (the kernel's tensor-core arithmetic)
@@ -203,6 +204,32 @@ def test_flash_wrapper_refuses_bad_inputs():
     with pytest.raises(ValueError):
         flash_attention_cuda(q[None], torch.zeros((1, 2, 9, 16)),
                              torch.zeros((1, 2, 9, 16)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_wrapper_refuses_inputs_that_require_grad(dtype):
+    """K6 has no backward (the reference's Pallas kernel raises under
+    ``jax.grad``): an input that requires grad raises under grad mode on
+    every device, so no result is cut off from autograd; without grad
+    mode, or through the dense backend, it runs."""
+    rng = np.random.default_rng(2)
+    q, k, v = (t.to(dtype) for t in _t(*_qkv(rng, (2, 4, 70, 16),
+                                              (2, 2, 70, 16))))
+    for i in range(3):
+        args = [q, k, v]
+        args[i] = args[i].clone().requires_grad_()
+        with pytest.raises(RuntimeError, match="no backward"):
+            flash_attention_cuda(*args)
+        with torch.no_grad():
+            out = flash_attention_cuda(*args)
+        assert torch.equal(out, flash_attention_cuda(q, k, v))
+    qg = q.transpose(1, 2).clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        multi_head_attention(qg, k.transpose(1, 2), v.transpose(1, 2))
+    out = tattn.prefill_attention(qg, k.transpose(1, 2), v.transpose(1, 2),
+                                  backend="dense")
+    out.float().sum().backward()
+    assert qg.grad is not None and bool(qg.grad.abs().sum() > 0)
 
 
 def test_multi_head_attention_gqa():

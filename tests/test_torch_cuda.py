@@ -585,13 +585,16 @@ def _bf16_bar(w):
 
 @pytest.mark.parametrize("b,s,h,kv,d", [
     (1, 1, 1, 1, 16), (2, 100, 4, 2, 32), (1, 256, 8, 8, 64),
-    (2, 130, 6, 2, 96), (2, 512, 16, 8, 128)])
+    (2, 130, 6, 2, 96), (2, 512, 16, 8, 128), (2, 200, 16, 2, 112),
+    (1, 300, 40, 8, 128), (1, 130, 10, 2, 112)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_kernel(dev, b, s, h, kv, d, dtype, causal):
     """K6 on (B, H, S, D) views of (B, S, H, D) tensors (the transformer's
     layout) against its plain version, equal bit for bit to the same
-    call on contiguous 3-D tensors with K/V rows bh // rep."""
+    call on contiguous 3-D tensors with K/V rows bh // rep; kimi-k2's head
+    dim 112 and llama4-scout's five query heads a KV head (the bf16
+    body's one-warpgroup blocks), alone and together."""
     gen = torch.Generator().manual_seed(b * s + d)
     q = torch.randn((b, s, h, d), generator=gen).to(dev, dtype)
     k = torch.randn((b, s, kv, d), generator=gen).to(dev, dtype)
@@ -615,7 +618,7 @@ def test_flash_attention_kernel(dev, b, s, h, kv, d, dtype, causal):
     assert torch.equal(mha, got.transpose(1, 2))
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 96, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 112, 128])
 @pytest.mark.parametrize("s", [64, 200, 1000])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_bf16_tensor_cores(dev, d, s, causal):
@@ -639,7 +642,7 @@ def test_flash_attention_bf16_tensor_cores(dev, d, s, causal):
                                                       float(err.max()))
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 96, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 112, 128])
 @pytest.mark.parametrize("s", [1, 63, 65, 1000])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_fp32_body(dev, d, s, causal):
@@ -668,7 +671,7 @@ def test_flash_attention_fp32_body(dev, d, s, causal):
         torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 96, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 112, 128])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_fp32_unaligned_views(dev, d, causal):
     """Strided fp32 views that 16-byte copies cannot read (a base one
@@ -781,6 +784,26 @@ def test_new_kernels_refuse_bad_inputs(dev):
         gat_edge_partial_cuda(nbr, valid, s_dst, s_src, z.cpu())
     with pytest.raises(TypeError):
         gat_edge_partial_cuda(nbr, valid, s_dst, s_src, z.double())
+
+
+def test_k5_k6_refuse_grad_on_the_card(dev):
+    """K5 and K6 have no backward: a card tensor that requires grad under
+    grad mode raises instead of returning a result cut off from
+    autograd, and nothing is launched."""
+    q = torch.randn((2, 64, 32), device=dev).requires_grad_()
+    z = torch.randn((3, 8), device=dev).requires_grad_()
+    nbr = torch.zeros((4, 2), dtype=torch.int32, device=dev)
+    valid = torch.ones((4, 2), dtype=torch.bool, device=dev)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention_cuda(q, q.detach(), q.detach())
+    with pytest.raises(RuntimeError, match="no backward"):
+        gat_edge_partial_cuda(nbr, valid, torch.zeros(4, device=dev),
+                              torch.zeros(3, device=dev), z)
+    assert _build.LAUNCHES == before
+    with torch.no_grad():
+        out = flash_attention_cuda(q, q, q)
+    assert out.grad_fn is None and not out.requires_grad
 
 
 def test_prefill_launches_k6_in_every_layer(dev):

@@ -209,6 +209,31 @@ def test_gat_partial_refuses_bad_inputs():
         gat_edge_partial_cuda(*args[:4], args[4].t())
 
 
+def test_gat_partial_refuses_inputs_that_require_grad():
+    """K5 has no backward (nor has the reference's Pallas kernel): scores
+    or values that require grad raise under grad mode on every device, so
+    no result is cut off from autograd; without grad mode, or through
+    ``gat_aggregate``'s jnp backend, it runs."""
+    args = _t(_case(np.random.default_rng(3), 16, 4, 9, 8))
+    want = gat_edge_partial_cuda(*args)
+    for i in (2, 3, 4):
+        grad_args = list(args)
+        grad_args[i] = args[i].clone().requires_grad_()
+        with pytest.raises(RuntimeError, match="no backward"):
+            gat_edge_partial_cuda(*grad_args)
+        with torch.no_grad():
+            got = gat_edge_partial_cuda(*grad_args)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    nbr, valid, s_dst, s_src, z = args
+    zg = z.clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        gat_aggregate(nbr, valid, nbr, valid, s_dst, s_src, s_src, zg, z)
+    out = gat_aggregate(nbr, valid, nbr, valid, s_dst, s_src, s_src, zg, z,
+                        backend="jnp")
+    out.sum().backward()
+    assert zg.grad is not None and bool(zg.grad.abs().sum() > 0)
+
+
 @functools.lru_cache(maxsize=None)
 def _flickr():
     g = make_dataset("flickr-sim", scale=0.1, seed=2)

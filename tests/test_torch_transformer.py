@@ -1,9 +1,9 @@
-"""The port's dense LM transformer against the reference, on the
-reference's own parameters (``params_from_numpy``) and the SMOKE configs
-(fp32 activations): prefill logits for each attention backend, decode
-logits step by step (full and stale-KV ``long`` caches), decode against
-the port's own forward, the stacked parameter tree, and the block kinds
-that are not ported yet.
+"""The port's LM transformer (dense and MoE) against the reference, on
+the reference's own parameters (``params_from_numpy``) and the SMOKE
+configs (fp32 activations): prefill logits for each attention backend
+and MoE impl, decode logits step by step (full and stale-KV ``long``
+caches), decode against the port's own forward, the stacked parameter
+tree, parameter counts, and the block kinds that are not ported yet.
 
 Tolerances: 1e-5 of max |logit| against JAX (measured ~1e-6: matrix
 products of another library, sums in another order); decode against
@@ -21,18 +21,23 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from repro.configs import get_arch as jget_arch
 from repro.configs import get_smoke_arch as jget
 from repro.models import stale_kv as jskv
 from repro.models import transformer as jt
 from repro.nn import init_params as jinit
-from repro_torch.configs import ARCH_IDS, PORTED, get_arch
+from repro.nn import param_bytes as jparam_bytes
+from repro.nn import param_count as jparam_count
+from repro_torch.configs import ARCH_IDS, PORTED, all_archs, get_arch
 from repro_torch.configs import get_smoke_arch as tget
 from repro_torch.launch import serve as tserve
 from repro_torch.models import stale_kv as tskv
 from repro_torch.models import transformer as tt
-from repro_torch.nn import init_params, params_from_numpy
+from repro_torch.nn import (init_params, param_bytes, param_count,
+                            params_from_numpy)
 
 REL = 1e-5
+MOE = ("llama4_scout_17b_a16e", "kimi_k2_1t_a32b")
 
 
 @functools.lru_cache(maxsize=None)
@@ -54,14 +59,16 @@ def _rel(got, want):
     return float(np.abs(np.asarray(got) - want).max() / np.abs(want).max())
 
 
-@pytest.mark.parametrize("name", ["qwen3_0_6b", "phi3_mini_3_8b"])
+@pytest.mark.parametrize("name", ["qwen3_0_6b", "phi3_mini_3_8b",
+                                  "musicgen_large", *MOE])
 @pytest.mark.parametrize("jback,tback", [("chunked", "chunked"),
                                          ("dense", "dense"),
                                          ("dense", "kernel")])
 def test_forward_matches_reference(name, jback, tback):
     """S = 96: one full 64-row tile of K6's plain version and a ragged
     one; JAX has no Pallas on the CPU, so the kernel backend is held to
-    the dense reference."""
+    the dense reference.  The MoE SMOKE configs run the dropless
+    ``moe_ref``."""
     jcfg, jp, tcfg, tp = _model(name)
     toks = _tokens(jcfg, 2, 96)
     want = jt.forward(dataclasses.replace(jcfg, attn_backend=jback), jp,
@@ -72,9 +79,27 @@ def test_forward_matches_reference(name, jback, tback):
     assert _rel(got.numpy(), want) < REL
 
 
+@pytest.mark.parametrize("name", MOE)
+@pytest.mark.parametrize("capacity_factor", [1.25, 4.0])
+def test_moe_forward_capacity_path_matches_reference(name, capacity_factor):
+    """The MoE SMOKE configs through ``moe_impl="ep"``: at the configs'
+    1.25, which drops assignments at S = 96, and at 4.0 = E, which drops
+    none."""
+    jcfg, jp, tcfg, tp = _model(name, moe_impl="ep",
+                                moe_capacity_factor=capacity_factor)
+    toks = _tokens(jcfg, 2, 96, seed=5)
+    want = jt.forward(jcfg, jp, jnp.asarray(toks))
+    got = tt.forward(tcfg, tp, torch.from_numpy(toks))
+    assert _rel(got.numpy(), want) < REL
+
+
 @pytest.mark.parametrize("name,long", [("qwen3_0_6b", False),
                                        ("phi3_mini_3_8b", False),
-                                       ("phi3_mini_3_8b", True)])
+                                       ("phi3_mini_3_8b", True),
+                                       ("musicgen_large", False),
+                                       ("llama4_scout_17b_a16e", False),
+                                       ("kimi_k2_1t_a32b", False),
+                                       ("kimi_k2_1t_a32b", True)])
 def test_decode_step_matches_reference(name, long):
     """Per-step logits and the final cache against JAX's decode_step;
     ``long`` with window 8 / ratio 4 over 20 steps crosses pushes and
@@ -168,7 +193,8 @@ def test_stale_kv_decode_and_summaries_match_reference():
                                    atol=1e-6, rtol=1e-6)
 
 
-@pytest.mark.parametrize("name", ["qwen3_0_6b", "deepseek_coder_33b"])
+@pytest.mark.parametrize("name", ["qwen3_0_6b", "deepseek_coder_33b",
+                                  "llama4_scout_17b_a16e"])
 def test_params_and_cache_trees_match_reference(name):
     """``params_from_numpy`` keeps the stacked LM tree leaf for leaf; the
     port's own specs, init and caches have the reference's structure,
@@ -211,37 +237,61 @@ def test_bf16_weight_policy_matches_reference():
     assert tp["final_norm"].dtype == torch.float32
 
 
+@pytest.mark.parametrize("name", ["kimi_k2_1t_a32b", "musicgen_large"])
+def test_param_count_and_bytes_match_reference(name):
+    """At the published widths (specs only, nothing allocated) and with
+    the bf16 weight policy."""
+    for over in ({}, {"param_dtype": "bfloat16"}):
+        jcfg = dataclasses.replace(jget_arch(name), **over)
+        tcfg = dataclasses.replace(get_arch(name), **over)
+        assert param_count(tt.arch_specs(tcfg)) == jparam_count(
+            jt.arch_specs(jcfg))
+        assert param_bytes(tt.arch_specs(tcfg)) == jparam_bytes(
+            jt.arch_specs(jcfg))
+
+
 def test_unported_kinds_raise():
-    for name in ARCH_IDS:
-        if name not in PORTED:
-            with pytest.raises(NotImplementedError, match="item 8"):
-                get_arch(name)
-    for kind in ("moe", "swa", "rec", "mlstm", "slstm", "xattn"):
+    """Every architecture and block kind not ported yet raises naming its
+    ROADMAP.md §1 item (8b-8d, the parts of item 8)."""
+    unported = {"recurrentgemma_9b": "8b", "xlstm_1_3b": "8c",
+                "llama_3_2_vision_11b": "8d"}
+    assert sorted(set(ARCH_IDS) - set(PORTED)) == sorted(unported)
+    for name, item in unported.items():
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            get_arch(name)
+    for name in ("kimi-k2-1t-a32b", "llama4-scout-17b-a16e",
+                 "musicgen-large"):
+        assert get_arch(name).name == name
+    for kind, item in (("swa", "8b"), ("rec", "8b"), ("mlstm", "8c"),
+                       ("slstm", "8c"), ("xattn", "8d")):
         cfg = dataclasses.replace(tget("qwen3_0_6b"), pattern=(kind,))
-        with pytest.raises(NotImplementedError, match="item 8"):
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
             tt.arch_specs(cfg)
-        with pytest.raises(NotImplementedError, match="item 8"):
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
             tt.init_cache(cfg, 1, 8, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 8"):
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
             tt.forward(cfg, {}, torch.zeros((1, 4), dtype=torch.int32))
     cfg = tget("qwen3_0_6b")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 8d"):
         tt.precompute_vision_cache(cfg, {}, {}, torch.zeros(1))
+    with pytest.raises(NotImplementedError, match="item 8d"):
+        tt.forward(cfg, {}, torch.zeros((1, 4), dtype=torch.int32),
+                   vision=torch.zeros(1))
+    with pytest.raises(NotImplementedError, match="item 8f"):
+        all_archs()
     with pytest.raises(ValueError, match="backend"):
         _, _, tcfg, tp = _model("qwen3_0_6b")
         tt.forward(dataclasses.replace(tcfg, attn_backend="pallas"), tp,
                    torch.zeros((1, 4), dtype=torch.int32))
 
 
-@pytest.mark.parametrize("long", [False, True])
-def test_serve_launcher_on_the_cpu(long, capsys):
-    argv = ["--device", "cpu", "--smoke", "--arch", "qwen3-0.6b", "--gen",
+def _serve_on_the_cpu(arch, long, capsys):
+    argv = ["--device", "cpu", "--smoke", "--arch", arch, "--gen",
             "4", "--max-seq", "16"] + (["--long"] if long else [])
     stats = tserve.main(argv)
     assert len(stats.latencies_s) == 4
     assert "ms/token" in capsys.readouterr().out
-    cfg = tserve.long_config(tget("qwen3_0_6b")) if long else \
-        tget("qwen3_0_6b")
+    cfg = tserve.long_config(tget(arch)) if long else tget(arch)
     params = init_params(tt.arch_specs(cfg),
                          torch.Generator().manual_seed(0), "cpu")
     _, outs, cache = tserve.serve(cfg, params, 2, 16, 3, long=long,
@@ -249,6 +299,17 @@ def test_serve_launcher_on_the_cpu(long, capsys):
     assert [tuple(o.shape) for o in outs] == [(2, 1, cfg.vocab_size)] * 3
     assert all(bool(torch.isfinite(o).all()) for o in outs)
     assert cache["pos"].tolist() == [3, 3]
+
+
+@pytest.mark.parametrize("long", [False, True])
+def test_serve_launcher_on_the_cpu(long, capsys):
+    _serve_on_the_cpu("qwen3-0.6b", long, capsys)
+
+
+@pytest.mark.parametrize("long", [False, True])
+def test_serve_launcher_serves_moe_on_the_cpu(long, capsys):
+    """llama4-scout's SMOKE config through the launcher, no new flag."""
+    _serve_on_the_cpu("llama4-scout-17b-a16e", long, capsys)
 
 
 def test_serve_refuses_a_missing_card():
