@@ -212,13 +212,44 @@ Phases, each ending the run with a non-zero exit on failure:
     caches, ms/token, p50/p99; teacher-forced ``decode_step`` within
     2e-2 of max |logit| of (a)'s logits in bf16 and fp32); (d) one
     prefill and 8 decode steps traced (K6's device share, top ops).
+17. LM training (``repro_torch.train``, the synthetic LM pipeline,
+    ``launch/train.py``); no hand-written kernel lies on this path (K6
+    has no backward: training takes the chunked attention), so every
+    launch counter must stay 0 across the phase.  (a) card against CPU
+    at the SMOKE widths in fp32, the same parameters (CPU generator,
+    seed 0) and pipeline batches: qwen3-0.6b and llama4-scout under
+    AdamW and Adafactor, and scout through ``moe_ep``: the step-1 loss
+    within 1e-6 relative, per-leaf gradients within 1e-5 of the leaf's
+    max |g|, a 10-step loss trajectory within 1e-4, and the card's run
+    twice bit for bit; the backward ops that gather (the embedding's
+    ``index_put_``, CE's ``scatter_add_``) three times each at the main
+    path's shapes, bit for bit, timed; (b) the main path: qwen3-0.6b at
+    its published widths (fp32 weights, bf16 activations, chunked
+    attention, remat on, AdamW under warmup-cosine) through
+    ``launch.train.main``, 20 steps of 4 x 1024 tokens, the launch
+    counters set to 0 just before it: the median step (steps 2-20, host
+    clock from the end of the step before, the batch's draw included,
+    each step's loss read back), tokens/s (steps 2-20's tokens over
+    their wall time),
+    ``torch.cuda.max_memory_allocated``, the first and last 5 losses
+    (the last 5's mean below the first 5's), and one more step traced
+    (device time, busy share, top ops); (c) DIGEST pod sync at full
+    width, the stacked form from two copies of (b)'s parameters, 2
+    pods, interval 4, 8 steps:
+    ``pod_divergence`` exactly 0 after steps 4 and 8, above 0 after 2
+    and 6; (d) resume at smoke width: 5 steps against 3, save, restore,
+    2, bit for bit; (e) the pod form (``pod_impl="shard_map"``) on 2
+    gloo ranks sharing the card at smoke width against the stacked form
+    computed in each rank: metrics, params and optimizer state bit for
+    bit every step, one ``all_gather`` a step and one more at a sync.
 
 Each path's launch counters are set to 0 just before it and read just
 after; the oracle runs launch nothing.  The last lines are the card's
 ``nvidia-smi`` line, one JSON object ``{"kernels": [...]}`` (each
 kernel's launches on its paths (phase 12's as "sat training", phase
 13's as "sampled training", phase 14's as "async training", phase 15's
-as "collective training" and "sharded serving", summed over its ranks),
+as "collective training" and "sharded serving", summed over its ranks,
+phase 17's as "lm training", 0 for every kernel),
 its
 worst error, its bar and the times of its main-path variant; K3's also
 its chunk walk's and its times at the training shape; K6 one entry a
@@ -417,6 +448,28 @@ MOE_EP_TOL = 1e-4
 MOE_MIN_CORR = 0.9
 MOE_TIE = 1e-5
 MOE_TRACED = 8
+# Phase 17: LM training.  (a) card against CPU at the SMOKE widths in
+# fp32, for each (arch, optimizer, moe_impl) of LM_PARITY (None: the
+# config's own), LM_SMOKE_STEPS steps of LM_SMOKE_BATCH x LM_SMOKE_SEQ
+# pipeline tokens: the step-1 loss within LM_LOSS_TOL relative, per-leaf
+# gradients within TOL of the leaf's max |g|, the trajectory within
+# TRAJ_TOL; (b) qwen3-0.6b at its published widths through the launcher,
+# LM_TRAIN_STEPS steps of the LM slice's 4 x 1024 tokens; (c) the stacked
+# pod form (2 pods, interval LM_POD_INTERVAL) at full width for
+# LM_POD_STEPS steps; (e) the pod form on LM_POD_WORLD gloo ranks.
+LM_TRAIN_ARCH = "qwen3-0.6b"
+LM_TRAIN_STEPS = 20
+LM_PARITY = (("qwen3-0.6b", None, None), ("qwen3-0.6b", "adafactor", None),
+             ("llama4-scout-17b-a16e", None, None),
+             ("llama4-scout-17b-a16e", "adafactor", None),
+             ("llama4-scout-17b-a16e", None, "ep"))
+LM_SMOKE_STEPS = 10
+LM_SMOKE_BATCH = 4
+LM_SMOKE_SEQ = 64
+LM_LOSS_TOL = 1e-6
+LM_POD_INTERVAL = 4
+LM_POD_STEPS = 8
+LM_POD_WORLD = 2
 
 
 # Kernels redesigned for Hopper, by source: ptxas's register and spill
@@ -3276,6 +3329,19 @@ def rows_rel_err(got, want, skip) -> float:
         want.abs().max())
 
 
+def op_class(name: str) -> str:
+    """A device op's class, by its kernel name: matrix products, copies
+    and casts, reductions, or other elementwise work."""
+    low = name.lower()
+    if "gemm" in low or "xmma" in low or "cutlass" in low:
+        return "matrix products"
+    if "copy" in low or "memcpy" in low or "memset" in low:
+        return "copies and casts"
+    if "reduce" in low or "softmax" in low or "scan" in low:
+        return "reductions"
+    return "elementwise and other"
+
+
 def top_ops(prof: dict) -> list:
     """(op name cut to 48 characters, device ms) of a trace's top ops."""
     return [(e["op"][:48], round(e["device_ms"], 3)) for e in prof["top"]]
@@ -3571,6 +3637,377 @@ def moe_serving(torch, dev, smi) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: LM training
+# ---------------------------------------------------------------------------
+
+def lm_rank(rank: int, world: int, tmp: str, device: str) -> None:
+    """One gloo rank of phase 17 (e), all ranks sharing ``device`` (card
+    0): the pod form (one rank a pod) against the stacked form computed
+    in this rank, at smoke width; writes its report to ``tmp``."""
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    torch.set_num_threads(2)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/lm{world}",
+                            world_size=world, rank=rank)
+    try:
+        from repro_torch.configs import get_smoke_arch
+        from repro_torch.core import collectives
+        from repro_torch.data import make_lm_pipeline
+        from repro_torch.kernels import _build
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.optim import tree_leaves
+        from repro_torch.train import (TrainSettings, init_train_state,
+                                       make_train_step)
+
+        cfg = get_smoke_arch(LM_TRAIN_ARCH)
+        stacked = TrainSettings(sync_mode="digest", n_pod=world,
+                                sync_interval=LM_POD_INTERVAL,
+                                total_steps=LM_SMOKE_STEPS, warmup_steps=2)
+        pods = dataclasses.replace(stacked, pod_impl="shard_map")
+        it = make_lm_pipeline(cfg.vocab_size, LM_SMOKE_BATCH, LM_SMOKE_SEQ,
+                              seed=3, device=dev)
+        mesh = make_mesh(1, world)
+        pod = mesh.get_local_rank("pod")
+        sb = init_train_state(cfg, stacked, device=dev)
+        sc = init_train_state(cfg, pods, device=dev)
+        fb, fc = make_train_step(cfg, stacked), make_train_step(cfg, pods,
+                                                                 mesh)
+        _build.reset_launches()
+        equal, census = [], []
+        for _ in range(LM_POD_STEPS):
+            b = next(it)
+            b = {"tokens": b.tokens, "labels": b.labels, "mask": b.mask}
+            sb, mb = fb(sb, b)
+            collectives.reset_collectives()
+            sc, mc = fc(sc, b)
+            census.append(dict(collectives.COLLECTIVES))
+            equal.append(
+                all(torch.equal(mb[k], mc[k]) for k in ("loss", "ce", "aux"))
+                and all(torch.equal(x[pod], y)
+                        for key in ("params", "opt_state")
+                        for x, y in zip(tree_leaves(sb[key]),
+                                        tree_leaves(sc[key]))))
+        torch.save({"pod": pod, "equal": equal, "census": census,
+                    "loss": [float(mc["loss"])],
+                    "launches": dict(_build.LAUNCHES)},
+                   f"{tmp}/lm-r{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _lm_batches(torch, cfg, n, batch, seq, seed, dev):
+    from repro_torch.data import make_lm_pipeline
+    it = make_lm_pipeline(cfg.vocab_size, batch, seq, seed=seed, device=dev)
+    out = []
+    for _ in range(n):
+        b = next(it)
+        out.append({"tokens": b.tokens, "labels": b.labels, "mask": b.mask})
+    return out
+
+
+def _lm_run(torch, cfg, settings, batches, dev, state=None):
+    """(state, [metric dicts of floats]) of ``len(batches)`` steps."""
+    from repro_torch.train import init_train_state, make_train_step
+    if state is None:
+        state = init_train_state(cfg, settings, device=dev)
+    step = make_train_step(cfg, settings)
+    metrics = []
+    for b in batches:
+        state, m = step(state, {k: v.to(dev) for k, v in b.items()})
+        metrics.append({k: float(v) for k, v in m.items()})
+    return state, metrics
+
+
+def _lm_equal(torch, a, b) -> bool:
+    from repro_torch.optim import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu())
+        for x, y in zip(la, lb))
+
+
+def lm_training(torch, dev, smi) -> dict:
+    """Phase 17: the LM trainer (module docstring).  Returns the phase's
+    summary with its kernel launches (all 0: no hand-written kernel lies
+    on this path)."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.checkpoint import (restore_checkpoint,
+                                        save_checkpoint)
+    from repro_torch.configs import get_arch, get_smoke_arch
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.serving_driver import profile_serve_loop
+    from repro_torch.optim import tree_leaves
+    from repro_torch.train import (TrainSettings, init_train_state,
+                                   make_train_step)
+    from repro_torch.train.trainer import _state, loss_and_grads
+
+    t_phase = time.perf_counter()
+    out = {"phase": 17}
+    _build.reset_launches()
+    sections = {}
+    # (e)'s ranks start first and run beside (a), whose checks are
+    # numerical: their start-up (~10 s a process) overlaps (a)'s work.
+    tmp_e = tempfile.mkdtemp()
+    ranks_e = mp.start_processes(lm_rank, args=(LM_POD_WORLD, tmp_e,
+                                                str(dev)),
+                                 nprocs=LM_POD_WORLD, join=False,
+                                 start_method="spawn")
+
+    # (a) Card against CPU at smoke width, fp32; the card's run twice.
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    parity = {}
+    for name, opt, impl in LM_PARITY:
+        over = {"optimizer": opt} if opt else {}
+        if impl:
+            over["moe_impl"] = impl
+        cfg = dataclasses.replace(get_smoke_arch(name), **over)
+        settings = TrainSettings(total_steps=LM_SMOKE_STEPS, warmup_steps=2)
+        batches = _lm_batches(torch, cfg, LM_SMOKE_STEPS, LM_SMOKE_BATCH,
+                              LM_SMOKE_SEQ, 0, cpu)
+        label = f"{name}/{cfg.optimizer}/{cfg.moe_impl}"
+        got, want = (loss_and_grads(
+            cfg, settings, init_train_state(cfg, settings, device=d)[
+                "params"], {k: v.to(d) for k, v in batches[0].items()})
+            for d in (dev, cpu))
+        loss_rel = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
+        grad_err = max(
+            float((g.cpu() - w).abs().max()) / max(float(w.abs().max()),
+                                                   1e-30)
+            for g, w in zip(tree_leaves(got[2]), tree_leaves(want[2])))
+        del got, want
+        s_dev, m_dev = _lm_run(torch, cfg, settings, batches, dev)
+        s_again, m_again = _lm_run(torch, cfg, settings, batches, dev)
+        _, m_cpu = _lm_run(torch, cfg, settings, batches, cpu)
+        traj = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                   for a, b in zip(m_dev, m_cpu))
+        again = _lm_equal(torch, s_dev, s_again) and m_dev == m_again
+        parity[label] = {"step1_loss_rel": loss_rel,
+                         "grad_err_over_leaf_max": grad_err,
+                         "trajectory_rel": traj,
+                         "card_runs_bitwise": again,
+                         "loss_first_last": [m_dev[0]["loss"],
+                                             m_dev[-1]["loss"]]}
+        check(loss_rel <= LM_LOSS_TOL, f"(a) {label}: step-1 loss differs "
+              f"from the CPU's by {loss_rel:.3e} (bar {LM_LOSS_TOL})")
+        check(grad_err <= TOL, f"(a) {label}: gradients differ from the "
+              f"CPU's by {grad_err:.3e} of a leaf's max (bar {TOL})")
+        check(traj <= TRAJ_TOL, f"(a) {label}: {LM_SMOKE_STEPS}-step loss "
+              f"trajectory differs from the CPU's by {traj:.3e} (bar "
+              f"{TRAJ_TOL})")
+        check(again, f"(a) {label}: two runs on the card differ")
+        del s_dev, s_again
+    out["a_card_vs_cpu"] = parity
+    print("phase 17 (a) card vs CPU, smoke widths, fp32: " + json.dumps(
+        parity), flush=True)
+    sections["a"] = time.perf_counter() - t0
+
+    # (e) The pod form on gloo ranks sharing the card: their reports.
+    t0 = time.perf_counter()
+    while not ranks_e.join():
+        pass
+    ranks = [torch.load(f"{tmp_e}/lm-r{r}.pt", weights_only=False)
+             for r in range(LM_POD_WORLD)]
+    shutil.rmtree(tmp_e)
+    want = [{"all_gather": 2 if (s + 1) % LM_POD_INTERVAL == 0 else 1}
+            for s in range(LM_POD_STEPS)]
+    for r in ranks:
+        check(all(r["equal"]), f"(e) rank pod {r['pod']}: pod form differs "
+              f"from the stacked form at steps {r['equal']}")
+        check(r["census"] == want, f"(e) census {r['census']}")
+        check(not any(r["launches"].values()),
+              f"(e) kernels launched in a rank: {r['launches']}")
+    out["e_pod_form"] = {"world": LM_POD_WORLD, "equal": True,
+                         "census": want}
+    sections["e (after a)"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    # The backward ops that gather or scatter, at the main path's shapes:
+    # each gradient three times, bit for bit.
+    cfg = get_arch(LM_TRAIN_ARCH)
+    g = torch.Generator(device=dev).manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ),
+                           generator=g, device=dev)
+    table = torch.randn(cfg.vocab_size, cfg.d_model, generator=g,
+                        device=dev)
+    up = torch.randn(LM_BATCH, LM_SEQ, cfg.d_model, generator=g, device=dev)
+    logits = torch.randn(LM_BATCH, LM_SEQ, cfg.vocab_size, generator=g,
+                         device=dev)
+
+    def embed_grad():
+        from repro_torch.nn import take_rows
+        t = table.detach().requires_grad_(True)
+        return torch.autograd.grad(
+            (take_rows(t, tokens.long()) * up).sum(), t)[0]
+
+    def ce_grad():
+        from repro_torch.nn import softmax_cross_entropy
+        lg = logits.detach().requires_grad_(True)
+        return torch.autograd.grad(softmax_cross_entropy(lg, tokens), lg)[0]
+
+    determinism = {}
+    for op, fn in (("embedding gather backward (nn.take_rows: index_put_ "
+                    "accumulate on CUDA)", embed_grad),
+                   ("cross-entropy gather backward (scatter_add_)", ce_grad)):
+        runs = [fn() for _ in range(3)]
+        determinism[op] = {
+            "bitwise": all(torch.equal(runs[0], r) for r in runs[1:]),
+            "ms": event_ms(torch, fn, reps=5, warmup=1)}
+        del runs
+        check(determinism[op]["bitwise"], f"(a) {op} differs run to run")
+    del table, up, logits
+    out["a_determinism"] = determinism
+    print("phase 17 (a) backward ops at the main path's shapes, three runs "
+          "each: " + json.dumps(determinism), flush=True)
+    sections["a, gather backward ops"] = time.perf_counter() - t0
+
+    # (b) The main path at full width through the launcher.
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # The phase's launches so far; the main path's own from 0.
+    before_b = dict(_build.LAUNCHES)
+    _build.reset_launches()
+    res = launch_train.main([
+        "--arch", LM_TRAIN_ARCH, "--steps", str(LM_TRAIN_STEPS), "--batch",
+        str(LM_BATCH), "--seq", str(LM_SEQ), "--log-every", "5",
+        "--device", str(dev)])
+    out["main_path_launches"] = dict(_build.LAUNCHES)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    check(not any(out["main_path_launches"].values()), f"(b) kernels "
+          f"launched in LM training: {out['main_path_launches']}")
+    losses = res["losses"]
+    # Each step from the end of the one before, the batch's draw
+    # included: steps 2-20 sum to their window's wall time.
+    step_ms = [s * 1e3 for s in res["step_s"]]
+    med = statistics.median(step_ms[1:])
+    tokens_per_s = (LM_BATCH * LM_SEQ * (LM_TRAIN_STEPS - 1)
+                    / (sum(step_ms[1:]) / 1e3))
+    check(all(math.isfinite(x) for x in losses), f"(b) losses {losses}")
+    check(statistics.mean(losses[-5:]) < statistics.mean(losses[:5]),
+          f"(b) the loss did not fall: {losses}")
+    cfg = get_arch(LM_TRAIN_ARCH)
+    out["b_main_path"] = {
+        "arch": cfg.name, "params": res["params"], "layers": cfg.num_layers,
+        "batch": LM_BATCH, "seq": LM_SEQ, "steps": LM_TRAIN_STEPS,
+        "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
+        "attn_backend": cfg.attn_backend, "remat": cfg.remat,
+        "optimizer": cfg.optimizer, "step_ms": step_ms,
+        "step_ms_median_2_on": med,
+        "tokens_per_s_2_on": tokens_per_s,
+        "tokens_per_s_all_steps": (LM_BATCH * LM_SEQ * LM_TRAIN_STEPS
+                                   / (sum(step_ms) / 1e3)),
+        "peak_memory_bytes": peak, "losses_first5": losses[:5],
+        "losses_last5": losses[-5:]}
+    # One more step traced: its device time, busy share and top ops.
+    settings = TrainSettings(total_steps=LM_TRAIN_STEPS,
+                             warmup_steps=max(LM_TRAIN_STEPS // 20, 2))
+    step = make_train_step(cfg, settings)
+    batch = _lm_batches(torch, cfg, 1, LM_BATCH, LM_SEQ, 5, dev)[0]
+    state = res.pop("state")
+    trained = state["params"]
+    del res
+    prof = profile_serve_loop(lambda s, b: step(s, b), [batch], carry=state,
+                              top=1000)
+    del state
+    by_class = collections.Counter()
+    for e in prof["top"]:
+        by_class[op_class(e["op"])] += e["device_ms"]
+    prof["top"] = prof["top"][:10]
+    out["b_main_path"]["trace"] = {
+        "wall_ms": prof["wall_ms"], "device_ms": prof["device_ms"],
+        "busy_share": prof["busy_share"],
+        "device_over_untraced_step": prof["device_ms"] / med,
+        "device_ms_by_class": dict(by_class.most_common()),
+        "top": prof["top"]}
+    print(f"phase 17 (b) {cfg.name} training at full width ({smi}): "
+          + json.dumps(out["b_main_path"]), flush=True)
+    print(f"phase 17 (b): step {med:.2f} ms (median of steps 2-"
+          f"{LM_TRAIN_STEPS}, data included), {tokens_per_s:.0f} tokens/s "
+          f"(steps 2-{LM_TRAIN_STEPS}' tokens over their wall time), peak {peak / 1e9:.2f} GB; traced step "
+          f"{prof['device_ms']:.2f} ms of device time, busy "
+          f"{100 * prof['busy_share']:.1f}% of the traced wall, "
+          f"{100 * prof['device_ms'] / med:.1f}% of the untraced step; by "
+          f"class {dict(by_class.most_common())}; top {top_ops(prof)}",
+          flush=True)
+    sections["b"] = time.perf_counter() - t0
+
+    # (c) Pod sync at full width: the stacked form, 2 pods.
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    settings = TrainSettings(sync_mode="digest", n_pod=2,
+                             sync_interval=LM_POD_INTERVAL,
+                             total_steps=LM_POD_STEPS, warmup_steps=2)
+    batches = _lm_batches(torch, cfg, LM_POD_STEPS, LM_BATCH, LM_SEQ, 6, dev)
+    # Two equal copies of (b)'s trained parameters and a fresh optimizer
+    # state, as init_train_state stacks its draw: (c) needs full-width
+    # parameters, and the host's draw takes seconds.
+    state = _state(cfg, settings, trained)
+    del trained
+    step = make_train_step(cfg, settings)
+    div, pod_ms = [], []
+    for b in batches:
+        t = time.perf_counter()
+        state, m = step(state, b)
+        div.append(float(m["pod_divergence"]))
+        pod_ms.append((time.perf_counter() - t) * 1e3)
+    del state
+    synced = [div[s - 1] for s in range(LM_POD_INTERVAL, LM_POD_STEPS + 1,
+                                        LM_POD_INTERVAL)]
+    check(all(d == 0.0 for d in synced) and div[1] > 0.0 and div[5] > 0.0,
+          f"(c) pod divergence {div}")
+    out["c_pod_sync"] = {"n_pod": 2, "interval": LM_POD_INTERVAL,
+                         "pod_divergence": div, "step_ms": pod_ms}
+    print("phase 17 (c) pod sync at full width: " + json.dumps(
+        out["c_pod_sync"]), flush=True)
+    sections["c"] = time.perf_counter() - t0
+
+    # (d) Resume at smoke width, bit for bit.
+    t0 = time.perf_counter()
+    cfg = get_smoke_arch(LM_TRAIN_ARCH)
+    settings = TrainSettings(total_steps=LM_SMOKE_STEPS, warmup_steps=2)
+    batches = _lm_batches(torch, cfg, 5, LM_SMOKE_BATCH, LM_SMOKE_SEQ, 1,
+                          dev)
+    whole, _ = _lm_run(torch, cfg, settings, batches, dev)
+    part, _ = _lm_run(torch, cfg, settings, batches[:3], dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        save_checkpoint(tmp, 3, part)
+        template = init_train_state(cfg, settings, seed=9, device=dev)
+        part, start = restore_checkpoint(tmp, template)
+    resumed, _ = _lm_run(torch, cfg, settings, batches[3:], dev, part)
+    check(start == 3 and _lm_equal(torch, resumed, whole),
+          "(d) resumed run differs from the unbroken one")
+    out["d_resume_bitwise"] = True
+    sections["d"] = time.perf_counter() - t0
+
+    out["launches"] = {k: before_b.get(k, 0) + v
+                       for k, v in _build.LAUNCHES.items()}
+    check(not any(out["launches"].values()),
+          f"phase 17 launched kernels: {out['launches']}")
+    out["sections_s"] = sections
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 17 (d) resume bit for bit; (e) {LM_POD_WORLD} gloo ranks "
+          f"on the card: pod form == stacked form bit for bit, census "
+          f"{out['e_pod_form']['census']}; sections (s) "
+          + json.dumps(sections)
+          + f"; kernels launched {out['launches']}", flush=True)
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it "
@@ -3631,6 +4068,10 @@ def main() -> None:
     moe = moe_serving(torch, dev, smi)
     path_launches.update({"moe prefill": moe["launches"],
                           "moe fp32 prefill": moe["fp32_launches"]})
+    moe_s = moe["seconds"]
+    del moe
+    torch.cuda.empty_cache()
+    lm_train = lm_training(torch, dev, smi)
     torch.cuda.synchronize()
     print(f"phases: serving {t_serve:.1f} s, training {t_train:.1f} s (of "
           f"which SAT training {sat['seconds']:.1f} s, sampled training "
@@ -3638,7 +4079,8 @@ def main() -> None:
           f"{asynchronous['seconds']:.1f} s, multi-GPU exchange "
           f"{multi['seconds']:.1f} s), "
           f"LM, GAT and MoE {time.perf_counter() - t0 - t_serve - t_train:.1f}"
-          f" s (of which MoE serving {moe['seconds']:.1f} s)", flush=True)
+          f" s (of which MoE serving {moe_s:.1f} s, LM training "
+          f"{lm_train['seconds']:.1f} s)", flush=True)
     records = serve_records + train_records + lm_records
     kernels = []
     for name, (title, source, replaces, variant) in KERNELS.items():
@@ -3662,6 +4104,8 @@ def main() -> None:
                     "sharded serving": multi["serve_launches"][kernel]}
         for path in PATH_OF.get(name, ()):
             launches[path] = path_launches[path][kernel]
+        launches["lm training"] = lm_train["main_path_launches"].get(
+            kernel, 0)
         kernels.append({
             "name": name, "title": title, "route": "cuda",
             "source": source, "replaces": replaces,

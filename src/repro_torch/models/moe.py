@@ -20,6 +20,9 @@ mechanism, none of arithmetic:
   would add them in any order once k > 1, so here each token gathers its
   at most k contributions, ordered by expert, and sums them in that
   order from 0: the same additions, the same bits run to run.
+* The gathers differentiate through ``nn.take_rows``, whose backward
+  adds rows in a fixed order on the CPU too (autograd's own is a
+  parallel accumulation there).
 * The expert products of bf16 activations are bf16 products summed in
   fp32 (the reference's ``preferred_element_type=f32``): here the bf16
   operands are widened to fp32, exactly, and multiplied in fp32.
@@ -33,6 +36,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.nn.layers import take_rows
 
 
 def _expert_ffn_batched(xs: torch.Tensor, w_gate: torch.Tensor,
@@ -120,10 +125,11 @@ def _moe_local(x_flat: torch.Tensor, router_w: torch.Tensor,
     valid = ranks < counts[:, None]
     sel = order[idx_mat]
     sel_tok = torch.where(valid, ftok[sel], t)            # t = drop slot
-    sel_w = torch.where(valid, fw[sel], 0.0)
+    sel_w = torch.where(valid, take_rows(fw, sel), 0.0)
 
     x_pad = torch.cat([x_flat, x_flat.new_zeros((1, d))])
-    ys = _expert_ffn_batched(x_pad[sel_tok], w_gate, w_up, w_down)
+    ys = _expert_ffn_batched(take_rows(x_pad, sel_tok), w_gate, w_up,
+                             w_down)
     return _combine(sel_tok.reshape(-1), (sel_w[..., None] * ys)
                     .reshape(-1, d), t, k).to(x_flat.dtype)
 
@@ -147,7 +153,7 @@ def _combine(tok: torch.Tensor, contrib: torch.Tensor, t: int,
     padded = torch.cat([contrib, contrib.new_zeros((1, d))])
     out = torch.zeros((t, d), dtype=contrib.dtype, device=contrib.device)
     for j in range(k):
-        out = out + padded[slot[:, j]]
+        out = out + take_rows(padded, slot[:, j])
     return out
 
 

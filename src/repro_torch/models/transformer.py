@@ -8,9 +8,16 @@ SwiGLU MLP) and ``"moe"`` (the same attention, then the MoE FFN of
 :mod:`repro_torch.models.moe`, plus an optional shared expert).  The
 layer stack is ``pattern × repeats + tail``; each ``pattern`` leaf keeps
 the reference's stacked layout with a leading ``repeats`` dimension, and
-the layers run as a Python loop over it.  The reference's ``remat`` and
-``scan_layers`` are JAX mechanics and have no effect here; its
-``logical_constraint`` (sharding) has no counterpart on one card.
+the layers run as a Python loop over it.  ``remat`` is honoured as the
+reference honours it (``jax.checkpoint`` around one repeat of the
+pattern): under grad each repeat's pattern pass runs inside
+``torch.utils.checkpoint`` (non-reentrant), which keeps only its input
+and recomputes the rest in the backward; the same ops on the same
+inputs, so no bit changes.  ``scan_layers`` is a JAX mechanic with no
+effect here, and ``logical_constraint`` (sharding) has no counterpart on
+one card.  The embedding gathers differentiate through
+``nn.take_rows``, whose backward gives the same bits run to run on the
+CPU too.
 
 Prefill (``forward``) runs attention through
 :func:`repro_torch.models.attention.prefill_attention` with
@@ -30,12 +37,14 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import decode_attention, prefill_attention
 from repro_torch.models.moe import load_balance_loss, moe_ffn
 from repro_torch.models.stale_kv import StaleKVConfig, stale_kv_decode
-from repro_torch.nn import ParamSpec, apply_rope, rms_norm, swiglu
+from repro_torch.nn import (ParamSpec, apply_rope, rms_norm, swiglu,
+                            take_rows)
 
 Pytree = Any
 
@@ -94,7 +103,7 @@ class ArchConfig:
     param_dtype: str = "float32"      # matrix weights; norms stay f32
     optimizer: str = "adamw"
     learning_rate: float = 3e-4
-    remat: bool = True                # JAX mechanics: no effect here
+    remat: bool = True                # checkpoint each repeat under grad
     scan_layers: bool = True          # JAX mechanics: no effect here
     attn_backend: str = "chunked"     # chunked|kernel|dense
     moe_impl: str = "auto"
@@ -297,10 +306,18 @@ def _layer(tree: dict, r: int) -> dict:
     return {k: v[r] for k, v in tree.items()}
 
 
+def _repeat(cfg: ArchConfig, pattern: list, r: int, x: torch.Tensor,
+            ctx: dict) -> torch.Tensor:
+    """Repeat ``r`` of the pattern's blocks (the reference's scan body)."""
+    for kind, block in zip(cfg.pattern, pattern):
+        x = _fwd_block(cfg, kind, _layer(block, r), x, ctx)
+    return x
+
+
 def _embed(cfg: ArchConfig, params: Pytree,
            tokens: torch.Tensor) -> torch.Tensor:
     dt = cfg.act_dtype
-    x = params["embed"][tokens.long()].to(dt)
+    x = take_rows(params["embed"], tokens.long()).to(dt)
     return x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
 
 
@@ -317,9 +334,13 @@ def forward(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
         _unported("vision input (VLM)", "8d")
     x = _embed(cfg, params, tokens)
     ctx = {"positions": torch.arange(tokens.shape[1], device=x.device)}
+    remat = cfg.remat and torch.is_grad_enabled()
     for r in range(cfg.repeats):
-        for kind, block in zip(cfg.pattern, params["pattern"]):
-            x = _fwd_block(cfg, kind, _layer(block, r), x, ctx)
+        if remat:
+            x = checkpoint(_repeat, cfg, params["pattern"], r, x, ctx,
+                           use_reentrant=False)
+        else:
+            x = _repeat(cfg, params["pattern"], r, x, ctx)
     for kind, block in zip(cfg.tail, params["tail"]):
         x = _fwd_block(cfg, kind, block, x, ctx)
     return _logits(params, x)
@@ -332,7 +353,8 @@ def aux_moe_loss(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
     reference's; ``x_embed`` is unused there too)."""
     if cfg.num_experts == 0:
         return torch.zeros((), device=params["embed"].device)
-    x = params["embed"][tokens.long()].float().reshape(-1, cfg.d_model)
+    x = take_rows(params["embed"], tokens.long()).float().reshape(
+        -1, cfg.d_model)
     total = torch.zeros((), device=x.device)
     count = 0
     for kind, block in zip(cfg.pattern, params["pattern"]):

@@ -17,6 +17,42 @@ def dense(x: torch.Tensor, w: torch.Tensor,
     return y
 
 
+class _TakeRows(torch.autograd.Function):
+    """``table[idx]`` on the CPU whose backward adds the rows back in
+    index order (``index_add_``).
+
+    Autograd's own backward of an index is ``index_put_`` with
+    ``accumulate=True``: on CUDA a sort-based kernel that gives the same
+    bits run to run, but on the CPU a parallel accumulation whose order
+    (and so whose rounding) changes with the threads' timing once a
+    gradient is large enough to be split among threads."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.table_shape = table.shape
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        flat_idx = idx.reshape(-1)
+        flat = grad.reshape((flat_idx.numel(),) + tuple(ctx.table_shape[1:]))
+        return grad.new_zeros(ctx.table_shape).index_add_(0, flat_idx,
+                                                          flat), None
+
+
+def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` (rows of dim 0, ``idx`` int64 of any shape) with a
+    backward that gives the same bits on every run, on every device: on
+    the CPU under grad through :class:`_TakeRows`, elsewhere autograd's
+    own."""
+    if (table.device.type == "cpu" and torch.is_grad_enabled()
+            and table.requires_grad):
+        return _TakeRows.apply(table, idx)
+    return table[idx]
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     """RMS norm in fp32 with the ``1 + scale`` form (zero-initialised

@@ -422,3 +422,59 @@ def checkpoint_job(world: int, ckpt_dir: str) -> dict:
             "resumed_is_unbroken": tree_equal(resumed, unbroken),
             "resumed_is_single": tree_equal(
                 digest.gather_state(resumed, mesh), single6)}
+
+
+def lm_pod_job(world: int, steps: int, interval: int) -> dict:
+    """The LM trainer's pod form (``pod_impl="shard_map"``, one rank a pod
+    of a ("pod", "data") = world x 1 mesh) against its stacked form
+    (``"vmap"``, all pods in this rank), qwen3-0.6b SMOKE at vocab 64,
+    batch 2 a pod x 16: every step's loss, ce and aux, and this pod's
+    params and optimizer state after every step, bit for bit; the census
+    of every step; and the refusals of meshes the form cannot take."""
+    from repro_torch.configs import get_smoke_arch
+    from repro_torch.core import collectives
+    from repro_torch.data import make_lm_pipeline
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import tree_leaves
+    from repro_torch.train import (TrainSettings, init_train_state,
+                                   make_train_step)
+
+    cfg = dataclasses.replace(get_smoke_arch("qwen3-0.6b"), vocab_size=64)
+    stacked = TrainSettings(sync_mode="digest", n_pod=world,
+                            sync_interval=interval, total_steps=40,
+                            warmup_steps=2)
+    pods = dataclasses.replace(stacked, pod_impl="shard_map")
+    it = make_lm_pipeline(64, 2 * world, 16, seed=1, device="cpu")
+    batches = [{"tokens": b.tokens, "labels": b.labels, "mask": b.mask}
+               for b in (next(it) for _ in range(steps))]
+    mesh = make_mesh(1, world)
+    pod = mesh.get_local_rank("pod")
+    sb = init_train_state(cfg, stacked, device="cpu")
+    sc = init_train_state(cfg, pods, device="cpu")
+    fb, fc = make_train_step(cfg, stacked), make_train_step(cfg, pods, mesh)
+    equal, census, divergence = [], [], []
+    for b in batches:
+        sb, mb = fb(sb, b)
+        collectives.reset_collectives()
+        sc, mc = fc(sc, b)
+        census.append(dict(collectives.COLLECTIVES))
+        divergence.append(float(mb["pod_divergence"]))
+        equal.append(
+            all(torch.equal(mb[k], mc[k]) for k in ("loss", "ce", "aux"))
+            and all(torch.equal(x[pod], y) for key in ("params", "opt_state")
+                    for x, y in zip(tree_leaves(sb[key]),
+                                    tree_leaves(sc[key])))
+            and int(sb["step"]) == int(sc["step"]))
+    refusals = {}
+    for label, mesh_fn in (("none", lambda: None),
+                           ("data only", lambda: make_mesh(world)),
+                           ("data 2", lambda: make_mesh(2, world // 2))):
+        if label == "data 2" and world < 4:
+            continue
+        try:
+            make_train_step(cfg, pods, mesh_fn())
+            refusals[label] = None
+        except (ValueError, NotImplementedError) as e:
+            refusals[label] = (type(e).__name__, str(e))
+    return {"pod": pod, "equal": equal, "census": census,
+            "divergence": divergence, "refusals": refusals}
