@@ -242,6 +242,33 @@ Phases, each ending the run with a non-zero exit on failure:
     gloo ranks sharing the card at smoke width against the stacked form
     computed in each rank: metrics, params and optimizer state bit for
     bit every step, one ``all_gather`` a step and one more at a sync.
+18. The last three architectures: recurrentgemma-9b (``rec`` + ``swa``),
+    xlstm-1.3b (``mlstm`` + ``slstm``) and llama-3.2-vision-11b
+    (``xattn`` and the vision cache; K6 at 32 / 8 heads).  (a) card
+    against CPU at the SMOKE widths in fp32, the same parameters (CPU
+    generator, seed 0, ``xattn`` gates set to 0.5): prefill logits within
+    1e-5 of max |logit|, 96 teacher-forced decode steps (recurrentgemma's
+    64-row ``swa`` ring wraps) with each step's logits and every cache
+    state within 1e-5 of their max, decode within 2e-2 of the prefill,
+    ``long`` == full bit for bit for the two families without attention
+    blocks, one train step's loss within 1e-6 and gradients within 1e-5
+    of a leaf's max (the VLM's batch carries its vision input); (b)-(d)
+    each model at its published widths and depth, one at a time, fp32
+    weights drawn on the card (seed 0), bf16 activations: prefill of
+    4 x 1024 tokens (recurrentgemma also 1 x 4096, past its window), the
+    median of 2 after a warm-up, tokens/s, the wall by block kind (each
+    block between two synchronisations: the sLSTM loop's share), one
+    traced prefill (device time, busy share, op classes, top ops), peak
+    memory, served decode (``launch.serve.serve``, batch 4, 32 tokens;
+    the VLM's cache filled by ``precompute_vision_cache``; 4 more steps
+    traced) and 64
+    teacher-forced steps at batch 1 against the prefill, fp32 within
+    2e-2 of max |logit| or, where larger, twice the fp32 prefill's own
+    one-ulp sensitivity (embeddings, then every parameter, one ulp up:
+    xlstm's 48 layers amplify rounding past 2e-2), bf16 printed; the VLM (vision (4, 1601, 1280)
+    from seed 2) through K6 (32 launches a prefill) against the chunked
+    oracle in bf16 at twice its one-ulp sensitivity and the dense one in
+    fp32 at 1e-4.  No kernel but K6 launches in the phase.
 
 Each path's launch counters are set to 0 just before it and read just
 after; the oracle runs launch nothing.  The last lines are the card's
@@ -249,12 +276,13 @@ after; the oracle runs launch nothing.  The last lines are the card's
 kernel's launches on its paths (phase 12's as "sat training", phase
 13's as "sampled training", phase 14's as "async training", phase 15's
 as "collective training" and "sharded serving", summed over its ranks,
-phase 17's as "lm training", 0 for every kernel),
+phase 17's as "lm training", 0 for every kernel, phase 18's VLM
+prefills as "vlm prefill" and "vlm fp32 prefill"),
 its
 worst error, its bar and the times of its main-path variant; K3's also
 its chunk walk's and its times at the training shape; K6 one entry a
-body, the fp32 body's launches those of the fp32 prefills, qwen3's and
-the MoE one's) and
+body, the fp32 body's launches those of the fp32 prefills, qwen3's,
+the MoE one's and the VLM's) and
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a
 checkout, it exits non-zero and prints no result.
 TF32 is off throughout (fp32 products run in full fp32).
@@ -273,6 +301,7 @@ import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 SRC = ROOT / "src"
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, the fp32 rate outside the
@@ -311,12 +340,13 @@ LM_MAX_SEQ = 1056
 LM_GEN = 32
 LM_TEACHER = 128
 # K6's shapes in phase 8, each (variant suffix, H, KV, D, runs): the LM
-# slice's (qwen3-0.6b), kimi-k2's attention widths (head dim 112) and
+# slice's (qwen3-0.6b), kimi-k2's attention widths (head dim 112),
 # llama4-scout's (five query heads a KV head: the bf16 body's
-# one-warpgroup blocks).  "all": bf16 and fp32, causal at LM_SEQ and
+# one-warpgroup blocks) and llama-3.2-vision's (four).  "all": bf16 and fp32, causal at LM_SEQ and
 # non-causal at 512; "causal": the causal pair only.
 K6_SHAPES = (("", 16, 8, 128, "all"), (" H64/KV8 D112", 64, 8, 112, "all"),
-             (" H40/KV8 D128", 40, 8, 128, "causal"))
+             (" H40/KV8 D128", 40, 8, 128, "causal"),
+             (" H32/KV8 D128", 32, 8, 128, "causal"))
 TRACE_ATTEMPTS = 3  # traces of the fp32 prefill, for a dropped record
 BATCH = 256
 BATCHES = 64
@@ -379,8 +409,9 @@ SERVING_KERNELS = ("spmm", "halo_spmm", "halo_spmm_stream")
 TRAINING_KERNELS = ("spmm", "halo_spmm", "halo_spmm_skip", "spmm_bwd_table",
                     "spmm_bwd_wts")
 # The paths each later kernel runs on, beside serving and training.
-PATH_OF = {"flash_attention": ("prefill", "moe prefill"),
-           "flash_attention_fp32": ("fp32 prefill", "moe fp32 prefill"),
+PATH_OF = {"flash_attention": ("prefill", "moe prefill", "vlm prefill"),
+           "flash_attention_fp32": ("fp32 prefill", "moe fp32 prefill",
+                                    "vlm fp32 prefill"),
            "gat_edge_partial": ("gat_aggregate",)}
 # The training configuration: the paper's GCN widths on papers-sim, whose
 # rcm / 256-row-chunk partition has worklist occupancy 0.475, so the fp32
@@ -470,6 +501,24 @@ LM_LOSS_TOL = 1e-6
 LM_POD_INTERVAL = 4
 LM_POD_STEPS = 8
 LM_POD_WORLD = 2
+# Phase 18: the last three architectures.  (a) card against CPU at the
+# SMOKE widths in fp32, from the same CPU-generator parameters, over
+# NEW_SMOKE_BATCH x NEW_SMOKE_STEPS tokens (recurrentgemma's SMOKE window
+# is 64: its decode ring wraps); (b)-(d) each model at its published
+# widths and depth, one at a time, its weights drawn on the card:
+# prefills of LM_BATCH x LM_SEQ (and 1 x NEW_LONG_SEQ where a "swa"
+# block's 2048-row window is to be passed), NEW_PREFILL_RUNS timed after
+# a warm-up, LM_GEN served tokens, NEW_TEACHER teacher-forced decode
+# steps at batch 1.  An "xattn" gate is zero at init (tanh(0): the
+# cross-attention adds nothing), so every one is set to XATTN_GATE.
+NEW_ARCHS = ("recurrentgemma-9b", "xlstm-1.3b", "llama-3.2-vision-11b")
+NEW_SMOKE_BATCH = 2
+NEW_SMOKE_STEPS = 96
+NEW_LONG_SEQ = 4096
+NEW_PREFILL_RUNS = 2
+NEW_TEACHER = 64
+NEW_TRACED = 4         # decode steps traced after the served ones
+XATTN_GATE = 0.5
 
 
 # Kernels redesigned for Hopper, by source: ptxas's register and spill
@@ -2473,6 +2522,8 @@ def _cpu_tree(torch, tree):
 def _dev_tree(torch, tree, dev):
     if isinstance(tree, dict):
         return {k: _dev_tree(torch, v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_dev_tree(torch, v, dev) for v in tree]
     return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
 
 
@@ -3330,10 +3381,11 @@ def rows_rel_err(got, want, skip) -> float:
 
 
 def op_class(name: str) -> str:
-    """A device op's class, by its kernel name: matrix products, copies
-    and casts, reductions, or other elementwise work."""
+    """A device op's class, by its kernel name: matrix products (cuBLAS's
+    ``nvjet`` kernels among them), copies and casts, reductions, or other
+    elementwise work."""
     low = name.lower()
-    if "gemm" in low or "xmma" in low or "cutlass" in low:
+    if any(k in low for k in ("gemm", "gemv", "xmma", "cutlass", "nvjet")):
         return "matrix products"
     if "copy" in low or "memcpy" in low or "memset" in low:
         return "copies and casts"
@@ -4008,6 +4060,495 @@ def lm_training(torch, dev, smi) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the last three architectures (recurrentgemma, xLSTM, the VLM)
+# ---------------------------------------------------------------------------
+
+def open_gates(params):
+    """Every ``xattn`` gate set to XATTN_GATE, in place."""
+    for block in [*params["pattern"], *params["tail"]]:
+        if "gate" in block:
+            block["gate"].fill_(XATTN_GATE)
+    return params
+
+
+def scale_rel(got, want) -> float:
+    """max |got - want| over max |want| (on the CPU)."""
+    got, want = got.detach().cpu().float(), want.detach().cpu().float()
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+
+
+def ulp_sensitivity(torch, fwd, params, ref) -> float:
+    """The model's own fp32 rounding sensitivity: the largest change of
+    ``fwd()``'s logits, over max |``ref``|, when the embeddings, and then
+    every parameter, move by one ulp (the fp32 bit pattern plus one, in
+    place, and back after the call)."""
+    scale = float(ref.abs().max())
+    worst = 0.0
+    for leaves in ([params["embed"]], _tree_leaves(params)):
+        for t in leaves:
+            t.view(torch.int32).add_(1)
+        try:
+            moved = fwd()
+        finally:
+            for t in leaves:
+                t.view(torch.int32).sub_(1)
+        worst = max(worst, float((moved - ref).abs().max()) / scale)
+    return worst
+
+
+def has_attention(cfg) -> bool:
+    return any(k in ("attn", "moe") for k in (*cfg.pattern, *cfg.tail))
+
+
+def new_archs_smoke(torch, dev) -> dict:
+    """Phase 18 (a): each new family's SMOKE config on the card against the
+    CPU, fp32, the same parameters (CPU generator, seed 0, gates open):
+    prefill logits, NEW_SMOKE_STEPS teacher-forced decode steps (logits
+    and every cache state after every step), decode against prefill,
+    ``long`` against full bit for bit where no attention block is, and
+    one train step's loss and gradients."""
+    from repro_torch.configs import get_smoke_arch
+    from repro_torch.launch.serve import long_config
+    from repro_torch.models.transformer import (arch_specs, decode_step,
+                                                forward, init_cache,
+                                                precompute_vision_cache)
+    from repro_torch.nn import init_params
+    from repro_torch.optim import tree_leaves
+    from repro_torch.train import TrainSettings, make_train_step
+    from repro_torch.train.trainer import _state, loss_and_grads
+
+    cpu = torch.device("cpu")
+    b, s = NEW_SMOKE_BATCH, NEW_SMOKE_STEPS
+    out = {}
+    for name in NEW_ARCHS:
+        t_fam = time.perf_counter()
+        cfg = get_smoke_arch(name)
+        host = open_gates(init_params(arch_specs(cfg),
+                                      torch.Generator().manual_seed(0), cpu))
+        on = {cpu: host, dev: _dev_tree(torch, host, dev)}
+        tokens = torch.randint(0, cfg.vocab_size, (b, s + 1),
+                               generator=torch.Generator().manual_seed(1))
+        vis = None
+        if cfg.vision_dim:
+            vis = torch.randn((b, cfg.num_patches, cfg.vision_dim),
+                              generator=torch.Generator().manual_seed(2))
+
+        def at(d, t):
+            return None if t is None else t.to(d)
+
+        res = {}
+        with torch.inference_mode():
+            pre = {d: forward(cfg, on[d], tokens[:, :s].to(d), at(d, vis))
+                   for d in (dev, cpu)}
+            res["prefill_rel"] = scale_rel(pre[dev], pre[cpu])
+            caches = {}
+            for d in (dev, cpu):
+                caches[d] = init_cache(cfg, b, s, device=d)
+                if vis is not None:
+                    precompute_vision_cache(cfg, on[d], caches[d], vis.to(d))
+            step_rel = state_rel = 0.0
+            steps = []
+            for t in range(s):
+                lg = {}
+                for d in (dev, cpu):
+                    lg[d], caches[d] = decode_step(cfg, on[d], caches[d],
+                                                   tokens[:, t:t + 1].to(d))
+                steps.append(lg[dev])
+                step_rel = max(step_rel, scale_rel(lg[dev], lg[cpu]))
+                state_rel = max(state_rel, max(
+                    scale_rel(g, w) for g, w in zip(_tree_leaves(caches[dev]),
+                                                    _tree_leaves(caches[cpu]))))
+            res.update(decode_step_rel=step_rel, state_rel=state_rel,
+                       decode_vs_prefill_rel=scale_rel(torch.cat(steps, 1),
+                                                       pre[dev]))
+            if not has_attention(cfg):
+                lc = long_config(cfg)
+                cf = init_cache(lc, b, s, device=dev)
+                cl = init_cache(lc, b, s, long=True, device=dev)
+                same = True
+                for t in range(s):
+                    tok = tokens[:, t:t + 1].to(dev)
+                    lf, cf = decode_step(lc, on[dev], cf, tok)
+                    ll, cl = decode_step(lc, on[dev], cl, tok, long=True)
+                    same = same and torch.equal(lf, ll)
+                res["long_equals_full"] = same and all(
+                    torch.equal(x, y) for x, y in zip(_tree_leaves(cf),
+                                                      _tree_leaves(cl)))
+        settings = TrainSettings(total_steps=10, warmup_steps=2)
+        batch = {"tokens": tokens[:, :s], "labels": tokens[:, 1:],
+                 "mask": torch.ones((b, s))}
+        if vis is not None:
+            batch["vision"] = vis
+        got, want = (loss_and_grads(cfg, settings, on[d],
+                                    {k: v.to(d) for k, v in batch.items()})
+                     for d in (dev, cpu))
+        res["loss_rel"] = abs(float(got[0]) - float(want[0])) / abs(
+            float(want[0]))
+        res["grad_err_over_leaf_max"] = max(
+            scale_rel(g, w) for g, w in zip(tree_leaves(got[2]),
+                                            tree_leaves(want[2])))
+        _, metrics = make_train_step(cfg, settings)(
+            _state(cfg, settings, on[dev]),
+            {k: v.to(dev) for k, v in batch.items()})
+        res["train_step_loss"] = float(metrics["loss"])
+        res["train_step_loss_rel"] = abs(res["train_step_loss"]
+                                         - float(got[0])) / abs(float(got[0]))
+        del got, want, on, host, caches, pre
+        res["seconds"] = time.perf_counter() - t_fam
+        out[name] = res
+        check(res["prefill_rel"] <= TOL, f"(a) {name}: card prefill differs "
+              f"from the CPU's by {res['prefill_rel']:.3e} (bar {TOL})")
+        check(step_rel <= TOL, f"(a) {name}: card decode logits differ from "
+              f"the CPU's by {step_rel:.3e} (bar {TOL})")
+        check(state_rel <= TOL, f"(a) {name}: card decode states differ "
+              f"from the CPU's by {state_rel:.3e} of a leaf's max (bar "
+              f"{TOL})")
+        check(res["decode_vs_prefill_rel"] < DECODE_TOL,
+              f"(a) {name}: teacher-forced decode differs from the prefill "
+              f"by {res['decode_vs_prefill_rel']:.3e} (bar {DECODE_TOL})")
+        check(res.get("long_equals_full", True),
+              f"(a) {name}: long decode differs from full decode")
+        check(res["loss_rel"] <= LM_LOSS_TOL, f"(a) {name}: card loss "
+              f"differs from the CPU's by {res['loss_rel']:.3e} (bar "
+              f"{LM_LOSS_TOL})")
+        check(res["grad_err_over_leaf_max"] <= TOL, f"(a) {name}: card "
+              f"gradients differ from the CPU's by "
+              f"{res['grad_err_over_leaf_max']:.3e} of a leaf's max (bar "
+              f"{TOL})")
+        check(math.isfinite(res["train_step_loss"])
+              and res["train_step_loss_rel"] <= LM_LOSS_TOL,
+              f"(a) {name}: the train step's loss {res['train_step_loss']} "
+              f"differs from loss_and_grads' by "
+              f"{res['train_step_loss_rel']:.3e} (bar {LM_LOSS_TOL})")
+    print("phase 18 (a) card vs CPU, smoke widths, fp32: " + json.dumps(out),
+          flush=True)
+    return out
+
+
+def device_trace(torch, fn, top: int = 6) -> dict:
+    """One call of ``fn`` traced by ``profile_serve_loop``: its split, the
+    device ops' count, their device ms by op class, K6's ms and records,
+    and the ``top`` ops by device time."""
+    from repro_torch.launch.serving_driver import profile_serve_loop
+
+    def step(carry, _):
+        fn()
+        torch.cuda.synchronize()
+        return carry, None
+
+    prof = profile_serve_loop(step, range(1), top=None)
+    classes = collections.Counter()
+    for e in prof["top"]:
+        classes[op_class(e["op"])] += e["device_ms"]
+    k6 = [e for e in prof["top"] if "flash_attention" in e["op"]]
+    prof.update(launches=sum(e["calls"] for e in prof["top"]),
+                device_ms_by_class=dict(classes),
+                k6_device_ms=sum(e["device_ms"] for e in k6),
+                k6_calls=sum(e["calls"] for e in k6), top=prof["top"][:top])
+    return prof
+
+
+def block_wall_ms(torch, run) -> dict:
+    """Wall ms by block kind over one call of ``run``, each block between
+    two synchronisations (the model's block table wrapped for the call)."""
+    from repro_torch.models import transformer as tm
+    saved = dict(tm._FWD)
+    wall = collections.Counter()
+
+    def timed(kind, fn):
+        def call(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            wall[kind] += (time.perf_counter() - t) * 1e3
+            return out
+        return call
+
+    tm._FWD.update({k: timed(k, f) for k, f in saved.items()})
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t) * 1e3
+    finally:
+        tm._FWD.clear()
+        tm._FWD.update(saved)
+    return {"total_ms": total, "by_kind_ms": dict(wall),
+            "share": {k: v / total for k, v in wall.items()}}
+
+
+def new_arch_full(torch, dev, name, smi) -> dict:
+    """Phase 18 (b)-(d): one new architecture at its published widths and
+    depth, weights drawn on the card (a CUDA ``torch.Generator``, seed 0;
+    ``xattn`` gates open): prefill times, the blocks' wall shares, a
+    traced prefill, peak memory, served decode, teacher-forced decode
+    against the prefill in fp32 (held) and bf16 (printed); for the VLM,
+    K6 against the chunked oracle in bf16 and the dense one in fp32."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.transformer import (arch_specs, decode_step,
+                                                forward, init_cache,
+                                                precompute_vision_cache)
+    from repro_torch.nn import init_params, param_bytes, param_count
+
+    t_model = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch(name)
+    vlm = bool(cfg.vision_dim)
+    if vlm:
+        cfg = dataclasses.replace(cfg, attn_backend="kernel")
+    n_k6 = sum(cfg.repeats * (k in ("attn", "moe")) for k in cfg.pattern) \
+        + sum(k in ("attn", "moe") for k in cfg.tail)
+    specs = arch_specs(cfg)
+    out = {"arch": cfg.name, "layers": cfg.num_layers,
+           "params": param_count(specs), "param_bytes": param_bytes(specs)}
+    t0 = time.perf_counter()
+    params = open_gates(init_params(
+        specs, torch.Generator(device=dev).manual_seed(0), dev))
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    print(f"phase 18: {cfg.name} at its published widths, "
+          f"{cfg.num_layers} layers {cfg.pattern} x {cfg.repeats} + "
+          f"{cfg.tail}, d_model {cfg.d_model}, vocab {cfg.vocab_size}: "
+          f"{out['params']} params, {out['param_bytes'] / 1e9:.2f} GB, drawn "
+          f"in {out['init_s']:.2f} s", flush=True)
+    gen = torch.Generator().manual_seed(1)
+    shapes = [(LM_BATCH, LM_SEQ)]
+    if "swa" in (*cfg.pattern, *cfg.tail):
+        shapes.append((1, NEW_LONG_SEQ))
+    tokens = {sh: torch.randint(0, cfg.vocab_size, sh, generator=gen).to(dev)
+              for sh in shapes}
+    vision = None
+    if vlm:
+        vision = torch.randn((LM_BATCH, cfg.num_patches, cfg.vision_dim),
+                             generator=torch.Generator().manual_seed(2)
+                             ).to(dev)
+
+    def vis_of(b):
+        return None if vision is None else vision[:b]
+
+    def run(c, sh, label, p=params):
+        torch.cuda.synchronize()
+        before = dict(_build.LAUNCHES)
+        t = time.perf_counter()
+        logits = forward(c, p, tokens[sh], vis_of(sh[0]))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        launches = {k: _build.LAUNCHES[k] - before[k] for k in before}
+        check(logits.shape == sh + (cfg.vocab_size,)
+              and bool(torch.isfinite(logits).all()),
+              f"{cfg.name} prefill [{label}]: logits malformed")
+        want = n_k6 if c.attn_backend == "kernel" else 0
+        check(launches["flash_attention"] == want
+              and sum(launches.values()) == want,
+              f"{cfg.name} prefill [{label}]: launches {launches}, "
+              f"expected K6 {want} times and nothing else")
+        return logits, ms, launches
+
+    with torch.inference_mode():
+        for sh in shapes:
+            key = f"{sh[0]}x{sh[1]}"
+            run(cfg, sh, f"warm-up {key}")
+            times = []
+            for _ in range(NEW_PREFILL_RUNS):
+                logits, ms, launches = run(cfg, sh, f"bf16 {key}")
+                times.append(ms)
+            med = statistics.median(times)
+            out[f"prefill_{key}"] = {
+                "ms": times, "median_ms": med,
+                "tokens_per_s": sh[0] * sh[1] / (med / 1e3)}
+            print(f"phase 18 {cfg.name} bf16 prefill {key}: median "
+                  f"{med:.2f} ms of {[round(t, 2) for t in times]}, "
+                  f"{out[f'prefill_{key}']['tokens_per_s']:.0f} tokens/s",
+                  flush=True)
+            if sh == shapes[0]:
+                out["launches"] = launches
+                main_logits = logits
+            del logits
+        sh = shapes[0]
+        out["blocks"] = block_wall_ms(
+            torch, lambda: forward(cfg, params, tokens[sh], vis_of(sh[0])))
+        print(f"phase 18 {cfg.name} prefill wall by block kind (each block "
+              f"between two synchronisations): "
+              f"{ {k: round(v, 2) for k, v in out['blocks']['by_kind_ms'].items()} } "
+              f"ms of {out['blocks']['total_ms']:.2f}; shares "
+              f"{ {k: round(v, 4) for k, v in out['blocks']['share'].items()} }",
+              flush=True)
+        prof = device_trace(
+            torch, lambda: forward(cfg, params, tokens[sh], vis_of(sh[0])))
+        out["prefill_profile"] = prof
+        print(f"phase 18 {cfg.name} bf16 prefill traced: device "
+              f"{prof['device_ms']:.2f} ms of {prof['wall_ms']:.2f} wall, "
+              f"busy {100 * prof['busy_share']:.1f}%, {prof['launches']} "
+              f"device ops, K6 {prof['k6_device_ms']:.3f} ms "
+              f"({prof['k6_calls']} records); by class "
+              f"{ {k: round(v, 2) for k, v in prof['device_ms_by_class'].items()} }; "
+              f"top {top_ops(prof)}", flush=True)
+
+        if vlm:
+            # K6 in bf16 against the chunked oracle, at twice the
+            # oracle's one-ulp sensitivity; in fp32 against the dense one.
+            ch = dataclasses.replace(cfg, attn_backend="chunked")
+            oracle, out["chunked_prefill_ms"], _ = run(ch, sh, "bf16 chunked")
+            scale = float(oracle.abs().max())
+            bf16_rel = float((main_logits - oracle).abs().max()) / scale
+            emb = params["embed"].to(torch.bfloat16)
+            bumped = (emb.view(torch.int16) + 1).view(torch.bfloat16).float()
+            del emb
+            moved, _, _ = run(ch, sh, "bf16 chunked, embeddings + 1 ulp",
+                              dict(params, embed=bumped))
+            del bumped
+            sens = float((moved - oracle).abs().max()) / scale
+            del moved, oracle
+            out.update(bf16_rel_err_vs_chunked=bf16_rel,
+                       bf16_oracle_ulp_sensitivity=sens,
+                       bf16_err_over_sensitivity=bf16_rel / max(sens, 1e-30))
+            print(f"phase 18 {cfg.name} bf16 prefill: K6 path vs chunked "
+                  f"oracle {bf16_rel:.4e} of max |logit|; the oracle's "
+                  f"one-ulp sensitivity {sens:.4e}; ratio "
+                  f"{out['bf16_err_over_sensitivity']:.3f} (bar "
+                  f"{LM_BF16_SENS_FACTOR})", flush=True)
+            check(bf16_rel <= LM_BF16_SENS_FACTOR * sens,
+                  f"{cfg.name} bf16 prefill through K6 differs from the "
+                  f"chunked oracle by {bf16_rel:.3e} of max |logit|, more "
+                  f"than {LM_BF16_SENS_FACTOR} x its one-ulp sensitivity "
+                  f"{sens:.3e}")
+            c32 = dataclasses.replace(cfg, dtype="float32")
+            l32, out["fp32_prefill_ms"], out["fp32_launches"] = run(
+                c32, sh, "fp32 kernel")
+            d32, out["fp32_dense_prefill_ms"], _ = run(
+                dataclasses.replace(c32, attn_backend="dense"), sh,
+                "fp32 dense")
+            out["fp32_rel_err_vs_dense"] = scale_rel(l32, d32)
+            del l32, d32
+            print(f"phase 18 {cfg.name} fp32 prefill: K6 path vs dense "
+                  f"oracle {out['fp32_rel_err_vs_dense']:.4e} of max "
+                  f"|logit| (bar {LM_FP32_TOL}); {out['fp32_prefill_ms']:.2f} "
+                  f"ms, dense {out['fp32_dense_prefill_ms']:.2f}", flush=True)
+            check(out["fp32_rel_err_vs_dense"] <= LM_FP32_TOL,
+                  f"{cfg.name} fp32 prefill through K6 differs from the "
+                  f"dense oracle by {out['fp32_rel_err_vs_dense']:.3e} "
+                  f"(bar {LM_FP32_TOL})")
+        del main_logits
+
+    out["prefill_section_s"] = time.perf_counter() - t_model
+    # Served decode (a VLM's cache filled by precompute_vision_cache).
+    stats, outs, _ = serve(cfg, params, LM_BATCH, LM_MAX_SEQ, LM_GEN,
+                           device=dev)
+    check(all(o.shape == (LM_BATCH, 1, cfg.vocab_size)
+              and bool(torch.isfinite(o).all()) for o in outs),
+          f"{cfg.name} serve: logits malformed")
+    del outs
+    out["decode"] = {"ms_per_token": stats.total_s / LM_GEN * 1e3,
+                     "p50_ms": stats.p50_ms, "p99_ms": stats.p99_ms,
+                     "tokens_per_s": stats.per_sec}
+    with torch.inference_mode():
+        cache = init_cache(cfg, LM_BATCH, LM_MAX_SEQ, device=dev)
+        if vlm:
+            precompute_vision_cache(cfg, params, cache, vision)
+        toks = tokens[shapes[0]]
+
+        def steps():
+            c = cache
+            for t in range(NEW_TRACED):
+                _, c = decode_step(cfg, params, c, toks[:, t:t + 1])
+
+        steps()
+        dprof = device_trace(torch, steps)
+        del cache
+    out["decode"]["profile"] = dprof
+    print(f"phase 18 {cfg.name} serve batch {LM_BATCH}: "
+          f"{out['decode']['ms_per_token']:.3f} ms/token (steady p50 "
+          f"{stats.p50_ms:.3f} / p99 {stats.p99_ms:.3f} ms); {NEW_TRACED} "
+          f"steps traced: device {dprof['device_ms'] / NEW_TRACED:.2f} ms a "
+          f"step, busy {100 * dprof['busy_share']:.1f}%, "
+          f"{dprof['launches'] // NEW_TRACED} device ops a step; by class "
+          f"{ {k: round(v / NEW_TRACED, 2) for k, v in dprof['device_ms_by_class'].items()} }"
+          f"; top {top_ops(dprof)}", flush=True)
+
+    out["through_serve_s"] = time.perf_counter() - t_model
+    # Teacher forcing at batch 1 against the prefill of the same tokens:
+    # fp32 held at the reference's decode bar, or at twice the model's own
+    # fp32 rounding sensitivity where that is larger (a deep xLSTM's
+    # normaliser amplifies rounding: PERF.md section 6); bf16
+    # printed.
+    toks = tokens[shapes[0]][:1, :NEW_TEACHER]
+    with torch.inference_mode():
+        for key, c in (("fp32", dataclasses.replace(cfg, dtype="float32")),
+                       ("bf16", cfg)):
+            ref = forward(c, params, toks, vis_of(1))
+            if key == "fp32":
+                out["fp32_ulp_sensitivity"] = ulp_sensitivity(
+                    torch, lambda: forward(c, params, toks, vis_of(1)),
+                    params, ref)
+            cache = init_cache(c, 1, NEW_TEACHER, device=dev)
+            if vlm:
+                precompute_vision_cache(c, params, cache, vis_of(1))
+            steps = []
+            for t in range(NEW_TEACHER):
+                lg, cache = decode_step(c, params, cache, toks[:, t:t + 1])
+                steps.append(lg)
+            rel = scale_rel(torch.cat(steps, dim=1), ref)
+            out[f"decode_vs_prefill_rel_err_{key}"] = rel
+            out[f"decode_vs_prefill_bar_ratio_{key}"] = rel / DECODE_TOL
+            del cache, steps, ref
+    sens = out["fp32_ulp_sensitivity"]
+    bar = max(DECODE_TOL, LM_BF16_SENS_FACTOR * sens)
+    out["decode_fp32_bar"] = bar
+    print(f"phase 18 {cfg.name} teacher-forced decode vs prefill: fp32 "
+          f"{out['decode_vs_prefill_rel_err_fp32']:.4e} of max |logit| "
+          f"({out['decode_vs_prefill_bar_ratio_fp32']:.3f} of {DECODE_TOL}; "
+          f"the fp32 prefill's one-ulp sensitivity {sens:.4e}, bar "
+          f"{bar:.4e}), bf16 {out['decode_vs_prefill_rel_err_bf16']:.4e} "
+          f"(printed, not held)", flush=True)
+    check(out["decode_vs_prefill_rel_err_fp32"] < bar,
+          f"{cfg.name} teacher-forced fp32 decode differs from the prefill "
+          f"by {out['decode_vs_prefill_rel_err_fp32']:.3e} (bar {bar:.3e})")
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    out["seconds"] = time.perf_counter() - t_model
+    del params, tokens, vision
+    return out
+
+
+def last_archs(torch, dev, smi) -> dict:
+    """Phase 18: (a), then (b)-(d) one model at a time, each freed before
+    the next.  No kernel but K6 (the VLM's attention) may launch."""
+    from repro_torch.kernels import _build
+    t_phase = time.perf_counter()
+    _build.reset_launches()
+    out = {"phase": 18}
+    t0 = time.perf_counter()
+    out["a_card_vs_cpu"] = new_archs_smoke(torch, dev)
+    out["a_seconds"] = time.perf_counter() - t0
+    for name in NEW_ARCHS:
+        res = new_arch_full(torch, dev, name, smi)
+        gc_cuda(torch)
+        out[name] = res
+        print(f"phase 18 {name} ({smi}): " + json.dumps(res), flush=True)
+    others = {k: v for k, v in _build.LAUNCHES.items()
+              if k != "flash_attention" and v}
+    check(not others, f"phase 18 launched kernels besides K6: {others}")
+    vlm = out["llama-3.2-vision-11b"]
+    out["launches"] = vlm["launches"]
+    out["fp32_launches"] = vlm["fp32_launches"]
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 18: {out['seconds']:.1f} s ((a) {out['a_seconds']:.1f} s; "
+          + ", ".join(f"{n} {out[n]['seconds']:.1f} s" for n in NEW_ARCHS)
+          + ")", flush=True)
+    return out
+
+
+def gc_cuda(torch) -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it "
@@ -4072,6 +4613,10 @@ def main() -> None:
     del moe
     torch.cuda.empty_cache()
     lm_train = lm_training(torch, dev, smi)
+    gc_cuda(torch)
+    last = last_archs(torch, dev, smi)
+    path_launches.update({"vlm prefill": last["launches"],
+                          "vlm fp32 prefill": last["fp32_launches"]})
     torch.cuda.synchronize()
     print(f"phases: serving {t_serve:.1f} s, training {t_train:.1f} s (of "
           f"which SAT training {sat['seconds']:.1f} s, sampled training "
@@ -4080,7 +4625,9 @@ def main() -> None:
           f"{multi['seconds']:.1f} s), "
           f"LM, GAT and MoE {time.perf_counter() - t0 - t_serve - t_train:.1f}"
           f" s (of which MoE serving {moe_s:.1f} s, LM training "
-          f"{lm_train['seconds']:.1f} s)", flush=True)
+          f"{lm_train['seconds']:.1f} s, the last three architectures "
+          f"{last['seconds']:.1f} s); the script "
+          f"{time.perf_counter() - T_START:.1f} s", flush=True)
     records = serve_records + train_records + lm_records
     kernels = []
     for name, (title, source, replaces, variant) in KERNELS.items():

@@ -1,15 +1,18 @@
 #!/usr/bin/env python
-"""LM serving launcher (PyTorch port): batched KV-cache decode of a dense
-architecture, optionally the DIGEST stale-KV long-context mode.  Runs on
-the card by default:
+"""LM serving launcher (PyTorch port): batched decode of any of the ten
+architectures (KV caches, ``swa`` rings, recurrent states), optionally the
+DIGEST stale-KV long-context mode.  Runs on the card by default:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
       --batch 4 --gen 32 [--long]
 
 ``--device cpu --smoke`` runs the reduced config on the CPU.  Weights are
-random, drawn from ``torch.Generator`` seed 0, and the first tokens from
-seed 1; each step feeds back its argmax token.  Prints ms/token over all
-steps and the steady-state p50/p99 step latency.
+random, drawn on the device by a ``torch.Generator`` there, seed 0 (the
+ten-billion-parameter models would take minutes on the host); the first
+tokens come from seed 1 and, for a VLM, the (B, num_patches, vision_dim)
+patch embeddings its cache is filled from (``precompute_vision_cache``)
+from seed 2.  Each step feeds back its argmax token.  Prints ms/token
+over all steps and the steady-state p50/p99 step latency.
 """
 from __future__ import annotations
 
@@ -21,7 +24,9 @@ import torch
 from repro_torch.configs import get_arch, get_smoke_arch
 from repro_torch.device import resolve_device
 from repro_torch.launch.serving_driver import run_serve_loop
-from repro_torch.models.transformer import ArchConfig, arch_specs, init_cache
+from repro_torch.models.transformer import (ArchConfig, arch_specs,
+                                            init_cache,
+                                            precompute_vision_cache)
 from repro_torch.nn import init_params
 from repro_torch.train import make_serve_step
 
@@ -34,7 +39,8 @@ def long_config(cfg: ArchConfig) -> ArchConfig:
 def serve(cfg: ArchConfig, params, batch: int, max_seq: int, gen: int,
           long: bool = False, device="cuda") -> tuple:
     """Decode ``gen`` tokens for ``batch`` sequences from an empty cache
-    of ``max_seq`` positions, under ``torch.inference_mode``.  Returns
+    of ``max_seq`` positions (a VLM's ``xattn`` entries filled from the
+    seed-2 vision draw), under ``torch.inference_mode``.  Returns
     (ServeStats, [logits (B, 1, vocab) per step], final cache)."""
     dev = resolve_device(device)
     step = make_serve_step(cfg, long=long)
@@ -48,6 +54,10 @@ def serve(cfg: ArchConfig, params, batch: int, max_seq: int, gen: int,
 
     with torch.inference_mode():
         cache = init_cache(cfg, batch, max_seq, long=long, device=dev)
+        if cfg.vision_dim:
+            vis = torch.randn((batch, cfg.num_patches, cfg.vision_dim),
+                              generator=torch.Generator().manual_seed(2))
+            cache = precompute_vision_cache(cfg, params, cache, vis.to(dev))
         (cache, _), outs, stats = run_serve_loop(
             step_fn, range(gen), carry=(cache, toks.to(dev)), warmup=1,
             items_per_call=batch)
@@ -70,8 +80,8 @@ def main(argv=None):
     cfg = get_smoke_arch(args.arch) if args.smoke else get_arch(args.arch)
     if args.long:
         cfg = long_config(cfg)
-    params = init_params(arch_specs(cfg), torch.Generator().manual_seed(0),
-                         dev)
+    params = init_params(arch_specs(cfg),
+                         torch.Generator(device=dev).manual_seed(0), dev)
     stats, _, _ = serve(cfg, params, args.batch, args.max_seq, args.gen,
                         long=args.long, device=dev)
     print(f"arch={cfg.name} long={args.long} batch={args.batch}: "

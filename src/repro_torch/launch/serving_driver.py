@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Iterable
+from typing import Any, Callable, Iterable, Optional
 
 import numpy as np
 import torch
@@ -88,13 +88,14 @@ def run_serve_loop(step_fn: Callable[[Any, Any], tuple],
 
 def profile_serve_loop(step_fn: Callable[[Any, Any], tuple],
                        items: Iterable, carry: Any = None,
-                       top: int = 8) -> dict:
+                       top: Optional[int] = 8) -> dict:
     """Trace ``step_fn`` over ``items`` with ``torch.profiler`` on the
     card: the loop's wall time, the device's busy time (the sum of the
     device ops' self times — one stream, so they do not overlap) and its
-    share of the wall time, and the ``top`` device ops by time.  The
-    profiler's own overhead inflates the wall time, so take latencies from
-    :func:`run_serve_loop` and only the split from here."""
+    share of the wall time, and the ``top`` device ops by time (None:
+    every one).  The profiler's own overhead inflates the wall time, so
+    take latencies from :func:`run_serve_loop` and only the split from
+    here."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -104,15 +105,19 @@ def profile_serve_loop(step_fn: Callable[[Any, Any], tuple],
             carry, out = step_fn(carry, item)
         synchronize((carry, out))
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # Device-side entries only (kernels, copies): the CPU-side aten op that
-    # launched a kernel reports that kernel's time again.
-    ops = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and e.self_device_time_total > 0]
-    ops.sort(key=lambda e: -e.self_device_time_total)
-    device_ms = sum(e.self_device_time_total for e in ops) / 1e3
+    # Device-side entries only (kernels, copies: the CPU-side aten op that
+    # launched a kernel would report its time again), summed by name from
+    # the raw events: ``key_averages`` first parses every CPU op, about a
+    # minute over the ~10^5 launches of an eager recurrent prefill.
+    ops: dict[str, list] = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            calls_ns = ops.setdefault(e.name(), [0, 0])
+            calls_ns[0] += 1
+            calls_ns[1] += e.duration_ns()
+    ranked = sorted(ops.items(), key=lambda kv: -kv[1][1])
+    device_ms = sum(ns for _, ns in ops.values()) / 1e6
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "busy_share": device_ms / wall_ms,
-            "top": [{"op": e.key, "calls": e.count,
-                     "device_ms": e.self_device_time_total / 1e3}
-                    for e in ops[:top]]}
+            "top": [{"op": name, "calls": calls, "device_ms": ns / 1e6}
+                    for name, (calls, ns) in ranked[:top]]}

@@ -1,5 +1,6 @@
-"""Attention of the dense LM transformer: GQA + RoPE + qk-norm, full /
-sliding-window / chunked (flash-style) prefill, and KV-cache decode.
+"""Attention of the LM transformer: GQA + RoPE + qk-norm, full /
+sliding-window / chunked (flash-style) prefill, KV-cache decode, and
+cross-attention (VLM).
 
 Backend policy of :func:`prefill_attention` (``ArchConfig.attn_backend``):
 
@@ -12,8 +13,8 @@ Backend policy of :func:`prefill_attention` (``ArchConfig.attn_backend``):
     online softmax in plain PyTorch (also every ``window > 0`` call).
   * decode (1 token) → :func:`decode_attention`, a plain einsum over the
     cache.
-
-Cross-attention (VLM) is not ported yet (ROADMAP.md §1 item 8d).
+  * text-to-vision (``xattn`` blocks) → :func:`cross_attention`, a plain
+    einsum with no mask, as in the reference.
 """
 from __future__ import annotations
 
@@ -115,3 +116,15 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhs,bshd->bhd", p, vf)
     return out[:, None].to(q.dtype)                        # (B, 1, H, D)
+
+
+def cross_attention(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """Text-to-vision cross attention (no mask), in fp32.  q: (B, S, H, D);
+    k, v: (B, P, KV, D)."""
+    rep = q.shape[2] // k.shape[2]
+    kf = repeat_kv(k, rep).float()
+    vf = repeat_kv(v, rep).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * q.shape[-1] ** -0.5, kf)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)

@@ -586,7 +586,7 @@ def _bf16_bar(w):
 @pytest.mark.parametrize("b,s,h,kv,d", [
     (1, 1, 1, 1, 16), (2, 100, 4, 2, 32), (1, 256, 8, 8, 64),
     (2, 130, 6, 2, 96), (2, 512, 16, 8, 128), (2, 200, 16, 2, 112),
-    (1, 300, 40, 8, 128), (1, 130, 10, 2, 112)])
+    (1, 300, 40, 8, 128), (1, 130, 10, 2, 112), (4, 1024, 32, 8, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_kernel(dev, b, s, h, kv, d, dtype, causal):
@@ -594,7 +594,8 @@ def test_flash_attention_kernel(dev, b, s, h, kv, d, dtype, causal):
     layout) against its plain version, equal bit for bit to the same
     call on contiguous 3-D tensors with K/V rows bh // rep; kimi-k2's head
     dim 112 and llama4-scout's five query heads a KV head (the bf16
-    body's one-warpgroup blocks), alone and together."""
+    body's one-warpgroup blocks), alone and together; llama-3.2-vision's
+    prefill shape (B 4, S 1024, 32 query heads over 8 KV heads)."""
     gen = torch.Generator().manual_seed(b * s + d)
     q = torch.randn((b, s, h, d), generator=gen).to(dev, dtype)
     k = torch.randn((b, s, kv, d), generator=gen).to(dev, dtype)

@@ -41,7 +41,11 @@ from repro_torch.train import trainer as ttrainer
 
 REL = 1e-5
 TRAJ = 1e-4
-ADAFACTOR = ("deepseek_coder_33b", "kimi_k2_1t_a32b")
+# Adafactor: a dense and a MoE config, and the two new families whose
+# published optimizer it is.
+ADAFACTOR = ("deepseek_coder_33b", "kimi_k2_1t_a32b", "recurrentgemma_9b",
+             "llama_3_2_vision_11b")
+XATTN_GATE = 0.5
 
 
 @pytest.fixture(autouse=True)
@@ -153,15 +157,30 @@ def test_state_trees_match_reference(name, over, n_pod):
 # One step, trajectories, the stacked pod form
 # ---------------------------------------------------------------------------
 
+def _open_gates(jstate):
+    """The reference's state with every ``xattn`` gate at XATTN_GATE (zero
+    at init, where the cross-attention adds nothing)."""
+    params = jax.tree.map(np.array, jstate["params"])
+    for block in [*params["pattern"], *params["tail"]]:
+        if "gate" in block:
+            block["gate"][...] = XATTN_GATE
+    return dict(jstate, params=jax.tree.map(jnp.asarray, params))
+
+
 @pytest.mark.parametrize("name,optimizer", [
     *((n, None) for n in PORTED), *((n, "adafactor") for n in ADAFACTOR)])
 def test_one_step_matches_reference(name, optimizer):
+    """Every architecture; the VLM's batch carries a (B, num_patches,
+    vision_dim) vision input and its gates are open."""
     over = {"optimizer": optimizer} if optimizer else {}
     jcfg, tcfg = _configs(name, **over)
     jset, tset = _settings()
-    jstate = jtrain.init_train_state(jcfg, jset)
+    jstate = _open_gates(jtrain.init_train_state(jcfg, jset))
     tstate = _to_port(jstate)
     b = _batches(jcfg.vocab_size, 1, batch=2, seq=16, seed=1)[0]
+    if jcfg.vision_dim:
+        b["vision"] = np.random.default_rng(2).normal(
+            size=(2, jcfg.num_patches, jcfg.vision_dim)).astype(np.float32)
 
     def both(state, batch):
         grad = jax.value_and_grad(
