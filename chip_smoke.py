@@ -265,10 +265,37 @@ Phases, each ending the run with a non-zero exit on failure:
     teacher-forced steps at batch 1 against the prefill, fp32 within
     2e-2 of max |logit| or, where larger, twice the fp32 prefill's own
     one-ulp sensitivity (embeddings, then every parameter, one ulp up:
-    xlstm's 48 layers amplify rounding past 2e-2), bf16 printed; the VLM (vision (4, 1601, 1280)
+    xlstm's 48 layers amplify rounding past 2e-2), bf16 within 2e-2 or
+    twice the bf16 prefill's one-ulp sensitivity (every input embedding
+    one bf16 ulp up, phase 9's rule); the VLM (vision (4, 1601, 1280)
     from seed 2) through K6 (32 launches a prefill) against the chunked
     oracle in bf16 at twice its one-ulp sensitivity and the dense one in
     fp32 at 1e-4.  No kernel but K6 launches in the phase.
+19. The mesh forms, on gloo ranks sharing card 0 (three groups spawned
+    together at the phase's start): (a) 4 ranks at the SMOKE widths in
+    fp32: the expert-parallel ``moe_ep`` of llama4-scout's and kimi-k2's
+    MoE blocks over ("data", "model") = 2 x 2 and 1 x 4 meshes and a
+    replicated batch of 1, against the single-device ``moe_ep`` of each
+    batch block on the CPU (1e-5) and the card (1e-4), the census of a
+    call; the LM trainer's (pod 2, data 2) form (data parallelism inside
+    each pod) against the stacked form for qwen3-0.6b and llama4-scout
+    (its aux loss): the step-1 gradient within 1e-5 of a leaf's max, 8
+    steps' metrics within 1e-4, the census of every step, the two data
+    ranks of a pod holding the same bits; (b) llama4-scout at its
+    published widths, 2 layers, ``moe_impl="ep"`` over a 1 x 2 ("data",
+    "model") mesh, 8 of the 16 experts a rank (each drawn leaf by leaf
+    from the single process's CUDA generator): bf16 prefills of 4 x 1024
+    through K6 at capacities 16 and 1.25, 32 teacher-forced decode steps
+    at batch 4 in bf16 and fp32, against this process's single run on the
+    same weights (bit for bit, or within 1e-4 over the tokens no route
+    tie moved, in bf16 within twice its own one-ulp change), ms a prefill
+    and a token, the census (one ``all_gather`` a MoE call), the bytes
+    gathered and peak memory a rank; (c) qwen3-0.6b at its published
+    widths, the ``every_step`` baseline over ("data",) = 2, 4 steps of 4 x
+    1024 tokens against the single process on the same batches: losses
+    within 1e-4, the step-1 gradient within 1e-5 of a leaf's max, step ms,
+    the gradient gather's bytes and ms, peak memory a rank.  Only K6
+    launches, twice a prefill on each rank of (b).
 
 Each path's launch counters are set to 0 just before it and read just
 after; the oracle runs launch nothing.  The last lines are the card's
@@ -277,7 +304,8 @@ kernel's launches on its paths (phase 12's as "sat training", phase
 13's as "sampled training", phase 14's as "async training", phase 15's
 as "collective training" and "sharded serving", summed over its ranks,
 phase 17's as "lm training", 0 for every kernel, phase 18's VLM
-prefills as "vlm prefill" and "vlm fp32 prefill"),
+prefills as "vlm prefill" and "vlm fp32 prefill", phase 19's as "moe ep
+mesh prefill", summed over (b)'s ranks, each rank's beside it),
 its
 worst error, its bar and the times of its main-path variant; K3's also
 its chunk walk's and its times at the training shape; K6 one entry a
@@ -409,7 +437,8 @@ SERVING_KERNELS = ("spmm", "halo_spmm", "halo_spmm_stream")
 TRAINING_KERNELS = ("spmm", "halo_spmm", "halo_spmm_skip", "spmm_bwd_table",
                     "spmm_bwd_wts")
 # The paths each later kernel runs on, beside serving and training.
-PATH_OF = {"flash_attention": ("prefill", "moe prefill", "vlm prefill"),
+PATH_OF = {"flash_attention": ("prefill", "moe prefill", "vlm prefill",
+                               "moe ep mesh prefill"),
            "flash_attention_fp32": ("fp32 prefill", "moe fp32 prefill",
                                     "vlm fp32 prefill"),
            "gat_edge_partial": ("gat_aggregate",)}
@@ -520,6 +549,39 @@ NEW_TEACHER = 64
 NEW_TRACED = 4         # decode steps traced after the served ones
 XATTN_GATE = 0.5
 
+# Phase 19: the mesh forms, on gloo ranks sharing card 0 (contention, not
+# scaling).  (a) MESH_SMOKE_WORLD ranks at the SMOKE widths in fp32: the
+# expert-parallel moe_ep of llama4-scout's and kimi-k2's SMOKE MoE blocks
+# on LM_SMOKE_BATCH x MESH_MOE_SEQ tokens over ("data", "model") = 2 x 2
+# and 1 x 4 meshes and a replicated batch of 1, against the single-device
+# moe_ep of each batch block (the same capacity) on the CPU at TOL and on
+# the card at MOE_EP_TOL; the trainer's (pod 2, data 2) form against the
+# stacked form (LM_POD_STEPS steps at interval LM_POD_INTERVAL): the
+# step-1 gradient within TOL of a leaf's max, the metrics within
+# TRAJ_TOL.  (b)
+# llama4-scout at its published widths, MOE_LAYERS layers, moe_impl "ep",
+# on a 1 x 2 ("data", "model") mesh (8 of the 16 experts a rank): bf16
+# prefills through K6 at MOE_DROPLESS_CF and the config's factor and
+# MESH_DECODE teacher-forced decode steps in bf16 and fp32, against the
+# single process on the same CUDA-generator weights (run here before the
+# ranks draw theirs): the MoE blocks' outputs, the logits at
+# MESH_LOGIT_ROWS seeded rows (decode: at MESH_LOGIT_ROWS seeded
+# vocabulary ids), bit for bit or within MOE_EP_TOL of their max over the
+# tokens no route tie moved, in bf16 within LM_BF16_SENS_FACTOR times the
+# single process's own one-ulp change where larger (ep_compare).  (c)
+# qwen3-0.6b at its published widths, the every_step baseline on
+# ("data",) = 2, MESH_DP_STEPS steps of the LM slice's LM_BATCH x LM_SEQ
+# tokens against the single process: the losses within TRAJ_TOL, the
+# step-1 gradient within TOL of a leaf's max or twice its own bf16
+# one-ulp change where larger (mesh_dp_job; the params after step 1
+# printed: Adam's first step amplifies rounding, params_diff).
+MESH_SMOKE_WORLD = 4
+MESH_MOE_SEQ = 64
+MESH_EP_WORLD = 2
+MESH_DECODE = 32
+MESH_LOGIT_ROWS = 64
+MESH_DP_WORLD = 2
+MESH_DP_STEPS = 4
 
 # Kernels redesigned for Hopper, by source: ptxas's register and spill
 # lines of their instantiations are printed after the build.
@@ -1837,6 +1899,8 @@ def sampled_training(torch, dev, data, raw_epoch_ms, smi) -> dict:
     from repro_torch.graph import build_sampler
     from repro_torch.kernels import _build
     from repro_torch.launch.serving_driver import profile_serve_loop
+    from repro_torch.models.gnn import gnn_specs
+    from repro_torch.nn import param_count
     from repro_torch.optim import adam, sgd
 
     lr = digest_gcn.CONFIG.learning_rate
@@ -2055,7 +2119,7 @@ def sampled_training(torch, dev, data, raw_epoch_ms, smi) -> dict:
 
     # The analytic model (datasheet H100 constants, not a measurement).
     sp, g = data["_sp"], data["_graph"]
-    pc = sum(p.numel() for p in _leaves(params))
+    pc = param_count(gnn_specs(cfg))
     consts = comm_model.CommConstants()
     model = {}
     for mode in ("partition", "digest", "propagation"):
@@ -3318,8 +3382,11 @@ def record_routes() -> list:
     """Make the MoE router (``repro_torch.models.moe._route``, which
     ``moe_ref`` and the capacity path call once a layer) also append each
     call's (top-k ids, router logits) to the returned list; the caller
-    clears it before a run."""
+    clears it before a run.  A second call returns the first one's
+    list."""
     from repro_torch.models import moe
+    if hasattr(moe._route, "log"):          # recorded already
+        return moe._route.log
     log = []
     route = moe._route
 
@@ -3328,6 +3395,7 @@ def record_routes() -> list:
         log.append((out[1], out[2]))
         return out
 
+    recorded.log = log
     moe._route = recorded
     return log
 
@@ -4472,11 +4540,12 @@ def new_arch_full(torch, dev, name, smi) -> dict:
           f"; top {top_ops(dprof)}", flush=True)
 
     out["through_serve_s"] = time.perf_counter() - t_model
-    # Teacher forcing at batch 1 against the prefill of the same tokens:
-    # fp32 held at the reference's decode bar, or at twice the model's own
-    # fp32 rounding sensitivity where that is larger (a deep xLSTM's
-    # normaliser amplifies rounding: PERF.md section 6); bf16
-    # printed.
+    # Teacher forcing at batch 1 against the prefill of the same tokens,
+    # each dtype held at the reference's decode bar, or at twice the
+    # prefill's own one-ulp sensitivity where that is larger (a deep
+    # xLSTM's normaliser amplifies rounding: PERF.md section 6): in fp32
+    # the embeddings and then every parameter one fp32 ulp up, in bf16
+    # every input embedding one bf16 ulp up (phase 9's rule).
     toks = tokens[shapes[0]][:1, :NEW_TEACHER]
     with torch.inference_mode():
         for key, c in (("fp32", dataclasses.replace(cfg, dtype="float32")),
@@ -4486,6 +4555,15 @@ def new_arch_full(torch, dev, name, smi) -> dict:
                 out["fp32_ulp_sensitivity"] = ulp_sensitivity(
                     torch, lambda: forward(c, params, toks, vis_of(1)),
                     params, ref)
+            else:
+                emb = params["embed"].to(torch.bfloat16)
+                bumped = (emb.view(torch.int16) + 1).view(
+                    torch.bfloat16).float()
+                del emb
+                out["bf16_ulp_sensitivity"] = scale_rel(
+                    forward(c, dict(params, embed=bumped), toks, vis_of(1)),
+                    ref)
+                del bumped
             cache = init_cache(c, 1, NEW_TEACHER, device=dev)
             if vlm:
                 precompute_vision_cache(c, params, cache, vis_of(1))
@@ -4497,18 +4575,18 @@ def new_arch_full(torch, dev, name, smi) -> dict:
             out[f"decode_vs_prefill_rel_err_{key}"] = rel
             out[f"decode_vs_prefill_bar_ratio_{key}"] = rel / DECODE_TOL
             del cache, steps, ref
-    sens = out["fp32_ulp_sensitivity"]
-    bar = max(DECODE_TOL, LM_BF16_SENS_FACTOR * sens)
-    out["decode_fp32_bar"] = bar
-    print(f"phase 18 {cfg.name} teacher-forced decode vs prefill: fp32 "
-          f"{out['decode_vs_prefill_rel_err_fp32']:.4e} of max |logit| "
-          f"({out['decode_vs_prefill_bar_ratio_fp32']:.3f} of {DECODE_TOL}; "
-          f"the fp32 prefill's one-ulp sensitivity {sens:.4e}, bar "
-          f"{bar:.4e}), bf16 {out['decode_vs_prefill_rel_err_bf16']:.4e} "
-          f"(printed, not held)", flush=True)
-    check(out["decode_vs_prefill_rel_err_fp32"] < bar,
-          f"{cfg.name} teacher-forced fp32 decode differs from the prefill "
-          f"by {out['decode_vs_prefill_rel_err_fp32']:.3e} (bar {bar:.3e})")
+    for key in ("fp32", "bf16"):
+        sens = out[f"{key}_ulp_sensitivity"]
+        bar = max(DECODE_TOL, LM_BF16_SENS_FACTOR * sens)
+        out[f"decode_{key}_bar"] = bar
+        err = out[f"decode_vs_prefill_rel_err_{key}"]
+        print(f"phase 18 {cfg.name} teacher-forced {key} decode vs "
+              f"prefill: {err:.4e} of max |logit| "
+              f"({out[f'decode_vs_prefill_bar_ratio_{key}']:.3f} of "
+              f"{DECODE_TOL}; the {key} prefill's one-ulp sensitivity "
+              f"{sens:.4e}, bar {bar:.4e})", flush=True)
+        check(err < bar, f"{cfg.name} teacher-forced {key} decode differs "
+              f"from the prefill by {err:.3e} (bar {bar:.3e})")
     out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     out["seconds"] = time.perf_counter() - t_model
     del params, tokens, vision
@@ -4540,6 +4618,767 @@ def last_archs(torch, dev, smi) -> dict:
     print(f"phase 18: {out['seconds']:.1f} s ((a) {out['a_seconds']:.1f} s; "
           + ", ".join(f"{n} {out[n]['seconds']:.1f} s" for n in NEW_ARCHS)
           + ")", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: the mesh forms (expert-parallel MoE, data-parallel training)
+# ---------------------------------------------------------------------------
+
+def mesh_rank(rank: int, world: int, tmp: str, job: str) -> None:
+    """One gloo rank of phase 19's (a), (b) or (c), all ranks sharing card
+    0.  It joins its group at once, then waits for the go file the
+    parent writes when the card has room for the job; writes its report
+    to ``tmp``.  A failed check exits the rank non-zero, which fails the
+    script."""
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    torch.set_num_threads(1)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.zeros(1, device=dev)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store-{job}",
+                            world_size=world, rank=rank)
+    try:
+        while not Path(f"{tmp}/go-{job}").exists():
+            time.sleep(0.05)
+        out = MESH_JOBS[job](torch, dev, rank, world, tmp)
+        torch.save(out, f"{tmp}/{job}-r{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def gather_meter() -> dict:
+    """Make ``collectives.all_gather`` also add, to the returned dict, the
+    bytes this rank receives (the other ranks' tensors) and the
+    milliseconds it takes (synchronised on both sides); the caller zeroes
+    it before a run.  A second call returns the first one's dict."""
+    import torch
+
+    from repro_torch.core import collectives
+    if hasattr(collectives.all_gather, "meter"):
+        return collectives.all_gather.meter
+    meter = {"bytes": 0, "ms": 0.0}
+    inner = collectives.all_gather
+
+    def metered(tensor, group=None):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        outs = inner(tensor, group)
+        torch.cuda.synchronize()
+        meter["ms"] += (time.perf_counter() - t) * 1e3
+        meter["bytes"] += (len(outs) - 1) * tensor.numel() * \
+            tensor.element_size()
+        return outs
+
+    metered.meter = meter
+    collectives.all_gather = metered
+    return meter
+
+
+def record_moe_outputs() -> list:
+    """Make the transformer's MoE FFN (``models.transformer.moe_ffn``)
+    also append each call's output to the returned list; the caller
+    clears it before a run.  A second call returns the first one's
+    list."""
+    from repro_torch.models import transformer
+    if hasattr(transformer.moe_ffn, "log"):
+        return transformer.moe_ffn.log
+    log = []
+    inner = transformer.moe_ffn
+
+    def recorded(*args, **kw):
+        out = inner(*args, **kw)
+        log.append(out)
+        return out
+
+    recorded.log = log
+    transformer.moe_ffn = recorded
+    return log
+
+
+def dev_rel(got, want) -> float:
+    """max |got - want| over max |want|, on the tensors' device."""
+    return float((got.float() - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), 1e-30)
+
+
+def leaf_err(torch, want, got) -> float:
+    """The largest max |got - want| of a leaf over the leaf's max |want|
+    (two trees of equal structure)."""
+    from repro_torch.optim import tree_leaves
+    return max(dev_rel(g, w) for w, g in zip(tree_leaves(want),
+                                             tree_leaves(got)))
+
+
+def params_diff(torch, want, got) -> dict:
+    """Two parameter trees after an optimizer step: the largest absolute
+    difference, and the largest of a leaf over its max |want| with that
+    leaf's index and max.  Printed, not held: Adam's first step moves an
+    element by lr·g/(|g| + eps), so an element whose summands cancel to
+    within a few eps moves by a visible share of lr when the sums'
+    rounding changes; the gradients and the loss trajectory carry the
+    bars."""
+    from repro_torch.optim import tree_leaves
+    rows = [(float((g.float() - w.float()).abs().max()),
+             float(w.float().abs().max()))
+            for w, g in zip(tree_leaves(want), tree_leaves(got))]
+    rel = [a / max(m, 1e-30) for a, m in rows]
+    worst = max(range(len(rel)), key=rel.__getitem__)
+    return {"abs": max(a for a, _ in rows), "rel": rel[worst],
+            "rel_leaf": worst, "rel_leaf_max": rows[worst][1]}
+
+
+def mesh_smoke_job(torch, dev, rank, world, tmp) -> dict:
+    """Phase 19 (a), one of MESH_SMOKE_WORLD ranks: moe_ep over meshes and
+    the trainer's (pod 2, data 2) form at the SMOKE widths."""
+    from repro_torch.configs import get_smoke_arch
+    from repro_torch.core import collectives
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import arch_specs
+    from repro_torch.nn import init_params
+    from repro_torch.optim import tree_leaves
+    from repro_torch.train import (TrainSettings, init_train_state,
+                                   make_train_step, trainer)
+
+    cpu = torch.device("cpu")
+    _build.reset_launches()
+    meshes = {"data 2 x model 2": make_mesh(2, model=2),
+              "data 1 x model 4": make_mesh(1, model=4)}
+    out = {"moe": {}, "train": {}}
+    for arch in (MOE_ARCH, "kimi-k2-1t-a32b"):
+        cfg = get_smoke_arch(arch)
+        block = init_params(arch_specs(cfg), torch.Generator().manual_seed(0),
+                            cpu)["pattern"][0]
+        p_cpu = {"router": block["router"][0], "w_gate": block["w_gate_e"][0],
+                 "w_up": block["w_up_e"][0], "w_down": block["w_down_e"][0]}
+        p_dev = {key: v.to(dev) for key, v in p_cpu.items()}
+        x_all = torch.randn(LM_SMOKE_BATCH, MESH_MOE_SEQ, cfg.d_model,
+                            generator=torch.Generator().manual_seed(2))
+        k, cf = cfg.experts_per_token, cfg.moe_capacity_factor
+        for label, b in (("data 2 x model 2", LM_SMOKE_BATCH),
+                         ("data 1 x model 4", LM_SMOKE_BATCH),
+                         ("data 2 x model 2", 1)):
+            mesh, x = meshes[label], x_all[:b]
+            collectives.reset_collectives()
+            y = moe.moe_ep(x.to(dev), p_dev, k, capacity_factor=cf,
+                           mesh=mesh)
+            census = dict(collectives.COLLECTIVES)
+            n = 2 if label.startswith("data 2") and b % 2 == 0 else 1
+            single_cpu = torch.cat([moe.moe_ep(blk, p_cpu, k,
+                                               capacity_factor=cf)
+                                    for blk in x.chunk(n)])
+            single = torch.cat([moe.moe_ep(blk.to(dev), p_dev, k,
+                                           capacity_factor=cf)
+                                for blk in x.chunk(n)])
+            sharded = moe.moe_ep(x.to(dev), moe.shard_experts(p_dev, mesh),
+                                 k, capacity_factor=cf, mesh=mesh)
+            key = f"{arch} {label} B{b}"
+            res = {"vs_cpu": scale_rel(y, single_cpu),
+                   "vs_card_single": dev_rel(y, single),
+                   "card_single_bitwise": torch.equal(y, single),
+                   "sharded_bitwise": torch.equal(y, sharded),
+                   "census": census, "blocks": n}
+            check(res["vs_cpu"] <= TOL, f"(a) {key}: moe_ep over the mesh "
+                  f"vs the CPU's single device {res['vs_cpu']:.3e}")
+            check(res["vs_card_single"] <= MOE_EP_TOL
+                  and dev_rel(sharded, y) <= MOE_EP_TOL,
+                  f"(a) {key}: moe_ep over the mesh vs the card's single "
+                  f"device {res['vs_card_single']:.3e}")
+            check(census == {"all_gather": 1 + (n > 1)},
+                  f"(a) {key}: census {census}")
+            res["y"] = y.cpu()
+            out["moe"][key] = res
+    mesh = make_mesh(2, 2)
+    pod = mesh.get_local_rank("pod")
+    for arch in (LM_TRAIN_ARCH, MOE_ARCH):
+        cfg = get_smoke_arch(arch)
+        stacked = TrainSettings(sync_mode="digest", n_pod=2,
+                                sync_interval=LM_POD_INTERVAL,
+                                total_steps=LM_SMOKE_STEPS, warmup_steps=2)
+        pods = dataclasses.replace(stacked, pod_impl="shard_map")
+        batches = _lm_batches(torch, cfg, LM_POD_STEPS, LM_SMOKE_BATCH,
+                              LM_SMOKE_SEQ, 3, dev)
+        sb = init_train_state(cfg, stacked, device=dev)
+        sc = init_train_state(cfg, pods, device=dev)
+        # The step-1 gradient: the data ranks' shares summed, against the
+        # pod batch's.
+        pod_batch = {key: trainer._pod_slice(v, pod, 2)
+                     for key, v in batches[0].items()}
+        split = trainer._DataSplit(mesh, ["data"])
+        want = trainer.loss_and_grads(cfg, pods, sc["params"], pod_batch)
+        got = trainer._sum_shares(split, *trainer.loss_and_grads(
+            cfg, pods, sc["params"],
+            {key: split.rows(v) for key, v in pod_batch.items()}, split))
+        res = {"grad_err": leaf_err(torch, want[2], got[2]),
+               "loss_rel": [], "params_err": [], "census": []}
+        del want, got
+        fb, fc = make_train_step(cfg, stacked), make_train_step(cfg, pods,
+                                                                 mesh)
+        for b in batches:
+            sb, mb = fb(sb, b)
+            collectives.reset_collectives()
+            sc, mc = fc(sc, b)
+            res["census"].append(dict(collectives.COLLECTIVES))
+            res["loss_rel"].append(max(
+                abs(float(mc[key]) - float(mb[key]))
+                / max(abs(float(mb[key])), 1e-30)
+                for key in ("loss", "ce", "aux")))
+            res["params_err"].append(params_diff(
+                torch, [x[pod] for x in tree_leaves(sb["params"])],
+                tree_leaves(sc["params"])))
+        aux = int(cfg.num_experts > 0)
+        want_census = [{"all_reduce": 1, "all_gather": 2 + aux + (
+            (s + 1) % LM_POD_INTERVAL == 0)} for s in range(LM_POD_STEPS)]
+        if rank == 0:
+            print(f"phase 19 (a) {arch} pod 2 x data 2 vs stacked, rank 0: "
+                  + json.dumps(res), flush=True)
+        check(res["grad_err"] <= TOL, f"(a) {arch} pod 2 x data 2: step-1 "
+              f"gradient {res['grad_err']:.3e} of a leaf's max")
+        check(max(res["loss_rel"]) <= TRAJ_TOL, f"(a) {arch} pod 2 x data "
+              f"2: trajectory {res['loss_rel']}")
+        check(res["census"] == want_census, f"(a) {arch} pod 2 x data 2: "
+              f"census {res['census']}")
+        res["checksum"] = [int(p.view(torch.int32).long().sum())
+                           for p in tree_leaves(sc["params"])]
+        out["train"][arch] = res
+    out["pod"] = pod
+    out["launches"] = dict(_build.LAUNCHES)
+    return out
+
+
+def ep_config():
+    """Phase 19 (b)'s llama4-scout: published widths, MOE_LAYERS layers,
+    K6 on its attention, the expert-parallel ``moe_ep``."""
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(MOE_ARCH), num_layers=MOE_LAYERS,
+                               attn_backend="kernel", moe_impl="ep")
+
+
+def ep_weights(torch, cfg, dev, mesh=None):
+    """``init_params(arch_specs(cfg))`` from a CUDA generator (seed 0) on
+    the card, drawn one leaf at a time in its order; with ``mesh`` each
+    expert leaf keeps only this rank's rows as soon as it is drawn, so a
+    rank never holds every expert."""
+    from repro_torch.launch.mesh import dim_size
+    from repro_torch.models.moe import expert_rows
+    from repro_torch.models.transformer import arch_specs
+    from repro_torch.nn import ParamSpec, init_params
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def draw(node, name=""):
+        if isinstance(node, ParamSpec):
+            t = init_params(node, gen, dev)
+            if mesh is not None and name.endswith("_e"):
+                t = expert_rows(t, cfg.num_experts,
+                                mesh.get_local_rank("model"),
+                                dim_size(mesh, "model"), len(t.shape) - 3)
+            return t
+        if isinstance(node, (list, tuple)):
+            return [draw(v) for v in node]
+        return {k: draw(node[k], k) for k in sorted(node)}
+
+    return draw(arch_specs(cfg))
+
+
+def ep_inputs(torch, cfg, dev) -> tuple:
+    """Phase 16's tokens (CPU generator, seed 1), the seeded logit rows
+    of a prefill and vocabulary ids of decode's logits."""
+    tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ),
+                           generator=torch.Generator().manual_seed(1)
+                           ).to(dev)
+    g = torch.Generator().manual_seed(4)
+    rows = torch.randperm(LM_BATCH * LM_SEQ, generator=g)[:MESH_LOGIT_ROWS]
+    cols = torch.randperm(cfg.vocab_size, generator=g)[:MESH_LOGIT_ROWS]
+    return tokens, rows.to(dev), cols.to(dev)
+
+
+def ep_decode(torch, cfg, params, tokens, cols, mesh=None) -> dict:
+    """MESH_DECODE teacher-forced decode steps at batch LM_BATCH: the
+    logits at ``cols`` ((b, t) rows), the routes, the median ms a token
+    (steps 2 on, synchronised), the census and the gathers."""
+    from repro_torch.core import collectives
+    from repro_torch.models.transformer import decode_step, init_cache
+    routes, meter = record_routes(), gather_meter()
+    cache = init_cache(cfg, LM_BATCH, MESH_DECODE, device=tokens.device)
+    routes.clear()
+    collectives.reset_collectives()
+    meter.update(bytes=0, ms=0.0)
+    steps, times = [], []
+    for t in range(MESH_DECODE):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = decode_step(cfg, params, cache, tokens[:, t:t + 1],
+                                mesh=mesh)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        steps.append(lg[:, 0, cols])
+    out = {"logits": torch.stack(steps, 1).reshape(-1, len(cols)),
+           "routes": decode_routes(routes, cfg.num_layers, LM_BATCH),
+           "ms_per_token": statistics.median(times[1:]),
+           "census": dict(collectives.COLLECTIVES),
+           "gather_bytes": meter["bytes"], "gather_ms": meter["ms"]}
+    routes.clear()
+    return out
+
+
+def ep_run(torch, cfg, params, tokens, rows, cols, mesh=None,
+           warm: bool = True) -> dict:
+    """Phase 19 (b)'s runs on one process or one rank: a warm-up bf16
+    prefill, then one at each factor (MoE outputs, routes, the logits at
+    ``rows``, ms, launches, census, gather bytes), and decode
+    (:func:`ep_decode`) in bf16 and in fp32 activations."""
+    from repro_torch.core import collectives
+    from repro_torch.kernels import _build
+    from repro_torch.models.transformer import forward
+    routes, moe_log = record_routes(), record_moe_outputs()
+    meter = gather_meter()
+    out = {}
+    with torch.inference_mode():
+        if warm:
+            forward(cfg, params, tokens, mesh=mesh)
+        for cf in (MOE_DROPLESS_CF, cfg.moe_capacity_factor):
+            c = dataclasses.replace(cfg, moe_capacity_factor=cf)
+            routes.clear()
+            moe_log.clear()
+            collectives.reset_collectives()
+            meter.update(bytes=0, ms=0.0)
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t = time.perf_counter()
+            logits = forward(c, params, tokens, mesh=mesh)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            out[cf] = {
+                "ms": ms, "launches": dict(_build.LAUNCHES),
+                "census": dict(collectives.COLLECTIVES),
+                "gather_bytes": meter["bytes"], "gather_ms": meter["ms"],
+                "moe": [o.clone() for o in moe_log],
+                "routes": [(i.clone(), lg.clone()) for i, lg in routes],
+                "logits": logits.reshape(-1, cfg.vocab_size)[rows].clone()}
+            check(bool(torch.isfinite(logits).all()),
+                  f"(b) prefill at capacity {cf}: logits not finite")
+            del logits
+        routes.clear()
+        moe_log.clear()
+        out["decode"] = ep_decode(torch, cfg, params, tokens, cols, mesh)
+        out["decode_fp32"] = ep_decode(
+            torch, dataclasses.replace(cfg, dtype="float32"), params, tokens,
+            cols, mesh)
+    return out
+
+
+def ep_sensitivity(torch, base: dict, moved: dict, cfs, rows) -> dict:
+    """The single process's own bf16 rounding sensitivity: how far its
+    MoE outputs and logits move when every input embedding moves one bf16
+    ulp (``moved``), over the tokens no route flip between the two runs
+    moved, relative to the largest value (phase 9's rule)."""
+    out = {}
+    for cf in cfs:
+        d = route_diff(torch, moved[cf]["routes"], base[cf]["routes"],
+                       LM_BATCH)
+        out[cf] = {
+            "moe": max(rows_rel_err(m, b, d["moved"])
+                       for m, b in zip(moved[cf]["moe"], base[cf]["moe"])),
+            "logits": rows_rel_err(moved[cf]["logits"], base[cf]["logits"],
+                                   d["moved"][rows])}
+    d = route_diff(torch, moved["decode"]["routes"], base["decode"]["routes"],
+                   LM_BATCH)
+    out["decode"] = rows_rel_err(moved["decode"]["logits"],
+                                 base["decode"]["logits"], d["moved"])
+    return out
+
+
+def ep_compare(torch, cfg, got: dict, want: dict, rows) -> dict:
+    """The mesh run against the single process, over the tokens no route
+    tie moved (phase 16's rule): bit for bit, or the MoE blocks' outputs
+    and the logit rows within MOE_EP_TOL of their max, in bf16 within
+    LM_BF16_SENS_FACTOR times the single process's own one-ulp change
+    where that is larger (a product's kernel may differ between 8 and 16
+    experts, and one bf16 rounding of the hidden activation then moves);
+    fp32 decode at MOE_EP_TOL."""
+    sens = want["sens"]
+
+    def to(x, like):
+        return x.to(like.device)
+
+    def diff(g_routes, w_routes):
+        return route_diff(torch, g_routes, [tuple(to(x, g_routes[0][0])
+                                                  for x in r)
+                                            for r in w_routes], LM_BATCH)
+
+    res = {}
+    for cf in (MOE_DROPLESS_CF, cfg.moe_capacity_factor):
+        g, w = got[cf], want[cf]
+        d = diff(g["routes"], w["routes"])
+        ties = d["ties"]
+        res[cf] = {
+            "bitwise": all(torch.equal(a, to(b, a)) for a, b in
+                           zip(g["moe"] + [g["logits"]],
+                               w["moe"] + [w["logits"]])),
+            "moe_rel_err": max(rows_rel_err(a, to(b, a), ties)
+                               for a, b in zip(g["moe"], w["moe"])),
+            "logit_rel_err": rows_rel_err(g["logits"],
+                                          to(w["logits"], g["logits"]),
+                                          ties[rows]),
+            "moe_bar": max(MOE_EP_TOL, LM_BF16_SENS_FACTOR * sens[cf]["moe"]),
+            "logit_bar": max(MOE_EP_TOL,
+                             LM_BF16_SENS_FACTOR * sens[cf]["logits"]),
+            "flips": [f for f in d["flips"]], "tie_tokens": int(ties.sum())}
+    for key, bar in (("decode", max(MOE_EP_TOL, LM_BF16_SENS_FACTOR
+                                    * sens["decode"])),
+                     ("decode_fp32", MOE_EP_TOL)):
+        g, w = got[key], want[key]
+        d = diff(g["routes"], w["routes"])
+        res[key] = {"bitwise": torch.equal(g["logits"],
+                                           to(w["logits"], g["logits"])),
+                    "logit_rel_err": rows_rel_err(
+                        g["logits"], to(w["logits"], g["logits"]),
+                        d["ties"]),
+                    "logit_bar": bar, "flips": d["flips"],
+                    "tie_tokens": int(d["ties"].sum())}
+    print(f"phase 19 (b) mesh vs single process: {json.dumps(res)}",
+          flush=True)
+    for key, r in res.items():
+        wild = [f for f in r["flips"] if f["gap"] >= MOE_TIE]
+        check(not wild, f"(b) {key}: routes flipped off a tie {wild[:4]}")
+        check(r["logit_rel_err"] <= r["logit_bar"]
+              and r.get("moe_rel_err", 0.0) <= r.get("moe_bar", 1.0),
+              f"(b) {key}: mesh vs single process {r}")
+        r["flips"] = len(r["flips"])
+    return res
+
+
+def ep_reference(torch, dev, tmp: str) -> dict:
+    """Phase 19 (b)'s single process: (b)'s runs without a mesh, and once
+    more with every input embedding one bf16 ulp up (its sensitivity),
+    saved to ``tmp`` for the ranks; the card is left empty."""
+    cfg = ep_config()
+    t0 = time.perf_counter()
+    params = ep_weights(torch, cfg, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens, rows, cols = ep_inputs(torch, cfg, dev)
+    res = ep_run(torch, cfg, params, tokens, rows, cols)
+    emb = params["embed"].to(torch.bfloat16)
+    params["embed"] = (emb.view(torch.int16) + 1).view(torch.bfloat16).float()
+    del emb
+    cfs = (MOE_DROPLESS_CF, cfg.moe_capacity_factor)
+    res["sens"] = ep_sensitivity(
+        torch, res, ep_run(torch, cfg, params, tokens, rows, cols,
+                           warm=False), cfs, rows)
+    del params, tokens
+    gc_cuda(torch)
+
+    def host(v):
+        if isinstance(v, dict):
+            return {k: host(x) for k, x in v.items()}
+        if isinstance(v, (list, tuple)):
+            return [host(x) for x in v]
+        return v.cpu() if isinstance(v, torch.Tensor) else v
+
+    torch.save(host(res), f"{tmp}/ep-ref.pt")
+    return {"init_s": init_s,
+            "prefill_ms": {cf: res[cf]["ms"] for cf in cfs},
+            "launches": {cf: res[cf]["launches"] for cf in cfs},
+            "decode_ms_per_token": res["decode"]["ms_per_token"],
+            "decode_fp32_ms_per_token": res["decode_fp32"]["ms_per_token"],
+            "bf16_ulp_sensitivity": res["sens"]}
+
+
+def mesh_ep_job(torch, dev, rank, world, tmp) -> dict:
+    """Phase 19 (b), one of MESH_EP_WORLD ranks: llama4-scout over a
+    ("data", "model") = 1 x MESH_EP_WORLD mesh against the single
+    process."""
+    from repro_torch.launch.mesh import make_mesh
+    cfg = ep_config()
+    mesh = make_mesh(1, model=world)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = ep_weights(torch, cfg, dev, mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens, rows, cols = ep_inputs(torch, cfg, dev)
+    got = ep_run(torch, cfg, params, tokens, rows, cols, mesh)
+    want = torch.load(f"{tmp}/ep-ref.pt", weights_only=False)
+    res = ep_compare(torch, cfg, got, want, rows)
+    out = {"shard": mesh.get_local_rank("model"), "init_s": init_s,
+           "expert_rows": int(params["pattern"][0]["w_gate_e"].shape[1]),
+           "compare": res, "peak_memory_bytes":
+           torch.cuda.max_memory_allocated()}
+    for cf in (MOE_DROPLESS_CF, cfg.moe_capacity_factor):
+        g = got[cf]
+        out[cf] = {key: g[key] for key in ("ms", "launches", "census",
+                                             "gather_bytes", "gather_ms")}
+        check(g["census"] == {"all_gather": cfg.num_layers},
+              f"(b) capacity {cf}: census {g['census']}")
+        check(g["launches"].get("flash_attention") == cfg.num_layers
+              and sum(g["launches"].values()) == cfg.num_layers,
+              f"(b) capacity {cf}: launches {g['launches']}")
+    for key in ("decode", "decode_fp32"):
+        d = got[key]
+        out[key] = {k: d[k] for k in ("ms_per_token", "census",
+                                      "gather_bytes", "gather_ms")}
+        check(d["census"] == {"all_gather": cfg.num_layers * MESH_DECODE},
+              f"(b) {key} census {d['census']}")
+    return out
+
+
+def capture_grads() -> list:
+    """Make the trainer's clip (``trainer.clip_by_global_norm``, which a
+    step calls once on its summed gradients) also append the gradients
+    it is given to the returned list; the caller clears it.  A second
+    call returns the first one's list."""
+    from repro_torch.train import trainer
+    if hasattr(trainer.clip_by_global_norm, "log"):
+        return trainer.clip_by_global_norm.log
+    log = []
+    clip = trainer.clip_by_global_norm
+
+    def recorded(grads, max_norm):
+        log.append(grads)
+        return clip(grads, max_norm)
+
+    recorded.log = log
+    trainer.clip_by_global_norm = recorded
+    return log
+
+
+def mesh_dp_job(torch, dev, rank, world, tmp) -> dict:
+    """Phase 19 (c), one of MESH_DP_WORLD ranks: qwen3-0.6b's every_step
+    baseline over ("data",) = world at full width; rank 0 first runs the
+    single process on the same batches and holds the mesh run to it: the
+    losses, and the step-1 gradient (before the clip) leaf by leaf within
+    TOL of the leaf's max or, where larger, LM_BF16_SENS_FACTOR times the
+    single process's own change when every input embedding moves one
+    bf16 ulp (bf16 activations: the half-batch products round
+    differently); the params after step 1 are printed
+    (:func:`params_diff`)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import collectives
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import arch_specs
+    from repro_torch.nn import init_params
+    from repro_torch.optim import tree_leaves, tree_map
+    from repro_torch.train import TrainSettings, make_train_step
+    from repro_torch.train.trainer import _state, loss_and_grads
+
+    cfg = get_arch(LM_TRAIN_ARCH)
+    settings = TrainSettings(total_steps=LM_TRAIN_STEPS,
+                             warmup_steps=max(LM_TRAIN_STEPS // 20, 2))
+    batches = _lm_batches(torch, cfg, MESH_DP_STEPS, LM_BATCH, LM_SEQ, 6,
+                          dev)
+    params = init_params(arch_specs(cfg),
+                         torch.Generator(device=dev).manual_seed(0), dev)
+    mesh = make_mesh(world)
+    meter = gather_meter()
+    grads = capture_grads()
+    _build.reset_launches()
+    out = {"rank": rank}
+    if rank == 0:
+        state = _state(cfg, settings, tree_map(torch.clone, params))
+        step = make_train_step(cfg, settings)
+        single = []
+        for i, b in enumerate(batches):
+            state, m = step(state, b)
+            single.append(float(m["loss"]))
+            if i == 0:
+                step1 = tree_map(torch.clone, state["params"])
+                grad1 = grads[0]
+            grads.clear()
+        del state, step
+        gc_cuda(torch)
+        # The step-1 gradient's own bf16 rounding sensitivity: every input
+        # embedding one bf16 ulp up (phase 9's rule), leaf by leaf.
+        emb = params["embed"].to(torch.bfloat16)
+        bumped = dict(params, embed=(emb.view(torch.int16) + 1).view(
+            torch.bfloat16).float())
+        del emb
+        moved = loss_and_grads(cfg, settings, bumped, batches[0])[2]
+        del bumped
+        sens = [dev_rel(m, g) for g, m in zip(tree_leaves(grad1),
+                                              tree_leaves(moved))]
+        del moved
+        gc_cuda(torch)
+    collectives.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    state = _state(cfg, settings, params)
+    del params
+    step = make_train_step(cfg, settings, mesh)
+    losses, step_ms, census, gathers = [], [], [], []
+    for i, b in enumerate(batches):
+        collectives.reset_collectives()
+        meter.update(bytes=0, ms=0.0)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        census.append(dict(collectives.COLLECTIVES))
+        gathers.append({"bytes": meter["bytes"], "ms": meter["ms"]})
+        if i == 0 and rank == 0:
+            err = [dev_rel(g, w) for w, g in zip(tree_leaves(grad1),
+                                                 tree_leaves(grads[0]))]
+            ratio = [e / max(TOL, LM_BF16_SENS_FACTOR * z)
+                     for e, z in zip(err, sens)]
+            worst = max(range(len(ratio)), key=ratio.__getitem__)
+            out["grad_step1"] = {
+                "err_over_bar": ratio[worst], "leaf": worst,
+                "err": err[worst], "sensitivity": sens[worst],
+                "max_err": max(err), "max_sensitivity": max(sens)}
+            out["params_step1"] = params_diff(torch, step1, state["params"])
+            del step1, grad1
+        grads.clear()
+    out.update(losses=losses, step_ms=step_ms, census=census,
+               gathers=gathers, launches=dict(_build.LAUNCHES),
+               peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               checksum=[int(p.view(torch.int32).long().sum())
+                         for p in tree_leaves(state["params"])])
+    if rank == 0:
+        out.update(single_losses=single, trajectory_rel=max(
+            abs(a - b) / abs(b) for a, b in zip(losses, single)))
+        print(f"phase 19 (c) rank 0: {json.dumps(out)}", flush=True)
+        check(out["trajectory_rel"] <= TRAJ_TOL, f"(c) losses {losses} "
+              f"against the single process's {single} (bar {TRAJ_TOL})")
+        check(out["grad_step1"]["err_over_bar"] <= 1.0, f"(c) step-1 "
+              f"gradient against the single process: {out['grad_step1']}")
+    check(census == [{"all_reduce": 1, "all_gather": 1}] * MESH_DP_STEPS,
+          f"(c) census {census}")
+    check(not any(out["launches"].values()),
+          f"(c) kernels launched: {out['launches']}")
+    return out
+
+
+MESH_JOBS = {"a": mesh_smoke_job, "b": mesh_ep_job, "c": mesh_dp_job}
+
+
+def mesh_forms(torch, dev, smi) -> dict:
+    """Phase 19: (a)-(c) (the constants' comment).  The three groups of
+    ranks start together, so their start-up overlaps (a)'s work and (b)'s
+    single process; (b)'s ranks start work once this process has freed
+    the card, (c)'s once (b)'s have ended.  Returns the phase's summary
+    with K6's launches in (b)'s ranks."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp()
+    Path(f"{tmp}/go-a").touch()
+    groups = {job: mp.start_processes(
+        mesh_rank, args=(world, tmp, job), nprocs=world, join=False,
+        start_method="spawn") for job, world in (
+            ("a", MESH_SMOKE_WORLD), ("b", MESH_EP_WORLD),
+            ("c", MESH_DP_WORLD))}
+    sections = {}
+
+    def reports(job, world):
+        t = time.perf_counter()
+        while not groups[job].join():
+            pass
+        sections[f"{job} (wait)"] = time.perf_counter() - t
+        return [torch.load(f"{tmp}/{job}-r{r}.pt", weights_only=False)
+                for r in range(world)]
+
+    try:
+        out = _mesh_forms(torch, dev, smi, tmp, groups, reports, sections)
+    finally:
+        # A failed check here or in a rank leaves ranks waiting for a go
+        # file or a collective: end every one still running.
+        for ctx in groups.values():
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.terminate()
+                proc.join(timeout=30)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["sections_s"] = sections
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 19: {out['seconds']:.1f} s; sections (s) "
+          + json.dumps(sections), flush=True)
+    return out
+
+
+def _mesh_forms(torch, dev, smi, tmp, groups, reports, sections) -> dict:
+    """:func:`mesh_forms`' work once the ranks have started."""
+    out = {"phase": 19}
+    t0 = time.perf_counter()
+    ref = ep_reference(torch, dev, tmp)
+    sections["b single process"] = time.perf_counter() - t0
+    Path(f"{tmp}/go-b").touch()
+
+    ranks = reports("a", MESH_SMOKE_WORLD)
+    first = ranks[0]
+    for r in ranks:
+        check(not any(r["launches"].values()),
+              f"(a) kernels launched: {r['launches']}")
+        for key, res in r["moe"].items():
+            check(torch.equal(res["y"], first["moe"][key]["y"]),
+                  f"(a) {key}: the ranks' outputs differ")
+    for arch in (LM_TRAIN_ARCH, MOE_ARCH):
+        for p in (0, 1):
+            sums = [r["train"][arch]["checksum"] for r in ranks
+                    if r["pod"] == p]
+            check(sums[0] == sums[1], f"(a) {arch}: the data ranks of pod "
+                  f"{p} hold different params")
+    out["a"] = {
+        "moe": {key: {k: v for k, v in res.items() if k != "y"}
+                for key, res in first["moe"].items()},
+        "train": {arch: {k: v for k, v in res.items() if k != "checksum"}
+                  for arch, res in first["train"].items()}}
+    print("phase 19 (a) card vs CPU, smoke widths, fp32, "
+          f"{MESH_SMOKE_WORLD} gloo ranks: " + json.dumps(out["a"]),
+          flush=True)
+
+    ranks = reports("b", MESH_EP_WORLD)
+    Path(f"{tmp}/go-c").touch()
+    cfg = ep_config()
+    cfs = (MOE_DROPLESS_CF, cfg.moe_capacity_factor)
+    out["b"] = {
+        "arch": cfg.name, "layers": cfg.num_layers, "mesh": {
+            "data": 1, "model": MESH_EP_WORLD},
+        "single_process": ref,
+        "ranks": [{"shard": r["shard"], "expert_rows": r["expert_rows"],
+                   "init_s": r["init_s"],
+                   "prefill_ms": {cf: r[cf]["ms"] for cf in cfs},
+                   "gather_bytes_a_prefill": r[cfs[1]]["gather_bytes"],
+                   "gather_ms_a_prefill": r[cfs[1]]["gather_ms"],
+                   "census_a_prefill": r[cfs[1]]["census"],
+                   "decode_ms_per_token": r["decode"]["ms_per_token"],
+                   "decode_fp32_ms_per_token":
+                       r["decode_fp32"]["ms_per_token"],
+                   "decode_gather_bytes": r["decode"]["gather_bytes"],
+                   "decode_gather_ms": r["decode"]["gather_ms"],
+                   "compare": r["compare"],
+                   "peak_memory_bytes": r["peak_memory_bytes"]}
+                  for r in ranks]}
+    out["launches_per_rank"] = [r[cfs[1]]["launches"] for r in ranks]
+    out["launches"] = collections.Counter()
+    for r in ranks:
+        out["launches"].update(r[cfs[1]]["launches"])
+    print(f"phase 19 (b) {cfg.name} at its published widths, "
+          f"{cfg.num_layers} layers, expert-parallel over {MESH_EP_WORLD} "
+          f"gloo ranks on one card ({smi}): " + json.dumps(out["b"]),
+          flush=True)
+
+    ranks = reports("c", MESH_DP_WORLD)
+    check(ranks[0]["checksum"] == ranks[1]["checksum"],
+          "(c) the data ranks hold different params")
+    out["c"] = {"arch": LM_TRAIN_ARCH, "mesh": {"data": MESH_DP_WORLD},
+                "batch": LM_BATCH, "seq": LM_SEQ, "steps": MESH_DP_STEPS,
+                "ranks": [{k: v for k, v in r.items() if k != "checksum"}
+                          for r in ranks]}
+    print(f"phase 19 (c) {LM_TRAIN_ARCH} every_step over ('data',) = "
+          f"{MESH_DP_WORLD} at its published widths ({smi}): "
+          + json.dumps(out["c"]), flush=True)
     return out
 
 
@@ -4617,6 +5456,9 @@ def main() -> None:
     last = last_archs(torch, dev, smi)
     path_launches.update({"vlm prefill": last["launches"],
                           "vlm fp32 prefill": last["fp32_launches"]})
+    gc_cuda(torch)
+    mesh = mesh_forms(torch, dev, smi)
+    path_launches["moe ep mesh prefill"] = mesh["launches"]
     torch.cuda.synchronize()
     print(f"phases: serving {t_serve:.1f} s, training {t_train:.1f} s (of "
           f"which SAT training {sat['seconds']:.1f} s, sampled training "
@@ -4626,7 +5468,8 @@ def main() -> None:
           f"LM, GAT and MoE {time.perf_counter() - t0 - t_serve - t_train:.1f}"
           f" s (of which MoE serving {moe_s:.1f} s, LM training "
           f"{lm_train['seconds']:.1f} s, the last three architectures "
-          f"{last['seconds']:.1f} s); the script "
+          f"{last['seconds']:.1f} s, the mesh forms {mesh['seconds']:.1f} "
+          f"s); the script "
           f"{time.perf_counter() - T_START:.1f} s", flush=True)
     records = serve_records + train_records + lm_records
     kernels = []
@@ -4667,6 +5510,9 @@ def main() -> None:
             "variant": rec["variant"], "shape": rec["shape"]})
         # Its device times at every shape timed (phases 3, 6 and 8).
         kernels[-1]["ms_by_variant"] = {r["variant"]: r["ms"] for r in mine}
+        if name == "flash_attention":
+            kernels[-1]["mesh_launches_per_rank"] = [
+                r.get(kernel, 0) for r in mesh["launches_per_rank"]]
         if name == "halo_spmm_stream":
             # K3 at the training shape (phase 6, fp32) beside its serving
             # shape, and its chunk walk at both.

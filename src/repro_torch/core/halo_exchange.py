@@ -51,6 +51,7 @@ import torch.distributed as dist
 from repro_torch.core import collectives
 from repro_torch.device import resolve_device
 from repro_torch.graph.partition import parts_per_device
+from repro_torch.launch.mesh import refuse_model_dim
 
 PRECISIONS = ("fp32", "bf16", "int8")
 
@@ -427,7 +428,9 @@ def shards_per_device(num_parts: int, mesh, axis: str = "data",
     """k = num_parts / (pods · data): owner shards (and subgraphs) a rank
     holds; raises the spelled-out ValueError of
     :func:`repro_torch.graph.partition.parts_per_device` when M is not a
-    multiple of the exchange dimensions."""
+    multiple of the exchange dimensions, and for a ``"model"`` dimension
+    above 1 (the rank would no longer be the block index)."""
+    refuse_model_dim(mesh, what)
     return parts_per_device(num_parts, exchange_size(mesh, axis), what)
 
 

@@ -1,12 +1,17 @@
 """The mesh the multi-GPU paths run over: a
 ``torch.distributed.device_mesh.DeviceMesh`` with dimension names
-``("data",)`` or ``("pod", "data")`` (the mesh constructor of
-``repro.launch.mesh``; its TPU constants stay there).
+``("data",)`` or ``("pod", "data")``, and ``"model"`` last where the
+experts are sharded (the mesh constructor of ``repro.launch.mesh``; its
+TPU constants stay there).
 
 On a ``("pod", "data")`` mesh rank ``p·data + d`` sits at coordinate
 ``(p, d)``, which is the reference's combined block index
 ``e = p·data + d``: rank e holds subgraphs and owner shards
-``[e·k, (e+1)·k)``.
+``[e·k, (e+1)·k)``.  A ``"model"`` dimension (the expert-parallel MoE,
+``models.moe.moe_ep``) puts rank ``(p·data + d)·model + m`` at
+``(p, d, m)``, as ``jax.make_mesh`` lays out the reference's
+``make_host_mesh``; the GNN paths and the LM trainer, whose rank is a
+block index, refuse it (:func:`refuse_model_dim`).
 
 Run under ``torchrun`` (``env://``):
 
@@ -26,31 +31,51 @@ from repro_torch.device import resolve_device
 BACKENDS = ("nccl", "gloo")
 
 
-def make_mesh(data: int, pod: int = 1, device_type: str = "cpu"
-              ) -> DeviceMesh:
-    """The ``(pod, data)`` mesh over the initialised process group, whose
-    world size must be ``pod · data``; ``("data",)`` alone when
-    ``pod == 1``.  ``device_type`` names where the group's buffers live:
+def make_mesh(data: int, pod: int = 1, device_type: str = "cpu",
+              model: int = 1) -> DeviceMesh:
+    """The ``(pod, data, model)`` mesh over the initialised process group,
+    whose world size must be ``pod · data · model``; "pod" only when
+    ``pod > 1`` and "model" only when ``model > 1`` (``("data",)`` alone
+    otherwise).  ``device_type`` names where the group's buffers live:
     ``"cuda"`` for NCCL, ``"cpu"`` for gloo (it stages through host
     memory, ``core.collectives``)."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialised process group "
                            "(torch.distributed.init_process_group)")
-    if data < 1 or pod < 1 or dist.get_world_size() != data * pod:
-        raise ValueError(f"mesh pod={pod} x data={data} does not match "
-                         f"the world size {dist.get_world_size()}")
-    if pod > 1:
-        return init_device_mesh(device_type, (pod, data),
-                                mesh_dim_names=("pod", "data"))
-    return init_device_mesh(device_type, (data,), mesh_dim_names=("data",))
+    world = dist.get_world_size()
+    if min(data, pod, model) < 1 or world != data * pod * model:
+        raise ValueError(f"mesh pod={pod} x data={data} x model={model} "
+                         f"does not match the world size {world}")
+    dims = ([("pod", pod)] if pod > 1 else []) + [("data", data)] + (
+        [("model", model)] if model > 1 else [])
+    return init_device_mesh(device_type, tuple(n for _, n in dims),
+                            mesh_dim_names=tuple(a for a, _ in dims))
+
+
+def dim_size(mesh: DeviceMesh, name: str) -> int:
+    """The size of ``mesh``'s dimension ``name``; 1 where it has none."""
+    names = mesh.mesh_dim_names or ()
+    return mesh.size(names.index(name)) if name in names else 1
+
+
+def refuse_model_dim(mesh: DeviceMesh, what: str) -> None:
+    """ValueError for a ``"model"`` dimension above 1 on a path whose rank
+    is a block index (``p·data + d``)."""
+    if mesh is not None and dim_size(mesh, "model") > 1:
+        raise ValueError(
+            f"{what}: the mesh's 'model' dimension is "
+            f"{dim_size(mesh, 'model')}; this path lays its blocks over "
+            f"('pod', 'data') only (a 'model' dimension shards the MoE's "
+            f"experts, models.moe.moe_ep)")
 
 
 def init_distributed(backend: str, device="cuda", data: int = None,
-                     pod: int = 1) -> tuple[DeviceMesh, torch.device]:
+                     pod: int = 1, model: int = 1
+                     ) -> tuple[DeviceMesh, torch.device]:
     """Join the job ``torchrun`` started (``env://``: ``RANK``,
     ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``) over
     ``backend`` and build its mesh (``data`` defaults to the world size
-    over ``pod``).  Returns ``(mesh, device)``: a CUDA rank runs on
+    over ``pod · model``).  Returns ``(mesh, device)``: a CUDA rank runs on
     ``cuda:{LOCAL_RANK mod cards}``, so ranks beyond the card count
     share cards (gloo only: NCCL refuses two ranks on one card); the
     CPU only when ``device`` names it."""
@@ -67,8 +92,7 @@ def init_distributed(backend: str, device="cuda", data: int = None,
         dist.init_process_group(
             backend, init_method="env://",
             device_id=dev if backend == "nccl" else None)
-    world = dist.get_world_size()
     if data is None:
-        data = world // pod
+        data = dist.get_world_size() // (pod * model)
     kind = "cuda" if backend == "nccl" else "cpu"
-    return make_mesh(data, pod, kind), dev
+    return make_mesh(data, pod, kind, model), dev

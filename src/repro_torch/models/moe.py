@@ -5,9 +5,12 @@
 * :func:`moe_ep`: the capacity path.  Each token's top-k assignments are
   ranked by (expert, arrival order); each expert takes its first
   ``capacity`` rows (overflow dropped, Switch-style) as one static
-  (E, C, d) batch for the dense expert products.  Only its single-device
-  branch is ported: expert parallelism over a ``DeviceMesh`` is
-  ROADMAP.md §1 item 8e.
+  (E, C, d) batch for the dense expert products.  Over a ``DeviceMesh``
+  with a ``"model"`` dimension (``launch.mesh.make_mesh(model=...)``) the
+  experts are sharded over "model" and the tokens over the batch
+  dimensions ("pod", "data"); each rank runs its experts on its tokens
+  and the partial outputs are added over "model" — the reference's
+  expert parallelism, with no all-to-all.
 
 The arithmetic is the reference's (``src/repro/models/moe.py``): the
 router in fp32, the capacity ``max(int(cf * T * k / E), 1)`` in Python
@@ -37,7 +40,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import collectives
+from repro_torch.launch.mesh import dim_size
 from repro_torch.nn.layers import take_rows
+
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
 
 
 def _expert_ffn_batched(xs: torch.Tensor, w_gate: torch.Tensor,
@@ -77,6 +84,9 @@ def moe_ref(x: torch.Tensor, params: dict, k: int) -> torch.Tensor:
     """Exact dropless MoE (all experts on all tokens).  x: (B, S, d);
     params: router (d, E), w_gate / w_up (E, d, f), w_down (E, f, d)."""
     b, s, d = x.shape
+    if params["w_gate"].shape[0] != params["router"].shape[1]:
+        raise ValueError("moe_ref needs every expert's weights; sharded "
+                         "experts run through moe_ep over their mesh")
     xf = x.reshape(b * s, d).float()
     weights, ids, _ = _route(xf, params["router"], k)
     # (E, T, f) for every expert, each weight read in place.
@@ -157,35 +167,135 @@ def _combine(tok: torch.Tensor, contrib: torch.Tensor, t: int,
     return out
 
 
+def _ordered_sum(parts: list) -> torch.Tensor:
+    """``parts[0] + parts[1] + ...`` in list (group-rank) order: every
+    rank adds the same tensors in the same order, so all hold the same
+    bits."""
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p
+    return acc
+
+
+def expert_rows(w: torch.Tensor, num_experts: int, shard: int,
+                num_shards: int, dim: int = 0) -> torch.Tensor:
+    """Shard ``shard``'s ``num_experts / num_shards`` contiguous experts of
+    an expert weight whose dim ``dim`` runs over all ``num_experts`` (a
+    copy, so the whole can be freed); a weight already cut to one shard's
+    rows is returned as it is."""
+    e_loc = num_experts // num_shards
+    if w.shape[dim] == e_loc:
+        return w
+    if w.shape[dim] != num_experts:
+        raise ValueError(f"expert weight of {w.shape[dim]} rows along dim "
+                         f"{dim}: neither E={num_experts} nor E/"
+                         f"{num_shards}={e_loc} (one shard's experts run "
+                         f"over their mesh)")
+    return w.narrow(dim, shard * e_loc, e_loc).clone()
+
+
+def shard_experts(params, mesh, model_axis: str = "model"):
+    """This rank's experts of a model's parameters, one MoE block's or
+    one :func:`moe_ep` params dict: every dict holding a ``router`` has
+    its expert weights (``w_gate_e`` / ``w_up_e`` / ``w_down_e`` in the
+    transformer's blocks, ``w_gate`` / ``w_up`` / ``w_down`` in a MoE
+    params dict) cut to the rank's contiguous ``E / model`` rows along
+    the expert dim (dim 1 of a ``pattern`` block's stacked leaves, as its
+    router is (repeats, d, E)).  Other leaves are kept as they are (not
+    copied).  A mesh without ``model_axis`` returns ``params``."""
+    if mesh is None or model_axis not in (mesh.mesh_dim_names or ()):
+        return params
+    n_shards = dim_size(mesh, model_axis)
+    shard = mesh.get_local_rank(model_axis)
+
+    def cut(node):
+        if isinstance(node, (list, tuple)):
+            return [cut(v) for v in node]
+        if not isinstance(node, dict):
+            return node
+        if "router" not in node:
+            return {k: cut(v) for k, v in node.items()}
+        num_experts = node["router"].shape[-1]
+        dim = node["router"].dim() - 2
+        keys = ([f"{k}_e" for k in EXPERT_LEAVES] if "w_gate_e" in node
+                else list(EXPERT_LEAVES))
+        return {k: expert_rows(v, num_experts, shard, n_shards, dim)
+                if k in keys else v for k, v in node.items()}
+
+    return cut(params)
+
+
 def moe_ep(x: torch.Tensor, params: dict, k: int, *,
            capacity_factor: float = 1.25, mesh: Optional[object] = None,
            model_axis: str = "model",
            batch_axes: tuple = ("pod", "data")) -> torch.Tensor:
-    """Capacity-path MoE on one device.  x: (B, S, d); params as
-    :func:`moe_ref`.  A ``mesh`` (expert parallelism over a
-    ``DeviceMesh``) raises: ROADMAP.md §1 item 8e."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"moe_ep over a mesh (experts sharded on {model_axis!r}, tokens "
-            f"on {batch_axes}) is not ported yet: ROADMAP.md §1 item 8e")
+    """Expert-parallel MoE.  x: (B, S, d), the global batch on every rank;
+    params as :func:`moe_ref`, whose expert weights may be global (E, …)
+    or already this rank's shard (E / model, …; :func:`shard_experts`).
+
+    Without a mesh, or on one without ``model_axis``, one device runs
+    every expert (shard 0 of 1).  Otherwise the experts are sharded over
+    ``model_axis`` (E must divide) and the tokens over the mesh's
+    ``batch_axes`` (this rank takes its contiguous block of rows; a
+    batch the batch ranks do not divide, such as batch-1 decode, is
+    replicated); the capacity comes from the local tokens.  The ranks'
+    partial outputs are gathered over "model" and added in rank order
+    (the reference's ``psum``), then gathered over the batch dimensions:
+    the global (B, S, d) output on every rank, every rank's the same
+    bits."""
     b, s, d = x.shape
     num_experts = params["router"].shape[1]
-    t = b * s
-    c_e = max(int(capacity_factor * t * k / num_experts), 1)
-    out = _moe_local(x.reshape(t, d), params["router"], params["w_gate"],
-                     params["w_up"], params["w_down"], k=k,
-                     num_experts=num_experts, shard_idx=0, num_shards=1,
-                     capacity_per_expert=c_e)
+    if mesh is None or model_axis not in (mesh.mesh_dim_names or ()):
+        t = b * s
+        c_e = max(int(capacity_factor * t * k / num_experts), 1)
+        w = [expert_rows(params[key], num_experts, 0, 1)
+             for key in EXPERT_LEAVES]
+        out = _moe_local(x.reshape(t, d), params["router"], *w, k=k,
+                         num_experts=num_experts, shard_idx=0, num_shards=1,
+                         capacity_per_expert=c_e)
+        return out.reshape(b, s, d)
+
+    n_shards = dim_size(mesh, model_axis)
+    if num_experts % n_shards:
+        raise ValueError(f"E={num_experts} % model={n_shards}")
+    baxes = [a for a in batch_axes if dim_size(mesh, a) > 1]
+    n_batch = 1
+    for a in baxes:
+        n_batch *= dim_size(mesh, a)
+    if b % n_batch:
+        # Tiny decode batches cannot be split over the batch ranks:
+        # replicate the tokens instead; the experts stay sharded.
+        baxes, n_batch = [], 1
+    block = 0
+    for a in baxes:
+        block = block * dim_size(mesh, a) + mesh.get_local_rank(a)
+    b_loc = b // n_batch
+    t_loc = b_loc * s
+    x_loc = x[block * b_loc:(block + 1) * b_loc].reshape(t_loc, d)
+    c_e = max(int(capacity_factor * t_loc * k / num_experts), 1)
+    shard = mesh.get_local_rank(model_axis)
+    w = [expert_rows(params[key], num_experts, shard, n_shards)
+         for key in EXPERT_LEAVES]
+    part = _moe_local(x_loc, params["router"], *w, k=k,
+                      num_experts=num_experts, shard_idx=shard,
+                      num_shards=n_shards, capacity_per_expert=c_e)
+    out = _ordered_sum(collectives.all_gather(part,
+                                              mesh.get_group(model_axis)))
+    # The batch blocks back in row-major order: the last batch dimension
+    # first, so each gather concatenates whole blocks of the one before.
+    for a in reversed(baxes):
+        out = torch.cat(collectives.all_gather(out, mesh.get_group(a)))
     return out.reshape(b, s, d)
 
 
 def moe_ffn(x: torch.Tensor, params: dict, k: int, *, impl: str = "auto",
-            capacity_factor: float = 1.25) -> torch.Tensor:
-    """``impl``: "ref" (:func:`moe_ref`), "ep" (:func:`moe_ep`) or "auto",
-    which is "ref" here as in the reference when no mesh is active."""
+            capacity_factor: float = 1.25,
+            mesh: Optional[object] = None) -> torch.Tensor:
+    """``impl``: "ref" (:func:`moe_ref`), "ep" (:func:`moe_ep` over
+    ``mesh``) or "auto": "ep" when a mesh is given, else "ref", as the
+    reference picks by its active mesh."""
     if impl == "auto":
-        impl = "ref"
+        impl = "ep" if mesh is not None else "ref"
     if impl == "ref":
         return moe_ref(x, params, k)
-    return moe_ep(x, params, k, capacity_factor=capacity_factor)
-
+    return moe_ep(x, params, k, capacity_factor=capacity_factor, mesh=mesh)

@@ -57,8 +57,8 @@ from repro_torch.models.moe import load_balance_loss, moe_ffn
 from repro_torch.models.recurrent import (mlstm_parallel, mlstm_step,
                                           rg_lru, rg_lru_step, slstm_scan)
 from repro_torch.models.stale_kv import StaleKVConfig, stale_kv_decode
-from repro_torch.nn import (ParamSpec, apply_rope, dense, rms_norm, swiglu,
-                            take_rows)
+from repro_torch.nn import (ParamSpec, apply_rope, dense, gelu, rms_norm,
+                            swiglu, take_rows)
 
 Pytree = Any
 
@@ -342,13 +342,16 @@ def _mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
                       p["w_down"].to(h.dtype))
 
 
-def _moe(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """x + the MoE FFN of rms_norm(x) (+ the shared expert)."""
+def _moe(cfg: ArchConfig, p: dict, x: torch.Tensor,
+         mesh=None) -> torch.Tensor:
+    """x + the MoE FFN of rms_norm(x) (+ the shared expert); ``mesh``:
+    the ``DeviceMesh`` of the expert-parallel ``moe_ep``."""
     h2 = rms_norm(x, p["ln2"])
     moe_params = {"router": p["router"], "w_gate": p["w_gate_e"],
                   "w_up": p["w_up_e"], "w_down": p["w_down_e"]}
     out = moe_ffn(h2, moe_params, cfg.experts_per_token,
-                  impl=cfg.moe_impl, capacity_factor=cfg.moe_capacity_factor)
+                  impl=cfg.moe_impl, capacity_factor=cfg.moe_capacity_factor,
+                  mesh=mesh)
     if cfg.shared_expert:
         out = out + swiglu(h2, p["ws_gate"].to(h2.dtype),
                            p["ws_up"].to(h2.dtype),
@@ -356,11 +359,11 @@ def _moe(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     return x + out
 
 
-def _ffn(cfg: ArchConfig, kind: str, p: dict,
-         x: torch.Tensor) -> torch.Tensor:
+def _ffn(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor,
+         mesh=None) -> torch.Tensor:
     """An attention block's second half: the MoE of "moe", else the
     MLP."""
-    return _moe(cfg, p, x) if kind == "moe" else _mlp(p, x)
+    return _moe(cfg, p, x, mesh) if kind == "moe" else _mlp(p, x)
 
 
 def _fwd_attn(cfg, kind, p, x, ctx):
@@ -369,7 +372,7 @@ def _fwd_attn(cfg, kind, p, x, ctx):
     attn = prefill_attention(q, k, v,
                              window=cfg.window if kind == "swa" else 0,
                              backend=cfg.attn_backend)
-    return _ffn(cfg, kind, p, _attn_out(p, attn, x))
+    return _ffn(cfg, kind, p, _attn_out(p, attn, x), ctx["mesh"])
 
 
 def _conv1d_causal(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -381,14 +384,9 @@ def _conv1d_causal(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.to(x.dtype)
 
 
-def _gelu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.gelu``'s default, the tanh form."""
-    return F.gelu(x, approximate="tanh")
-
-
 def _fwd_rec(cfg, kind, p, x, ctx):
     h = rms_norm(x, p["ln1"])
-    y = _gelu(dense(h, p["w_y"].to(h.dtype)))
+    y = gelu(dense(h, p["w_y"].to(h.dtype)))
     bx = _conv1d_causal(dense(h, p["w_x"].to(h.dtype)), p["conv_w"])
     gx = dense(h, p["w_gate_x"].to(h.dtype))
     ga = dense(h, p["w_gate_a"].to(h.dtype))
@@ -481,13 +479,18 @@ def _logits(params: Pytree, x: torch.Tensor) -> torch.Tensor:
 
 
 def forward(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
-            vision: Optional[torch.Tensor] = None) -> torch.Tensor:
+            vision: Optional[torch.Tensor] = None,
+            mesh=None) -> torch.Tensor:
     """tokens: (B, S) int → logits (B, S, vocab) f32.  ``vision``: the
     (B, num_patches, vision_dim) patch embeddings ``xattn`` blocks
-    attend to, cast to the activation dtype."""
+    attend to, cast to the activation dtype.  ``mesh``: the
+    ``DeviceMesh`` the MoE blocks' ``moe_ep`` shards its experts over
+    (``models.moe``; the tokens are global on every rank, as are the
+    logits)."""
     x = _embed(cfg, params, tokens)
     ctx = {"positions": torch.arange(tokens.shape[1], device=x.device),
-           "vision": None if vision is None else vision.to(x.dtype)}
+           "vision": None if vision is None else vision.to(x.dtype),
+           "mesh": mesh}
     remat = cfg.remat and torch.is_grad_enabled()
     for r in range(cfg.repeats):
         if remat:
@@ -519,6 +522,25 @@ def aux_moe_loss(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
         total = total + load_balance_loss(logits, ids, cfg.num_experts)
         count += 1
     return total / max(count, 1)
+
+
+def aux_moe_stats(cfg: ArchConfig, params: Pytree,
+                  tokens: torch.Tensor) -> list:
+    """:func:`aux_moe_loss`'s sums over ``tokens``, one pair a MoE block
+    of the pattern: (top-1 dispatch counts (E,), router probability sums
+    (E,)), fp32 — what a data-parallel step adds over its ranks before
+    the product."""
+    x = take_rows(params["embed"], tokens.long()).float().reshape(
+        -1, cfg.d_model)
+    out = []
+    for kind, block in zip(cfg.pattern, params["pattern"]):
+        if kind != "moe":
+            continue
+        logits = x @ block["router"][0].float()
+        ids = torch.topk(logits, cfg.experts_per_token, dim=-1).indices
+        counts = torch.bincount(ids[:, 0], minlength=cfg.num_experts)
+        out.append((counts.float(), torch.softmax(logits, dim=-1).sum(0)))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -649,7 +671,7 @@ def _dec_swa(cfg, p, x, cache, pos):
 
 def _dec_rec(cfg, p, x, cache):
     h = rms_norm(x, p["ln1"])[:, 0]                        # (B, d)
-    y = _gelu(h @ p["w_y"].to(h.dtype))
+    y = gelu(h @ p["w_y"].to(h.dtype))
     bx_in = h @ p["w_x"].to(h.dtype)
     conv = cache["conv"]
     w = p["conv_w"].float()
@@ -696,10 +718,11 @@ def _dec_xattn(cfg, p, x, cache):
     return _xattn(p, x, q, cache["k"], cache["v"])
 
 
-def _dec_block(cfg, kind, p, x, cache, pos, skv):
+def _dec_block(cfg, kind, p, x, cache, pos, skv, mesh=None):
     """One block of a decode step; its cache is updated in place."""
     if kind in ("attn", "moe"):
-        return _ffn(cfg, kind, p, _dec_attn(cfg, p, x, cache, pos, skv))
+        return _ffn(cfg, kind, p, _dec_attn(cfg, p, x, cache, pos, skv),
+                    mesh)
     if kind == "swa":
         return _mlp(p, _dec_swa(cfg, p, x, cache, pos))
     if kind == "rec":
@@ -730,12 +753,14 @@ def precompute_vision_cache(cfg: ArchConfig, params: Pytree, cache: dict,
 
 
 def decode_step(cfg: ArchConfig, params: Pytree, cache: dict,
-                tokens: torch.Tensor, long: bool = False) -> tuple:
+                tokens: torch.Tensor, long: bool = False,
+                mesh=None) -> tuple:
     """tokens: (B, 1) → (logits (B, 1, vocab), cache).  The cache's
     tensors are updated in place; the returned dict holds them and
     ``pos + 1``.  ``long``: attention blocks read the stale-KV cache,
     sized from the first attention block of the pattern (none: the
-    pattern has no such block, and ``long`` changes nothing)."""
+    pattern has no such block, and ``long`` changes nothing).  ``mesh``
+    as :func:`forward`'s (the cache is global on every rank)."""
     x = _embed(cfg, params, tokens)
     pos = cache["pos"]
     skv = None
@@ -751,6 +776,6 @@ def decode_step(cfg: ArchConfig, params: Pytree, cache: dict,
                                     cache["pattern"])]
     layers += list(zip(cfg.tail, params["tail"], cache["tail"]))
     for kind, p, c in layers:
-        x = _dec_block(cfg, kind, p, x, c, pos, skv)
+        x = _dec_block(cfg, kind, p, x, c, pos, skv, mesh)
     return _logits(params, x), {"pattern": cache["pattern"],
                                 "tail": cache["tail"], "pos": pos + 1}

@@ -104,6 +104,28 @@ def params_from_numpy(tree: Pytree, device="cuda") -> Pytree:
     return conv(tree)
 
 
+def _map(fn, specs: Pytree) -> Pytree:
+    """``fn`` of every ParamSpec leaf, in :func:`init_params`' tree."""
+    if isinstance(specs, ParamSpec):
+        return fn(specs)
+    if isinstance(specs, (list, tuple)):
+        return [_map(fn, s) for s in specs]
+    return {k: _map(fn, specs[k]) for k in sorted(specs)}
+
+
+def param_axes(specs: Pytree) -> Pytree:
+    """Tree of each spec's logical-axis tuple, parallel to
+    :func:`init_params`' output."""
+    return _map(lambda s: s.axes, specs)
+
+
+def abstract_params(specs: Pytree) -> Pytree:
+    """:func:`init_params`' tree on the ``meta`` device: shapes and dtypes
+    only, nothing allocated."""
+    return _map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                      device="meta"), specs)
+
+
 def _spec_leaves(specs: Pytree) -> list:
     if isinstance(specs, ParamSpec):
         return [specs]

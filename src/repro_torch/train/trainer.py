@@ -21,10 +21,21 @@ inter-pod link (the paper's periodic stale sync).  ``sync_mode``:
   parameters carry no pod dim.  Each step averages the loss and its
   parts over the pods; a sync step gathers every pod's copies and takes
   the same mean.  Every collective goes through
-  :mod:`repro_torch.core.collectives`, so the census counts it.  A
-  ``"data"`` dimension above 1 raises: inside a pod the reference relies
-  on GSPMD's layout, which the port would replace by gradient
-  all-reduces of its own (ROADMAP.md §1 item 8g).
+  :mod:`repro_torch.core.collectives`, so the census counts it.
+
+Data parallelism (the reference's GSPMD split of a pod's batch): with a
+mesh, the pod form splits each pod's batch over "data", and the
+``every_step`` baseline splits the batch over every batch dimension
+("pod" and "data") of its mesh.  A rank takes its contiguous block of
+rows and differentiates its share of the pod batch's loss: its masked
+CE sum over the pod's mask count (one small all-reduce before the
+backward), and the MoE aux loss with the per-expert dispatch counts
+gathered over the ranks (``E · f_e / T_pod`` a local token).  The
+gradients, with the loss and its parts, are gathered over the data
+ranks and added in rank order every step, before the clip, so every
+data rank steps on the same bits.  A ``"model"`` dimension above 1 is
+refused: the rank must be a batch block.  A mesh without a batch
+dimension above 1 gives the single-device step exactly.
 
 The pod mean is a float32 sum in pod order divided by the pod count, in
 both forms, so they agree bit for bit.  The state is ``{"params",
@@ -41,10 +52,13 @@ import torch
 
 from repro_torch.core import collectives
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import dim_size, refuse_model_dim
 from repro_torch.models.transformer import (ArchConfig, arch_specs,
-                                            aux_moe_loss, decode_step,
-                                            forward)
-from repro_torch.nn import ParamSpec, init_params, softmax_cross_entropy
+                                            aux_moe_loss, aux_moe_stats,
+                                            decode_step, forward)
+from repro_torch.nn import (abstract_params, init_params,
+                            softmax_cross_entropy)
+from repro_torch.nn.layers import token_nll
 from repro_torch.optim import (Optimizer, clip_by_global_norm,
                                make_optimizer, tree_leaves, tree_map,
                                warmup_cosine_schedule)
@@ -112,48 +126,130 @@ def init_train_state(cfg: ArchConfig, settings: TrainSettings,
     return _state(cfg, settings, params)
 
 
-def _meta_params(specs: Pytree) -> Pytree:
-    """``init_params``' tree on the meta device: shapes and dtypes only."""
-    if isinstance(specs, ParamSpec):
-        return torch.empty(specs.shape, dtype=specs.dtype, device="meta")
-    if isinstance(specs, (list, tuple)):
-        return [_meta_params(s) for s in specs]
-    return {k: _meta_params(specs[k]) for k in sorted(specs)}
-
-
 def abstract_train_state(cfg: ArchConfig, settings: TrainSettings) -> dict:
     """:func:`init_train_state`'s tree on the ``meta`` device (no
     allocation); ``step`` stays a host tensor."""
-    return _state(cfg, settings, _meta_params(arch_specs(cfg)))
+    return _state(cfg, settings, abstract_params(arch_specs(cfg)))
+
+
+class _DataSplit:
+    """A batch split over the mesh dimensions ``axes`` (sizes above 1, in
+    mesh order): this rank's block of rows and the ordered sums over its
+    ranks."""
+
+    def __init__(self, mesh, axes: list):
+        self.groups = [mesh.get_group(a) for a in axes]
+        sizes = [dim_size(mesh, a) for a in axes]
+        self.n = 1
+        self.block = 0
+        for a, n in zip(axes, sizes):
+            self.n *= n
+            self.block = self.block * n + mesh.get_local_rank(a)
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[0] % self.n:
+            raise ValueError(f"a batch of {x.shape[0]} rows does not split "
+                             f"over {self.n} data-parallel ranks")
+        return _pod_slice(x, self.block, self.n)
+
+    def count(self, t: torch.Tensor) -> torch.Tensor:
+        """In-place sum of a small exact count over the ranks."""
+        for g in reversed(self.groups):
+            collectives.all_reduce(t, group=g)
+        return t
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """Float32 sum of every rank's ``t``, in rank order: over the last
+        dimension first, then the one before; every rank gets the same
+        bits."""
+        for g in reversed(self.groups):
+            t = _ordered_sum(collectives.all_gather(t, g))
+        return t
+
+
+def _ce_share(logits: torch.Tensor, labels: torch.Tensor,
+              mask: Optional[torch.Tensor], split: _DataSplit
+              ) -> torch.Tensor:
+    """This rank's share of the pod batch's masked-mean CE: its masked
+    sum over the pod's mask count."""
+    nll = token_nll(logits, labels)
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    count = split.count(torch.sum(mask).detach())
+    return torch.sum(nll * mask) / torch.clamp_min(count, 1.0)
+
+
+def _aux_share(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
+               split: _DataSplit) -> torch.Tensor:
+    """This rank's share of the pod batch's load-balance loss
+    ``E · Σ_e f_e · p_e`` (a block mean): the dispatch counts and
+    probability sums are gathered over the ranks (detached), and the
+    local probability sum carries the gradient, ``E · f_e / T_pod`` a
+    local token.  The shares add up to the pod's loss."""
+    stats = aux_moe_stats(cfg, params, tokens)
+    e = cfg.num_experts
+    total = split.sum(torch.cat([torch.cat([c, p.detach()])
+                                 for c, p in stats]))
+    t_pod = tokens.numel() * split.n
+    share = torch.zeros((), device=total.device)
+    for i, (_, p) in enumerate(stats):
+        f = total[2 * e * i:2 * e * i + e] / t_pod
+        share = share + e * torch.sum(f * (p / t_pod))
+    return share / max(len(stats), 1)
 
 
 def _loss_fn(cfg: ArchConfig, settings: TrainSettings, params: Pytree,
-             batch: dict) -> tuple[torch.Tensor, dict]:
+             batch: dict, split: Optional[_DataSplit] = None
+             ) -> tuple[torch.Tensor, dict]:
     logits = forward(cfg, params, batch["tokens"], batch.get("vision"))
-    ce = softmax_cross_entropy(logits, batch["labels"], batch.get("mask"))
+    if split is None:
+        ce = softmax_cross_entropy(logits, batch["labels"],
+                                   batch.get("mask"))
+    else:
+        ce = _ce_share(logits, batch["labels"], batch.get("mask"), split)
     del logits
     loss = ce
     aux = torch.zeros((), dtype=torch.float32, device=ce.device)
     if cfg.num_experts:
-        aux = aux_moe_loss(cfg, params, batch["tokens"])
+        aux = (aux_moe_loss(cfg, params, batch["tokens"]) if split is None
+               else _aux_share(cfg, params, batch["tokens"], split))
         loss = loss + settings.aux_loss_weight * aux
     return loss, {"ce": ce, "aux": aux}
 
 
 def loss_and_grads(cfg: ArchConfig, settings: TrainSettings,
-                   params: Pytree, batch: dict) -> tuple:
+                   params: Pytree, batch: dict,
+                   split: Optional[_DataSplit] = None) -> tuple:
     """``(loss, parts, grads)`` of one pod's batch; ``grads`` has the
-    tree of ``params`` and each leaf's dtype."""
+    tree of ``params`` and each leaf's dtype.  With ``split`` (a
+    data-parallel step), ``batch`` is this rank's rows and the three are
+    its shares of the pod batch's, to be summed over the ranks."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     it = iter(leaves)
     live = _rebuild(params, it)
     with torch.enable_grad():
-        loss, parts = _loss_fn(cfg, settings, live, batch)
+        loss, parts = _loss_fn(cfg, settings, live, batch, split)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
     return (loss.detach(), {k: v.detach() for k, v in parts.items()},
             _rebuild(params, iter(grads)))
+
+
+def _sum_shares(split: _DataSplit, loss, parts, grads) -> tuple:
+    """The pod batch's loss, parts and gradients: every rank's shares,
+    flattened into one float32 buffer, gathered and added in rank
+    order."""
+    leaves = tree_leaves(grads)
+    flat = torch.cat([g.float().reshape(-1) for g in leaves]
+                     + [torch.stack([loss, parts["ce"], parts["aux"]])])
+    total = split.sum(flat)
+    del flat
+    out, at = [], 0
+    for g in leaves:
+        out.append(total[at:at + g.numel()].reshape(g.shape).to(g.dtype))
+        at += g.numel()
+    loss, ce, aux = total[at:].unbind()
+    return loss, {"ce": ce, "aux": aux}, _rebuild(grads, iter(out))
 
 
 def _rebuild(tree: Pytree, leaves) -> Pytree:
@@ -165,13 +261,18 @@ def _rebuild(tree: Pytree, leaves) -> Pytree:
     return next(leaves)
 
 
-def _pod_mean(copies) -> torch.Tensor:
-    """Float32 mean of equal-shape tensors: summed in pod order, then
-    divided by their count."""
+def _ordered_sum(copies) -> torch.Tensor:
+    """Float32 sum of equal-shape tensors, in list order."""
     acc = copies[0].float()
     for c in copies[1:]:
         acc = acc + c.float()
-    return acc / len(copies)
+    return acc
+
+
+def _pod_mean(copies) -> torch.Tensor:
+    """Float32 mean of equal-shape tensors: summed in pod order, then
+    divided by their count."""
+    return _ordered_sum(copies) / len(copies)
 
 
 def _pod_divergence(params: Pytree) -> torch.Tensor:
@@ -189,21 +290,39 @@ def make_train_step(cfg: ArchConfig, settings: TrainSettings,
                     mesh: Optional[Any] = None
                     ) -> Callable[[dict, dict], tuple[dict, dict]]:
     """``train_step(state, batch) -> (state, metrics)`` in the form
-    ``settings`` names (module docstring); ``mesh`` is the
-    ``DeviceMesh`` of ``pod_impl="shard_map"``.  Metrics are 0-d tensors
-    on the batch's device: ``loss``, ``ce``, ``aux`` (the pods' means)
-    and, in the stacked form, ``pod_divergence``."""
+    ``settings`` names (module docstring).  ``mesh``: the ``DeviceMesh``
+    of ``pod_impl="shard_map"`` (one rank a pod over "pod", each pod's
+    batch split over "data"), or of the data-parallel single-pod step
+    (the batch split over "pod" and "data"); the stacked pod form takes
+    none.  ``batch`` is the global batch on every rank.  Metrics are 0-d
+    tensors on the batch's device: ``loss``, ``ce``, ``aux`` (the pod
+    batches', then the pods' means) and, in the stacked form,
+    ``pod_divergence``."""
     opt = make_arch_optimizer(cfg, settings)
+    refuse_model_dim(mesh, "make_train_step")
+    pods = settings.sync_mode == "digest" and settings.n_pod > 1
+    if mesh is not None and pods and settings.pod_impl != "shard_map":
+        raise ValueError("the stacked pod form (pod_impl='vmap') runs on "
+                         "one device and takes no mesh; a mesh takes "
+                         "pod_impl='shard_map'")
+    axes = [a for a in (("data",) if pods else ("pod", "data"))
+            if mesh is not None and dim_size(mesh, a) > 1]
+    split = _DataSplit(mesh, axes) if axes else None
 
     def one_pod_step(params, opt_state, batch, step):
-        loss, parts, grads = loss_and_grads(cfg, settings, params, batch)
+        if split is not None:
+            batch = {k: split.rows(v) for k, v in batch.items()}
+        loss, parts, grads = loss_and_grads(cfg, settings, params, batch,
+                                            split)
+        if split is not None:
+            loss, parts, grads = _sum_shares(split, loss, parts, grads)
         if settings.grad_clip:
             grads = clip_by_global_norm(grads, settings.grad_clip)
         with torch.no_grad():
             new_params, new_opt = opt.update(grads, opt_state, params, step)
         return new_params, new_opt, loss, parts
 
-    if settings.sync_mode != "digest" or settings.n_pod <= 1:
+    if not pods:
         def train_step(state, batch):
             step = int(state["step"])
             params, opt_state, loss, parts = one_pod_step(
@@ -257,17 +376,12 @@ def _pod_slice(x: torch.Tensor, pod: int, n_pod: int) -> torch.Tensor:
 
 def _make_pod_mesh_step(settings: TrainSettings, mesh,
                         one_pod_step) -> Callable:
-    """Form (c): this rank is one pod of ``mesh``'s "pod" dimension."""
+    """Form (c): this rank is one pod of ``mesh``'s "pod" dimension (and
+    one data block of its pod, ``one_pod_step``'s split)."""
     if mesh is None or "pod" not in (mesh.mesh_dim_names or ()):
         raise ValueError("pod_impl='shard_map' needs a mesh with a "
                          "'pod' axis active via axis_rules(...)")
-    names = mesh.mesh_dim_names
-    if "data" in names and mesh.size(names.index("data")) > 1:
-        raise NotImplementedError(
-            "pod_impl='shard_map' with a 'data' dimension above 1 (data "
-            "parallelism inside a pod: gradient all-reduces over 'data') "
-            "is not ported yet: ROADMAP.md §1 item 8g")
-    n_pod = mesh.size(names.index("pod"))
+    n_pod = dim_size(mesh, "pod")
     if n_pod != settings.n_pod:
         raise ValueError(f"mesh has {n_pod} pods, settings.n_pod is "
                          f"{settings.n_pod}")

@@ -386,17 +386,63 @@ def test_pod_form_refuses_without_a_pod_mesh():
         ttrain.make_train_step(tcfg, tset)
 
 
+_REF_POD_DATA = r"""
+import dataclasses, sys
+import jax, numpy as np
+from repro import train
+from repro.configs import get_smoke_arch
+from repro.distributed.sharding import axis_rules
+from repro.launch.mesh import make_host_mesh
+assert jax.device_count() >= 4, jax.device_count()
+steps, interval = int(sys.argv[2]), int(sys.argv[3])
+cfg = dataclasses.replace(get_smoke_arch("qwen3_0_6b"), vocab_size=64)
+s = train.TrainSettings(sync_mode="digest", n_pod=2, pod_impl="shard_map",
+                        sync_interval=interval, total_steps=40,
+                        warmup_steps=2)
+state = train.init_train_state(cfg, s)
+out = {f"init{i}": np.asarray(x)
+       for i, x in enumerate(jax.tree.leaves(state["params"]))}
+rng = np.random.default_rng(4)
+mesh = make_host_mesh(data=2, model=1, pod=2)
+with axis_rules(mesh):
+    step = jax.jit(train.make_train_step(cfg, s))
+    for i in range(steps):
+        toks = rng.integers(0, 64, (4, 17)).astype(np.int32)
+        mask = (rng.random((4, 16)) < 0.7).astype(np.float32)
+        b = {"tokens": toks[:, :-1], "labels": toks[:, 1:], "mask": mask}
+        out.update({f"{k}{i}": v for k, v in b.items()})
+        state, m = step(state, b)
+        out.update({f"{k}{i}/metric": np.asarray(v) for k, v in m.items()})
+for i, x in enumerate(jax.tree.leaves(state["params"])):
+    out[f"final{i}"] = np.asarray(x)
+np.savez(sys.argv[1], **out)
+"""
+
+
+@pytest.fixture(scope="module")
+def pod_world4():
+    import test_torch_mesh as tm
+    return tm.spawn("lm_pod_job", 4, steps=8, interval=4)
+
+
 @pytest.mark.parametrize("world", [2, 4])
-def test_pod_form_equals_stacked_form(world):
+def test_pod_form_equals_stacked_form(world, request):
     """One gloo rank a pod (``pod_impl="shard_map"``) against the stacked
     form computed in each rank: 8 steps at interval 4, metrics, this
     pod's params and optimizer state bit for bit every step.  Census:
     one ``all_gather`` of (loss, ce, aux) a step, and one of the
-    flattened params at a sync step.  Refused: no mesh and a ("data",)
-    mesh (ValueError, the reference's text), a "data" dimension above 1
-    (NotImplementedError naming item 8g)."""
+    flattened params at a sync step.  Refused (ValueError): no mesh and a
+    ("data",) mesh (the reference's text), a mesh for the stacked form.
+    At world 4 the (pod 2, data 2) form against the stacked form
+    (qwen3-0.6b and llama4-scout SMOKE): the step-1 gradient and this
+    pod's params after step 1 within 1e-5 of a leaf's max, each step's
+    loss, ce and aux within 1e-4 (Adam's steps carry the sums' rounding
+    on, so later params are held through the trajectory); census
+    a step: the mask count's ``all_reduce``, the gradients' ``all_gather``
+    over "data" (and the aux loss's dispatch counts), the pod mean's."""
     import test_torch_mesh as tm
-    ranks = tm.spawn("lm_pod_job", world, steps=8, interval=4)
+    ranks = (request.getfixturevalue("pod_world4") if world == 4
+             else tm.spawn("lm_pod_job", world, steps=8, interval=4))
     assert sorted(r["pod"] for r in ranks) == list(range(world))
     for r in ranks:
         assert all(r["equal"]), r["equal"]
@@ -404,11 +450,92 @@ def test_pod_form_equals_stacked_form(world):
                                for s in range(8)]
         assert r["divergence"][3] == 0.0 and r["divergence"][7] == 0.0
         assert r["divergence"][1] > 0.0
-        assert r["refusals"]["none"][0] == "ValueError"
-        assert r["refusals"]["data only"][0] == "ValueError"
-        if world == 4:
-            kind, msg = r["refusals"]["data 2"]
-            assert kind == "NotImplementedError" and "8g" in msg
+        assert "needs a mesh with a 'pod' axis" in r["refusals"]["none"]
+        assert "needs a mesh with a 'pod' axis" in r["refusals"][
+            "data only"]
+        assert "takes no mesh" in r["refusals"]["stacked form"]
+    if world == 2:
+        return
+    for arch, aux in (("qwen3-0.6b", 0), ("llama4-scout-17b-a16e", 1)):
+        res = [r[f"data2 {arch}"] for r in ranks]
+        for r in res:
+            assert r["grad_err"] <= REL, arch
+            assert max(r["loss_rel"]) <= TRAJ, (arch, r["loss_rel"])
+            assert r["params_err"][0] <= REL, (arch, r["params_err"])
+            assert r["census"] == [
+                {"all_reduce": 1,
+                 "all_gather": 2 + aux + ((s + 1) % 4 == 0)}
+                for s in range(8)], (arch, r["census"])
+        # The two data ranks of a pod hold the same bits.
+        pods = [r["data2 pod"] for r in ranks]
+        for p in (0, 1):
+            a, b = (res[i]["params"] for i in range(4) if pods[i] == p)
+            assert all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def test_pod_data_form_matches_reference(tmp_path):
+    """The port's (pod 2, data 2) form on 4 gloo ranks against the
+    reference's ``_make_pod_shard_map_step`` on the same mesh (a forced
+    4-device JAX subprocess), from the reference's initial params, under
+    a mask of uneven counts: 4 steps at interval 2, each step's loss, ce
+    and aux within 1e-4, the params after the last (a sync) step within
+    1e-5 absolute (between syncs the reference returns one pod's copy),
+    every rank's the same bits."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    import test_torch_mesh as tm
+    ref = str(tmp_path / "ref.npz")
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ,
+               XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               JAX_PLATFORMS="cpu", PYTHONPATH=str(root / "src"))
+    res = subprocess.run([sys.executable, "-c", _REF_POD_DATA, ref, "4",
+                          "2"], env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    want = np.load(ref)
+    ranks = tm.spawn("lm_reference_job", 4, ref_npz=ref, interval=2)
+    for r in ranks:
+        for i, m in enumerate(r["metrics"]):
+            for k in ("loss", "ce", "aux"):
+                w = float(want[f"{k}{i}/metric"])
+                assert abs(m[k] - w) <= TRAJ * max(abs(w), 1e-30), (i, k)
+        for i, got in enumerate(r["params"]):
+            np.testing.assert_allclose(got, want[f"final{i}"], rtol=0,
+                                       atol=REL, err_msg=str(i))
+        assert all(np.array_equal(x, y)
+                   for x, y in zip(r["params"], ranks[0]["params"]))
+
+
+def test_data_parallel_every_step_equals_one_process():
+    """The ``every_step`` baseline on a ("data",) = 2 mesh (each rank two
+    of the batch's four rows) against the single process, 4 steps, with
+    rank 0's rows masked more than rank 1's: qwen3-0.6b and llama4-scout
+    SMOKE (whose aux loss multiplies two token means: the ranks gather
+    the dispatch counts before the product).  The step-1 gradient within
+    1e-5 of a leaf's max, the params after step 1 too, each step's loss,
+    ce and aux within 1e-4; the two ranks hold the same bits; census a
+    step: the mask count's ``all_reduce`` and the gradients' (and aux
+    counts') ``all_gather``.  A mesh with no batch dimension above 1 is
+    the single-device step bit for bit; a "model" dimension is refused."""
+    import test_torch_mesh as tm
+    ranks = tm.spawn("lm_dp_job", 2, steps=4)
+    for arch, aux in (("qwen3-0.6b", 0), ("llama4-scout-17b-a16e", 1)):
+        for r in ranks:
+            res = r[arch]
+            assert res["grad_err"] <= REL, arch
+            assert res["params_err"][0] <= REL, (arch, res["params_err"])
+            assert max(res["loss_rel"]) <= TRAJ, (arch, res["loss_rel"])
+            assert res["census"] == [{"all_reduce": 1,
+                                      "all_gather": 1 + aux}] * 4
+        assert all(np.array_equal(x, y) for x, y in
+                   zip(ranks[0][arch]["params"], ranks[1][arch]["params"]))
+    for r in ranks:
+        assert r["data 1 is single"]
+        assert "'model' dimension is 2" in r["model refused"]
 
 
 # ---------------------------------------------------------------------------

@@ -424,13 +424,63 @@ def checkpoint_job(world: int, ckpt_dir: str) -> dict:
                 digest.gather_state(resumed, mesh), single6)}
 
 
+def _lm_state_close(ref, got) -> float:
+    """The largest |got - ref| of a leaf over the leaf's max |ref|."""
+    from repro_torch.optim import tree_leaves
+    return max(float((y - x).abs().max()) / max(float(x.abs().max()), 1e-30)
+               for x, y in zip(tree_leaves(ref), tree_leaves(got)))
+
+
+def _pod_data_run(cfg, stacked, pods, batches, mesh, pod: int) -> dict:
+    """The pod form on a ("pod", "data") mesh with "data" above 1 against
+    the stacked form: the step-1 gradient of this rank's pod (its shares
+    summed over "data") against the pod batch's, each step's metrics,
+    this pod's params after every step, and the census."""
+    from repro_torch.core import collectives
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train import trainer
+
+    n_pod = stacked.n_pod
+    sb = init_train_state(cfg, stacked, device="cpu")
+    sc = init_train_state(cfg, pods, device="cpu")
+    fb, fc = make_train_step(cfg, stacked), make_train_step(cfg, pods, mesh)
+    pod_batch = {k: trainer._pod_slice(v, pod, n_pod)
+                 for k, v in batches[0].items()}
+    split = trainer._DataSplit(mesh, ["data"])
+    want = trainer.loss_and_grads(cfg, pods, sc["params"], pod_batch)
+    got = trainer._sum_shares(split, *trainer.loss_and_grads(
+        cfg, pods, sc["params"],
+        {k: split.rows(v) for k, v in pod_batch.items()}, split))
+    out = {"grad_err": _lm_state_close(want[2], got[2]),
+           "loss_rel": [], "params_err": [], "census": []}
+    for b in batches:
+        sb, mb = fb(sb, b)
+        collectives.reset_collectives()
+        sc, mc = fc(sc, b)
+        out["census"].append(dict(collectives.COLLECTIVES))
+        out["loss_rel"].append(max(
+            abs(float(mc[k]) - float(mb[k])) / max(abs(float(mb[k])), 1e-30)
+            for k in ("loss", "ce", "aux")))
+        out["params_err"].append(_lm_state_close(
+            [x[pod] for x in leaves_of(sb["params"])], sc["params"]))
+    out["params"] = [x.numpy() for x in leaves_of(sc["params"])]
+    return out
+
+
+def leaves_of(tree) -> list:
+    from repro_torch.optim import tree_leaves
+    return tree_leaves(tree)
+
+
 def lm_pod_job(world: int, steps: int, interval: int) -> dict:
     """The LM trainer's pod form (``pod_impl="shard_map"``, one rank a pod
     of a ("pod", "data") = world x 1 mesh) against its stacked form
     (``"vmap"``, all pods in this rank), qwen3-0.6b SMOKE at vocab 64,
     batch 2 a pod x 16: every step's loss, ce and aux, and this pod's
     params and optimizer state after every step, bit for bit; the census
-    of every step; and the refusals of meshes the form cannot take."""
+    of every step; the refusals of meshes the form cannot take; and at
+    world 4 the (pod 2, data 2) form (:func:`_pod_data_run`), for
+    qwen3-0.6b and llama4-scout (the aux loss) SMOKE."""
     from repro_torch.configs import get_smoke_arch
     from repro_torch.core import collectives
     from repro_torch.data import make_lm_pipeline
@@ -466,15 +516,243 @@ def lm_pod_job(world: int, steps: int, interval: int) -> dict:
                                     tree_leaves(sc[key])))
             and int(sb["step"]) == int(sc["step"]))
     refusals = {}
-    for label, mesh_fn in (("none", lambda: None),
-                           ("data only", lambda: make_mesh(world)),
-                           ("data 2", lambda: make_mesh(2, world // 2))):
-        if label == "data 2" and world < 4:
-            continue
+    for label, mesh_fn, st in (
+            ("none", lambda: None, pods),
+            ("data only", lambda: make_mesh(world), pods),
+            ("stacked form", lambda: make_mesh(1, world), stacked)):
         try:
-            make_train_step(cfg, pods, mesh_fn())
+            make_train_step(cfg, st, mesh_fn())
             refusals[label] = None
-        except (ValueError, NotImplementedError) as e:
-            refusals[label] = (type(e).__name__, str(e))
-    return {"pod": pod, "equal": equal, "census": census,
-            "divergence": divergence, "refusals": refusals}
+        except ValueError as e:
+            refusals[label] = str(e)
+    out = {"pod": pod, "equal": equal, "census": census,
+           "divergence": divergence, "refusals": refusals}
+    if world == 4:
+        mesh = make_mesh(2, 2)
+        pod = mesh.get_local_rank("pod")
+        two = dict(n_pod=2, sync_interval=interval)
+        for arch in ("qwen3-0.6b", "llama4-scout-17b-a16e"):
+            c = dataclasses.replace(get_smoke_arch(arch), vocab_size=64)
+            out[f"data2 {arch}"] = _pod_data_run(
+                c, dataclasses.replace(stacked, **two),
+                dataclasses.replace(pods, **two), batches, mesh, pod)
+        out["data2 pod"] = pod
+    return out
+
+
+def lm_reference_job(world: int, ref_npz: str, interval: int) -> dict:
+    """The (pod 2, data 2) pod form from the reference's initial params
+    (``ref_npz``, written by its ``_make_pod_shard_map_step`` run on the
+    same mesh): each step's metrics and the params after the last step."""
+    from repro_torch.configs import get_smoke_arch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import arch_specs
+    from repro_torch.nn import abstract_params
+    from repro_torch.train import TrainSettings, make_train_step
+    from repro_torch.train.trainer import _rebuild, _state
+
+    ref = np.load(ref_npz)
+    cfg = dataclasses.replace(get_smoke_arch("qwen3-0.6b"), vocab_size=64)
+    settings = TrainSettings(sync_mode="digest", n_pod=2,
+                             pod_impl="shard_map", sync_interval=interval,
+                             total_steps=40, warmup_steps=2)
+    n = len([k for k in ref.files if k.startswith("init")])
+    params = _rebuild(abstract_params(arch_specs(cfg)),
+                      iter(torch.from_numpy(ref[f"init{i}"])
+                           for i in range(n)))
+    state = _state(cfg, settings, params)
+    step = make_train_step(cfg, settings, make_mesh(2, 2))
+    metrics = []
+    for i in range(len([k for k in ref.files if k.startswith("tokens")])):
+        state, m = step(state, {k: torch.from_numpy(ref[f"{k}{i}"])
+                                for k in ("tokens", "labels", "mask")})
+        metrics.append({k: float(v) for k, v in m.items()})
+    return {"metrics": metrics,
+            "params": [x.numpy() for x in leaves_of(state["params"])]}
+
+
+def lm_dp_job(world: int, steps: int) -> dict:
+    """The ``every_step`` baseline on a ("data",) = world mesh against the
+    single process on the same global batches, for qwen3-0.6b (vocab 64)
+    and llama4-scout (the aux loss) SMOKE, under a mask whose counts
+    differ between the ranks' rows: the step-1 gradient (the ranks'
+    shares summed) against the batch's, each step's metrics, the params
+    after step 1 and after the last step, and the census.  A mesh with
+    no batch dimension above 1 gives the single-device step bit for bit;
+    a "model" dimension is refused."""
+    from repro_torch.configs import get_smoke_arch
+    from repro_torch.core import collectives
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import (TrainSettings, init_train_state,
+                                   make_train_step)
+    from repro_torch.train import trainer
+
+    settings = TrainSettings(total_steps=20, warmup_steps=2)
+    mesh = make_mesh(world)
+    rng = np.random.default_rng(5)
+    out = {}
+    for arch in ("qwen3-0.6b", "llama4-scout-17b-a16e"):
+        cfg = dataclasses.replace(get_smoke_arch(arch), vocab_size=64)
+        batches = []
+        for _ in range(steps):
+            toks = rng.integers(0, 64, (2 * world, 17))
+            mask = np.ones((2 * world, 16), np.float32)
+            mask[:2, 5:] = 0.0               # rank 0's rows: fewer tokens
+            batches.append({"tokens": torch.from_numpy(toks[:, :-1]),
+                            "labels": torch.from_numpy(toks[:, 1:]),
+                            "mask": torch.from_numpy(mask)})
+        single = init_train_state(cfg, settings, device="cpu")
+        dp = init_train_state(cfg, settings, device="cpu")
+        split = trainer._DataSplit(mesh, ["data"])
+        want = trainer.loss_and_grads(cfg, settings, single["params"],
+                                      batches[0])
+        got = trainer._sum_shares(split, *trainer.loss_and_grads(
+            cfg, settings, dp["params"],
+            {k: split.rows(v) for k, v in batches[0].items()}, split))
+        res = {"grad_err": _lm_state_close(want[2], got[2]),
+               "loss_rel": [], "params_err": [], "census": []}
+        f1, f2 = make_train_step(cfg, settings), make_train_step(
+            cfg, settings, mesh)
+        for b in batches:
+            single, m1 = f1(single, b)
+            collectives.reset_collectives()
+            dp, m2 = f2(dp, b)
+            res["census"].append(dict(collectives.COLLECTIVES))
+            res["loss_rel"].append(max(
+                abs(float(m2[k]) - float(m1[k]))
+                / max(abs(float(m1[k])), 1e-30) for k in ("loss", "ce",
+                                                          "aux")))
+            res["params_err"].append(_lm_state_close(single["params"],
+                                                     dp["params"]))
+        res["params"] = [x.numpy() for x in leaves_of(dp["params"])]
+        out[arch] = res
+    # A mesh whose batch dimensions are all 1: the single-device step.
+    cfg = dataclasses.replace(get_smoke_arch("qwen3-0.6b"), vocab_size=64)
+    one = make_mesh(1, pod=world)["data"]
+    a = init_train_state(cfg, settings, device="cpu")
+    b = init_train_state(cfg, settings, device="cpu")
+    for batch in batches[:2]:
+        a, ma = make_train_step(cfg, settings)(a, batch)
+        b, mb = make_train_step(cfg, settings, one)(b, batch)
+    out["data 1 is single"] = all(
+        torch.equal(x, y) for x, y in zip(leaves_of([a, ma]),
+                                          leaves_of([b, mb])))
+    try:
+        make_train_step(cfg, settings, make_mesh(1, model=world))
+        out["model refused"] = None
+    except ValueError as e:
+        out["model refused"] = str(e)
+    return out
+
+
+# The expert-parallel MoE: moe_ep over "model" (with and without batch
+# dimensions), each case (mesh, batch, k) of
+# tests/test_torch_moe.py::MOE_CASES on the inputs its fixture writes.
+
+def moe_meshes() -> dict:
+    """The three 4-rank meshes of the MoE cases: ("model",) = 4 (a mesh
+    with no batch dimension), ("data", "model") = 2 x 2 and ("pod",
+    "data", "model") = 2 x 1 x 2."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.mesh import make_mesh
+    return {"model4": init_device_mesh("cpu", (4,),
+                                       mesh_dim_names=("model",)),
+            "data2_model2": make_mesh(2, model=2),
+            "pod2_model2": make_mesh(1, pod=2, model=2)}
+
+
+def _batch_blocks(mesh, b: int) -> int:
+    """The batch blocks moe_ep splits a batch of ``b`` rows into."""
+    from repro_torch.launch.mesh import dim_size
+    n = dim_size(mesh, "pod") * dim_size(mesh, "data")
+    return n if b % n == 0 else 1
+
+
+def moe_job(world: int, inputs: str, cases: list, cf: float) -> dict:
+    """Each case's moe_ep over its mesh (the global output, on every
+    rank), bit for bit against the single-device moe_ep applied to each
+    batch block (the same capacity), with global and with sharded
+    (``shard_experts``) weights; ``moe_ffn(impl="auto", mesh=...)``; the
+    census of a call; the refusals (E not a multiple of "model"; a
+    "model" dimension on the GNN exchange and the LM trainer); scout and
+    kimi SMOKE forward and decode with a mesh against the single
+    process."""
+    from repro_torch.configs import get_smoke_arch
+    from repro_torch.core import collectives, halo_exchange
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import (arch_specs, decode_step,
+                                                forward, init_cache)
+    from repro_torch.nn import init_params
+    from repro_torch.train import TrainSettings, make_train_step
+
+    data = np.load(inputs)
+    meshes = moe_meshes()
+    out = {"cases": {}, "refusals": {}}
+    for name, b, k in cases:
+        mesh = meshes[name]
+        key = f"{name}/B{b}/k{k}"
+        x = torch.from_numpy(data[f"x{b}"])
+        p = {w: torch.from_numpy(data[w]) for w in
+             ("router", "w_gate", "w_up", "w_down")}
+        collectives.reset_collectives()
+        y = moe.moe_ep(x, p, k, capacity_factor=cf, mesh=mesh)
+        census = dict(collectives.COLLECTIVES)
+        n = _batch_blocks(mesh, b)
+        single = torch.cat([moe.moe_ep(blk, p, k, capacity_factor=cf)
+                            for blk in x.chunk(n)])
+        sharded = moe.moe_ep(x, moe.shard_experts(p, mesh), k,
+                             capacity_factor=cf, mesh=mesh)
+        auto = moe.moe_ffn(x, p, k, capacity_factor=cf, mesh=mesh)
+        out["cases"][key] = {
+            "y": y.numpy(), "census": census, "blocks": n,
+            "single": torch.equal(y, single),
+            "sharded": torch.equal(y, sharded),
+            "auto_is_ep": torch.equal(auto, y),
+            "shard_rows": moe.shard_experts(p, mesh)["w_gate"].shape[0]}
+    bad = {"router": torch.zeros(16, 6), "w_gate": torch.zeros(6, 16, 8),
+           "w_up": torch.zeros(6, 16, 8), "w_down": torch.zeros(6, 8, 16)}
+    tries = {
+        "E % model": lambda: moe.moe_ep(torch.zeros(4, 2, 16), bad, 1,
+                                        mesh=meshes["model4"]),
+        "gnn part_slice": lambda: halo_exchange.part_slice(
+            8, meshes["data2_model2"]),
+        "trainer": lambda: make_train_step(
+            get_smoke_arch("qwen3-0.6b"), TrainSettings(),
+            meshes["data2_model2"])}
+    for label, fn in tries.items():
+        try:
+            fn()
+            out["refusals"][label] = None
+        except ValueError as e:
+            out["refusals"][label] = str(e)
+    # The transformer with a mesh: scout (top-1) and kimi (top-2) SMOKE,
+    # moe_impl "ep", against the single process.
+    out["models"] = {}
+    for arch in ("llama4-scout-17b-a16e", "kimi-k2-1t-a32b"):
+        cfg = dataclasses.replace(get_smoke_arch(arch), moe_impl="ep")
+        params = init_params(arch_specs(cfg), torch.Generator().manual_seed(0),
+                             "cpu")
+        mine = moe.shard_experts(params, meshes["model4"])
+        toks = torch.from_numpy(np.random.default_rng(3).integers(
+            0, cfg.vocab_size, (2, 12)))
+        res = {}
+        with torch.no_grad():
+            for label, mesh, p, b in (
+                    ("model4", meshes["model4"], params, 2),
+                    ("model4 sharded", meshes["model4"], mine, 2),
+                    ("data2_model2 B1", meshes["data2_model2"], params, 1)):
+                t = toks[:b]
+                same = torch.equal(forward(cfg, p, t, mesh=mesh),
+                                   forward(cfg, params, t))
+                caches = [init_cache(cfg, b, 8, device="cpu")
+                          for _ in range(2)]
+                for s in range(6):
+                    a, caches[0] = decode_step(cfg, p, caches[0],
+                                               t[:, s:s + 1], mesh=mesh)
+                    w, caches[1] = decode_step(cfg, params, caches[1],
+                                               t[:, s:s + 1])
+                    same = same and torch.equal(a, w)
+                res[label] = same
+        out["models"][arch] = res
+    return out

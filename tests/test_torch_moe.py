@@ -178,13 +178,6 @@ def test_moe_ep_is_deterministic_and_combines_in_order():
     assert torch.equal(tmoe._combine(tok.reshape(-1), contrib, t, k), want)
 
 
-def test_moe_ep_refuses_a_mesh():
-    rng = np.random.default_rng(0)
-    _, tp = _both(_params(rng, 16, 4, 32))
-    with pytest.raises(NotImplementedError, match="item 8e"):
-        tmoe.moe_ep(torch.zeros((1, 4, 16)), tp, 1, mesh=object())
-
-
 # ---------------------------------------------------------------------------
 # The reference's properties (tests/test_moe.py), on the port
 # ---------------------------------------------------------------------------
@@ -247,3 +240,111 @@ def test_aux_moe_loss_matches_reference(name):
     assert abs(float(got) - float(want)) < 1e-6
     dense = dataclasses.replace(tcfg, num_experts=0)
     assert float(tt.aux_moe_loss(dense, tp, torch.from_numpy(toks))) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# Expert parallelism over a mesh (gloo ranks against the reference's
+# shard_map on a forced 4-device JAX subprocess)
+# ---------------------------------------------------------------------------
+
+# (mesh, batch, k): batch 4 splits over the batch dimensions, batch 1 is
+# replicated (the reference's B % n_batch rule); at capacity 1.25 some
+# assignments drop, the capacity from the local tokens.
+MOE_CASES = [("model4", 4, 2), ("data2_model2", 4, 1),
+             ("data2_model2", 1, 2), ("pod2_model2", 4, 2),
+             ("pod2_model2", 1, 1)]
+MOE_CF = 1.25
+
+_REF_EP = r"""
+import json, sys
+import jax, jax.numpy as jnp, numpy as np
+from repro.launch.mesh import make_host_mesh
+from repro.models import moe
+assert jax.device_count() >= 4, jax.device_count()
+data = np.load(sys.argv[1])
+cases, cf = json.loads(sys.argv[3]), float(sys.argv[4])
+meshes = {"model4": dict(data=1, model=4),
+          "data2_model2": dict(data=2, model=2),
+          "pod2_model2": dict(pod=2, data=1, model=2)}
+p = {w: jnp.asarray(data[w]) for w in ("router", "w_gate", "w_up", "w_down")}
+out = {}
+for name, b, k in cases:
+    y = moe.moe_ep(jnp.asarray(data[f"x{b}"]), p, k, capacity_factor=cf,
+                   mesh=make_host_mesh(**meshes[name]))
+    out[f"{name}/B{b}/k{k}"] = np.asarray(y)
+np.savez(sys.argv[2], **out)
+"""
+
+
+@pytest.fixture(scope="module")
+def expert_parallel(tmp_path_factory):
+    """The cases on 4 gloo ranks and in the reference (one subprocess)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    import test_torch_mesh as tm
+    tmp = tmp_path_factory.mktemp("ep")
+    rng = np.random.default_rng(11)
+    p = _params(rng, 16, 8, 32)
+    inputs = str(tmp / "inputs.npz")
+    np.savez(inputs, x4=rng.normal(size=(4, 12, 16)).astype(np.float32),
+             x1=rng.normal(size=(1, 12, 16)).astype(np.float32), **p)
+    ref = str(tmp / "ref.npz")
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               JAX_PLATFORMS="cpu", PYTHONPATH=str(root / "src"))
+    # The reference runs beside the ranks.
+    proc = subprocess.Popen([sys.executable, "-c", _REF_EP, inputs, ref,
+                             json.dumps(MOE_CASES), str(MOE_CF)], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    try:
+        ranks = tm.spawn("moe_job", 4, inputs=inputs, cases=MOE_CASES,
+                         cf=MOE_CF)
+        log, _ = proc.communicate(timeout=300)
+    finally:
+        proc.kill()
+    assert proc.returncode == 0, log
+    return ranks, dict(np.load(ref))
+
+
+@pytest.mark.parametrize("case", MOE_CASES,
+                         ids=lambda c: f"{c[0]}-B{c[1]}-k{c[2]}")
+def test_moe_ep_over_a_mesh_matches_reference(expert_parallel, case):
+    """Every rank's global output equals the reference's moe_ep over the
+    same mesh within 1e-5 of its max, and the single-device moe_ep
+    applied to each batch block (the same capacities) bit for bit, with
+    global and with sharded weights; ``moe_ffn(impl="auto")`` takes it.
+    Census: one ``all_gather`` over "model", one more a batch dimension
+    the tokens were split over."""
+    ranks, ref = expert_parallel
+    name, b, k = case
+    key = f"{name}/B{b}/k{k}"
+    first = ranks[0]["cases"][key]
+    assert first["blocks"] == (2 if b == 4 and name != "model4" else 1)
+    for r in ranks:
+        got = r["cases"][key]
+        assert np.array_equal(got["y"], first["y"])
+        assert got["single"] and got["sharded"] and got["auto_is_ep"]
+        assert got["census"] == {"all_gather": 1 + (got["blocks"] > 1)}
+        assert got["shard_rows"] == 8 // (4 if name == "model4" else 2)
+    assert _rel(torch.from_numpy(first["y"]), ref[key]) < REL
+
+
+def test_moe_ep_mesh_refusals_and_the_transformer(expert_parallel):
+    """ValueError for E = 6 over "model" = 4 (the reference's text), and
+    for a "model" dimension on the GNN exchange and the LM trainer;
+    llama4-scout and kimi-k2 SMOKE (``moe_impl="ep"``) forward and six
+    decode steps over ("model",) = 4, with global and sharded experts,
+    and a replicated batch of 1 over 2 x 2, equal the single process bit
+    for bit."""
+    ranks, _ = expert_parallel
+    for r in ranks:
+        assert r["refusals"]["E % model"] == "E=6 % model=4"
+        for label in ("gnn part_slice", "trainer"):
+            assert "'model' dimension is 2" in r["refusals"][label], label
+        for arch, res in r["models"].items():
+            assert all(res.values()), (arch, res)

@@ -292,6 +292,78 @@ def test_train_settings_match_reference():
             assert got == want, f.name
 
 
+def test_nn_exports_match_reference():
+    """Every name of ``repro.nn.__all__`` is exported by the port's."""
+    import repro.nn as jnn
+    import repro_torch.nn as tnn
+    assert set(jnn.__all__) <= set(tnn.__all__)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layer_norm_and_gelu_mlp_match_reference(dtype):
+    """``layer_norm`` (statistics in fp32) and ``gelu_mlp`` (the tanh
+    gelu) on the same numpy inputs, within 1e-6 of the reference's max
+    |out|; in bf16 ``layer_norm`` too (both round the same fp32 values
+    once), ``gelu_mlp`` within 2^-7: XLA rounds the gelu's intermediate
+    steps to bf16 where torch rounds its result once, so a hidden element
+    may differ by one bf16 ulp (2^-8 relative), which the down
+    projection carries to the output (the MoE tests' bf16 bar)."""
+    import repro.nn as jnn
+    import repro_torch.nn as tnn
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(4, 6, 32)).astype(np.float32) * 3 + 1
+    scale, bias = (rng.normal(size=32).astype(np.float32) for _ in "ab")
+    w_up = (rng.normal(size=(32, 64)) * 0.2).astype(np.float32)
+    w_down = (rng.normal(size=(64, 32)) * 0.2).astype(np.float32)
+    jx, tx = jnp.asarray(x).astype(dtype), torch.from_numpy(x).to(
+        getattr(torch, dtype))
+
+    def rel(got, want):
+        want = np.asarray(want.astype(jnp.float32))
+        return float(np.abs(got.float().numpy() - want).max()
+                     / np.abs(want).max())
+
+    want = jnn.layer_norm(jx, jnp.asarray(scale), jnp.asarray(bias))
+    got = tnn.layer_norm(tx, torch.from_numpy(scale), torch.from_numpy(bias))
+    assert got.dtype == tx.dtype and rel(got, want) <= 1e-6
+    want = jnn.gelu_mlp(jx, jnp.asarray(w_up).astype(dtype),
+                        jnp.asarray(w_down).astype(dtype))
+    got = tnn.gelu_mlp(tx, torch.from_numpy(w_up).to(tx.dtype),
+                       torch.from_numpy(w_down).to(tx.dtype))
+    assert got.dtype == tx.dtype
+    assert rel(got, want) <= (1e-6 if dtype == "float32" else 2.0 ** -7)
+
+
+def test_param_axes_and_abstract_params_match_reference():
+    """``param_axes`` and ``abstract_params`` of a transformer's spec tree:
+    the reference's axes leaf for leaf; shapes and dtypes on the meta
+    device, nothing allocated."""
+    from repro.configs import get_smoke_arch as jget
+    from repro.models import transformer as jt
+    import repro.nn as jnn
+    from repro_torch.configs import get_smoke_arch as tget
+    from repro_torch.models import transformer as tt
+    import repro_torch.nn as tnn
+    jspecs = jt.arch_specs(jget("llama4_scout_17b_a16e"))
+    tspecs = tt.arch_specs(tget("llama4_scout_17b_a16e"))
+    want = jax.tree.leaves(jnn.param_axes(jspecs),
+                           is_leaf=lambda v: isinstance(v, tuple))
+    def axes(node):
+        if isinstance(node, dict):
+            return [a for k in sorted(node) for a in axes(node[k])]
+        if isinstance(node, list):
+            return [a for v in node for a in axes(v)]
+        return [node]
+
+    assert axes(tnn.param_axes(tspecs)) == want
+    shapes = [(tuple(s.shape), np.dtype(s.dtype).name)
+              for s in jax.tree.leaves(jnn.abstract_params(jspecs))]
+    meta = toptim.tree_leaves(tnn.abstract_params(tspecs))
+    assert all(t.device.type == "meta" for t in meta)
+    assert [(tuple(t.shape), str(t.dtype).replace("torch.", ""))
+            for t in meta] == shapes
+
+
 def test_core_exports_match_reference():
     """Every name of the reference's ``repro.core.__all__`` is exported by
     the port's, but for the dense oracle ``stale_store`` (not ported, by
