@@ -82,8 +82,12 @@ Phases, each ending the run with a non-zero exit on failure:
    are printed;
 8. K6 (flash attention) at the LM slice's shape (B 4, S 1024, H 16 over
    KV 8, D 128, causal; and non-causal at S 512), at kimi-k2's attention
-   widths (H 64 over KV 8, D 112, the same four) and at llama4-scout's
-   (H 40 over KV 8, D 128: five query heads a KV head; causal), in bf16
+   widths (H 64 over KV 8, D 112, the same four), at llama4-scout's
+   (H 40 over KV 8, D 128: five query heads a KV head; causal), at
+   llama-3.2-vision's (32 / 8) and at a tensor-parallel rank's heads
+   (phase 20; causal): qwen3's 8 / 4, the VLM's 16 / 4 (also at B 1, its
+   tensor-parallel prefill's batch), deepseek's 28 / 4 and 14 / 2 (seven
+   query heads a KV head) and phi3's 16 / 16 at D 96, in bf16
    and fp32, on (B, H, S, D) views of (B, S, H, D) tensors, against its
    plain version: fp32 within 2e-5, bf16 within 2e-5 plus one bf16 ulp
    of the output; K5 (GAT edge softmax) at GAT's per-head shape on subgraph 0
@@ -296,6 +300,30 @@ Phases, each ending the run with a non-zero exit on failure:
     within 1e-4, the step-1 gradient within 1e-5 of a leaf's max, step ms,
     the gradient gather's bytes and ms, peak memory a rank.  Only K6
     launches, twice a prefill on each rank of (b).
+20. Tensor-parallel LM serving (``repro_torch.distributed.sharding``
+    applied in ``forward`` / ``decode_step`` over a "model" dimension),
+    on gloo ranks sharing card 0 (4 and 2, spawned together at the
+    phase's start): (a) the ten SMOKE configs in fp32 over 1 x 2, 2 x 2
+    and 1 x 4 meshes, forward and 8 teacher-forced decode steps (full
+    and ``long``; every ``long`` decode of the phase at a window of 4 and
+    2 rows a slot, so that it reads the far field's slot sums), each
+    rank's logit blocks within 1e-5 of max |logit|
+    of the card's single process, a forward's census only
+    ``all_gather``s; (b) qwen3-0.6b, (c) llama-3.2-vision-11b at full
+    depth (batch 1, vision (1, 1601, 1280)) and (d) deepseek-coder-33b
+    cut to 2 of its 62 layers (over model = 2 and 4), each at its
+    published widths over ("data", "model") = 1 x m, against its single
+    process run first in this process and freed: a bf16 prefill of
+    4 x 1024 tokens (the VLM 1 x 1024) through K6 on each rank's heads
+    (8 / 4, 16 / 4, 28 / 4 and 14 / 2; qwen3 also fp32), 32 bf16
+    decode steps of a full cache (qwen3 also ``long``), 64 logit rows
+    (the VLM's decode 16) held at 1e-5 in fp32 and max(2e-2, twice the
+    single
+    process's one-ulp change) in bf16, ms a prefill and a token, the
+    bytes and ms gathered, a rank's weight bytes and peak memory beside
+    the single process's; deepseek's full-depth bytes a rank at m = 1,
+    2, 4 and 8 from the placement (nothing allocated).  Only K6
+    launches, once an attention block a prefill on each rank.
 
 Each path's launch counters are set to 0 just before it and read just
 after; the oracle runs launch nothing.  The last lines are the card's
@@ -305,7 +333,8 @@ kernel's launches on its paths (phase 12's as "sat training", phase
 as "collective training" and "sharded serving", summed over its ranks,
 phase 17's as "lm training", 0 for every kernel, phase 18's VLM
 prefills as "vlm prefill" and "vlm fp32 prefill", phase 19's as "moe ep
-mesh prefill", summed over (b)'s ranks, each rank's beside it),
+mesh prefill", summed over (b)'s ranks, each rank's beside it, phase
+20's as "tp prefill" and "tp fp32 prefill", summed over its ranks),
 its
 worst error, its bar and the times of its main-path variant; K3's also
 its chunk walk's and its times at the training shape; K6 one entry a
@@ -321,6 +350,7 @@ import collections
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -367,14 +397,26 @@ LM_SEQ = 1024
 LM_MAX_SEQ = 1056
 LM_GEN = 32
 LM_TEACHER = 128
-# K6's shapes in phase 8, each (variant suffix, H, KV, D, runs): the LM
+# K6's shapes in phase 8, each (variant suffix, B, H, KV, D, runs): the LM
 # slice's (qwen3-0.6b), kimi-k2's attention widths (head dim 112),
 # llama4-scout's (five query heads a KV head: the bf16 body's
-# one-warpgroup blocks) and llama-3.2-vision's (four).  "all": bf16 and fp32, causal at LM_SEQ and
-# non-causal at 512; "causal": the causal pair only.
-K6_SHAPES = (("", 16, 8, 128, "all"), (" H64/KV8 D112", 64, 8, 112, "all"),
-             (" H40/KV8 D128", 40, 8, 128, "causal"),
-             (" H32/KV8 D128", 32, 8, 128, "causal"))
+# one-warpgroup blocks) and llama-3.2-vision's (four).  "all": bf16 and
+# fp32, causal at LM_SEQ and non-causal at 512; "causal": the causal pair
+# only.
+K6_SHAPES = (("", LM_BATCH, 16, 8, 128, "all"),
+             (" H64/KV8 D112", LM_BATCH, 64, 8, 112, "all"),
+             (" H40/KV8 D128", LM_BATCH, 40, 8, 128, "causal"),
+             (" H32/KV8 D128", LM_BATCH, 32, 8, 128, "causal"),
+             # A rank's heads under tensor parallelism (phase 20): qwen3,
+             # the VLM (at the batch of 1 its prefill gives K6 too) and
+             # deepseek (rep 7: one warpgroup a block) over model = 2,
+             # deepseek over 4, phi3 over 2.
+             (" H8/KV4 D128", LM_BATCH, 8, 4, 128, "causal"),
+             (" H16/KV4 D128", LM_BATCH, 16, 4, 128, "causal"),
+             (" B1 H16/KV4 D128", 1, 16, 4, 128, "causal"),
+             (" H28/KV4 D128", LM_BATCH, 28, 4, 128, "causal"),
+             (" H14/KV2 D128", LM_BATCH, 14, 2, 128, "causal"),
+             (" H16/KV16 D96", LM_BATCH, 16, 16, 96, "causal"))
 TRACE_ATTEMPTS = 3  # traces of the fp32 prefill, for a dropped record
 BATCH = 256
 BATCHES = 64
@@ -438,9 +480,9 @@ TRAINING_KERNELS = ("spmm", "halo_spmm", "halo_spmm_skip", "spmm_bwd_table",
                     "spmm_bwd_wts")
 # The paths each later kernel runs on, beside serving and training.
 PATH_OF = {"flash_attention": ("prefill", "moe prefill", "vlm prefill",
-                               "moe ep mesh prefill"),
+                               "moe ep mesh prefill", "tp prefill"),
            "flash_attention_fp32": ("fp32 prefill", "moe fp32 prefill",
-                                    "vlm fp32 prefill"),
+                                    "vlm fp32 prefill", "tp fp32 prefill"),
            "gat_edge_partial": ("gat_aggregate",)}
 # The training configuration: the paper's GCN widths on papers-sim, whose
 # rcm / 256-row-chunk partition has worklist occupancy 0.475, so the fp32
@@ -582,6 +624,48 @@ MESH_DECODE = 32
 MESH_LOGIT_ROWS = 64
 MESH_DP_WORLD = 2
 MESH_DP_STEPS = 4
+
+# Phase 20: tensor-parallel LM serving (the reference's sharding rules,
+# repro_torch.distributed.sharding), on gloo ranks sharing card 0
+# (contention, not scaling; NCCL refuses two ranks on one card), two
+# groups spawned together at the phase's start (TP_GROUPS: group, its
+# world, its jobs in order).  (a) 4 ranks: every SMOKE config in fp32,
+# TP_SMOKE_BATCH x TP_SMOKE_SEQ tokens, forward and TP_SMOKE_STEPS
+# teacher-forced decode steps (full and long) over ("replica", "model")
+# = 2 x 2 (two 1 x 2 meshes), ("data", "model") = 2 x 2 and 1 x 4, each
+# rank's logit blocks within TOL of max |logit| of the card's single
+# process, a forward's census only all_gathers.  (b) qwen3-0.6b, (c)
+# llama-3.2-vision-11b at full depth (batch 1 bounds gloo's host
+# traffic; vision (1, 1601, 1280) from seed 2, gates open) and (d)
+# deepseek-coder-33b cut to TP_DEEPSEEK_LAYERS layers (over model = 2
+# and 4), each at its published widths over ("data", "model") = 1 x m:
+# the single process first in this process (weights from a CUDA
+# generator, seed 0; its TP_ROWS seeded prefill logit rows and every
+# TP_DECODE_HELD-th decode step's rows kept on the host, its bf16
+# one-ulp change), freed before the ranks draw theirs leaf by leaf
+# (sharding.init_sharded); a warm-up and a timed bf16 prefill of
+# TP_BATCH x TP_SEQ tokens through K6 on each rank's heads (qwen3 also
+# fp32), TP_DECODE teacher-forced bf16 decode steps of a full cache
+# (qwen3 also long); each rank's vocabulary block of the rows
+# within TOL in fp32 and max(DECODE_TOL, LM_BF16_SENS_FACTOR x the
+# single process's one-ulp change) in bf16 (phase 9's rule).
+TP_GROUPS = {"four": (4, ("a", "d4")), "two": (2, ("b", "c", "d2"))}
+TP_SMOKE_BATCH = 4
+TP_SMOKE_SEQ = 16
+TP_SMOKE_STEPS = 8
+TP_QWEN = "qwen3-0.6b"
+TP_VLM = "llama-3.2-vision-11b"
+TP_DEEPSEEK = "deepseek-coder-33b"
+TP_DEEPSEEK_LAYERS = 2
+TP_BATCH = {TP_QWEN: 4, TP_VLM: 1, TP_DEEPSEEK: 4}
+TP_SEQ = 1024
+TP_ROWS = 64
+TP_DECODE = 32
+TP_DECODE_HELD = 2
+# The ``long`` decodes' stale-KV settings (the CPU tests'): a window of 4
+# and 2 rows a slot, so that 8 and 32 steps read the far field's slot
+# sums, which are cut over KV heads.
+TP_LONG = {"long_window": 4, "long_ratio": 2}
 
 # Kernels redesigned for Hopper, by source: ptxas's register and spill
 # lines of their instantiations are printed after the build.
@@ -2999,14 +3083,13 @@ def lm_kernel_phase(torch, dev, data):
                                               gat_edge_partial_plain)
     gen = torch.Generator().manual_seed(3)
     records = []
-    b = LM_BATCH
     bf, f32 = torch.bfloat16, torch.float32
     every = ((bf, True, LM_SEQ), (f32, True, LM_SEQ), (bf, False, 512),
              (f32, False, 512))
-    cases = [(suffix, h, kv, d, dtype, causal, s)
-             for suffix, h, kv, d, runs in K6_SHAPES
+    cases = [(suffix, b, h, kv, d, dtype, causal, s)
+             for suffix, b, h, kv, d, runs in K6_SHAPES
              for dtype, causal, s in (every if runs == "all" else every[:2])]
-    for suffix, h, kv, d, dtype, causal, s in cases:
+    for suffix, b, h, kv, d, dtype, causal, s in cases:
         # The main path's layout: (B, H, S, D) views of (B, S, H, D).
         q = torch.randn((b, s, h, d), generator=gen).to(dev, dtype)
         k = torch.randn((b, s, kv, d), generator=gen).to(dev, dtype)
@@ -4631,6 +4714,10 @@ def mesh_rank(rank: int, world: int, tmp: str, job: str) -> None:
     parent writes when the card has room for the job; writes its report
     to ``tmp``.  A failed check exits the rank non-zero, which fails the
     script."""
+    # Ranks sharing the card grow and free large buffers in turns: the
+    # allocator maps memory in segments it can grow, so a freed block is
+    # not left stranded between two live ones.
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     import torch
     import torch.distributed as dist
 
@@ -4905,6 +4992,7 @@ def ep_decode(torch, cfg, params, tokens, cols, mesh=None) -> dict:
     logits at ``cols`` ((b, t) rows), the routes, the median ms a token
     (steps 2 on, synchronised), the census and the gathers."""
     from repro_torch.core import collectives
+    from repro_torch.distributed import EXPERT_PARALLEL_RULES as EP_RULES
     from repro_torch.models.transformer import decode_step, init_cache
     routes, meter = record_routes(), gather_meter()
     cache = init_cache(cfg, LM_BATCH, MESH_DECODE, device=tokens.device)
@@ -4916,7 +5004,7 @@ def ep_decode(torch, cfg, params, tokens, cols, mesh=None) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         lg, cache = decode_step(cfg, params, cache, tokens[:, t:t + 1],
-                                mesh=mesh)
+                                mesh=mesh, rules=EP_RULES)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         steps.append(lg[:, 0, cols])
@@ -4936,6 +5024,7 @@ def ep_run(torch, cfg, params, tokens, rows, cols, mesh=None,
     ``rows``, ms, launches, census, gather bytes), and decode
     (:func:`ep_decode`) in bf16 and in fp32 activations."""
     from repro_torch.core import collectives
+    from repro_torch.distributed import EXPERT_PARALLEL_RULES as EP_RULES
     from repro_torch.kernels import _build
     from repro_torch.models.transformer import forward
     routes, moe_log = record_routes(), record_moe_outputs()
@@ -4943,7 +5032,7 @@ def ep_run(torch, cfg, params, tokens, rows, cols, mesh=None,
     out = {}
     with torch.inference_mode():
         if warm:
-            forward(cfg, params, tokens, mesh=mesh)
+            forward(cfg, params, tokens, mesh=mesh, rules=EP_RULES)
         for cf in (MOE_DROPLESS_CF, cfg.moe_capacity_factor):
             c = dataclasses.replace(cfg, moe_capacity_factor=cf)
             routes.clear()
@@ -4953,7 +5042,7 @@ def ep_run(torch, cfg, params, tokens, rows, cols, mesh=None,
             torch.cuda.synchronize()
             _build.reset_launches()
             t = time.perf_counter()
-            logits = forward(c, params, tokens, mesh=mesh)
+            logits = forward(c, params, tokens, mesh=mesh, rules=EP_RULES)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t) * 1e3
             out[cf] = {
@@ -5382,6 +5471,447 @@ def _mesh_forms(torch, dev, smi, tmp, groups, reports, sections) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: tensor-parallel LM serving
+# ---------------------------------------------------------------------------
+
+def tp_rank(rank: int, world: int, tmp: str, group: str) -> None:
+    """One gloo rank of a phase 20 group, all ranks sharing card 0: it
+    joins its group at once, then runs the group's jobs in order, each
+    when the parent's go file for it appears, and writes each report to
+    ``tmp``.  A failed check exits the rank non-zero, which fails the
+    script."""
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    torch.set_num_threads(1)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.zeros(1, device=dev)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store-{group}",
+                            world_size=world, rank=rank)
+    try:
+        for job in TP_GROUPS[group][1]:
+            while not Path(f"{tmp}/go-{job}").exists():
+                time.sleep(0.05)
+            out = TP_JOBS[job](torch, dev, rank, world, tmp)
+            # Written whole, then renamed: the parent waits for the name.
+            torch.save(out, f"{tmp}/{job}-r{rank}.part")
+            os.replace(f"{tmp}/{job}-r{rank}.part", f"{tmp}/{job}-r{rank}.pt")
+            gc_cuda(torch)
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_long(cfg):
+    """``cfg`` decoding ``long`` with :data:`TP_LONG`'s settings."""
+    return dataclasses.replace(cfg, **TP_LONG)
+
+
+def tp_smoke_meshes():
+    """(a)'s meshes over 4 ranks: "1x2" is ("replica", "model") = 2 x 2,
+    two 1 x 2 meshes side by side (no rule names "replica", so each holds
+    the whole batch); "2x2" ("data", "model"); "1x4"."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.mesh import make_mesh
+    return {"1x2": init_device_mesh("cpu", (2, 2),
+                                    mesh_dim_names=("replica", "model")),
+            "2x2": make_mesh(2, model=2), "1x4": make_mesh(1, model=4)}
+
+
+def tp_smoke_job(torch, dev, rank, world, tmp) -> dict:
+    """Phase 20 (a): every SMOKE config in fp32 on the card (CPU
+    generator, seed 0, gates open), ``forward`` on TP_SMOKE_BATCH x
+    TP_SMOKE_SEQ tokens and TP_SMOKE_STEPS teacher-forced decode steps,
+    full and ``long``, single process and over each mesh of
+    :func:`tp_smoke_meshes`: this rank's logit blocks within TOL of max
+    |logit| of the single process's, a forward's census only
+    ``all_gather``s."""
+    from repro_torch.configs import all_archs, get_smoke_arch
+    from repro_torch.core import collectives
+    from repro_torch.distributed import shard_params
+    from repro_torch.models import transformer as tt
+    from repro_torch.nn import init_params
+
+    meshes = tp_smoke_meshes()
+    b, s, n = TP_SMOKE_BATCH, TP_SMOKE_SEQ, TP_SMOKE_STEPS
+    out = {}
+    with torch.inference_mode():
+        for arch in all_archs():
+            cfg = get_smoke_arch(arch)
+            params = open_gates(init_params(
+                tt.arch_specs(cfg), torch.Generator().manual_seed(0), dev))
+            toks = torch.randint(0, cfg.vocab_size, (b, s),
+                                 generator=torch.Generator().manual_seed(1)
+                                 ).to(dev)
+            vis = None if not cfg.vision_dim else torch.randn(
+                (b, cfg.num_patches, cfg.vision_dim),
+                generator=torch.Generator().manual_seed(2)).to(dev)
+
+            def run(p, mesh=None):
+                res = {"forward": tt.forward(cfg, p, toks, vis, mesh=mesh)}
+                res["census"] = dict(collectives.COLLECTIVES)
+                for long in (False, True):
+                    c = tp_long(cfg) if long else cfg
+                    cache = tt.init_cache(c, b, 2 * n, long=long,
+                                          device=dev, mesh=mesh)
+                    if vis is not None:
+                        tt.precompute_vision_cache(c, p, cache, vis,
+                                                   mesh=mesh)
+                    logs = []
+                    for t in range(n):
+                        lg, cache = tt.decode_step(c, p, cache,
+                                                   toks[:, t:t + 1],
+                                                   long=long, mesh=mesh)
+                        logs.append(lg)
+                    res["long" if long else "full"] = torch.stack(logs)
+                return res
+
+            single = run(params)
+            errs = {}
+            for name, mesh in meshes.items():
+                mine = shard_params(params, tt.arch_specs(cfg), mesh)
+                r0, rows = tt.batch_rows(b, mesh)
+                v0, cols = tt.vocab_block(cfg, mesh)
+                collectives.reset_collectives()
+                got = run(mine, mesh)
+                census = got.pop("census")
+                check(set(census) == {"all_gather"},
+                      f"(a) {arch} over {name}: census {census}")
+                err = {}
+                for key, val in got.items():
+                    want = single[key]
+                    blk = (want[r0:r0 + rows] if key == "forward"
+                           else want[:, r0:r0 + rows])[..., v0:v0 + cols]
+                    err[key] = float((val - blk).abs().max()) / float(
+                        want.abs().max())
+                    check(err[key] <= TOL, f"(a) {arch} over {name} [{key}]:"
+                          f" {err[key]:.3e} of max |logit| (bar {TOL})")
+                errs[name] = {"max_rel_err": max(err.values()),
+                              "gathers_a_forward": census["all_gather"]}
+                del mine, got
+            out[arch] = errs
+    return out
+
+
+def tp_tokens(torch, cfg, batch, dev):
+    """(b)-(d)'s prompt (CPU generator, seed 1) and the seeded rows of a
+    prefill's logits that are held (TP_ROWS of batch x TP_SEQ)."""
+    tokens = torch.randint(0, cfg.vocab_size, (batch, TP_SEQ),
+                           generator=torch.Generator().manual_seed(1)
+                           ).to(dev)
+    rows = torch.randperm(batch * TP_SEQ, generator=torch.Generator(
+    ).manual_seed(4))[:TP_ROWS]
+    return tokens, rows.to(dev)
+
+
+def tp_config(name: str):
+    """(b)-(d)'s config: published widths, K6 on the attention;
+    deepseek's depth cut to TP_DEEPSEEK_LAYERS."""
+    from repro_torch.configs import get_arch
+    cfg = dataclasses.replace(get_arch(name), attn_backend="kernel")
+    if name == TP_DEEPSEEK:
+        cfg = dataclasses.replace(cfg, num_layers=TP_DEEPSEEK_LAYERS)
+    return cfg
+
+
+def tp_vision(torch, cfg, batch, dev):
+    return None if not cfg.vision_dim else torch.randn(
+        (batch, cfg.num_patches, cfg.vision_dim),
+        generator=torch.Generator().manual_seed(2)).to(dev)
+
+
+def tp_serve(torch, cfg, params, batch, dev, mesh=None,
+             more=False) -> dict:
+    """One process's or one rank's runs of (b)-(d): a warm-up and a timed
+    bf16 prefill (and an fp32 one where ``more``: qwen3), then
+    TP_DECODE teacher-forced bf16 decode steps of a full cache (and of a
+    ``long`` one where ``more``).  Returns the held logit rows
+    (this rank's vocabulary block) on the host, ms, K6's launches a
+    prefill, the census and the bytes and ms gathered a prefill and a
+    token."""
+    from repro_torch.core import collectives
+    from repro_torch.kernels import _build
+    from repro_torch.models import transformer as tt
+
+    tokens, rows = tp_tokens(torch, cfg, batch, dev)
+    vis = tp_vision(torch, cfg, batch, dev)
+    meter = gather_meter()
+    out = {}
+    with torch.inference_mode():
+        tt.forward(cfg, params, tokens, vis, mesh=mesh)
+        for key, c in (("bf16", cfg), ("fp32", dataclasses.replace(
+                cfg, dtype="float32"))):
+            if key == "fp32" and not more:
+                continue
+            meter.update(bytes=0, ms=0.0)
+            collectives.reset_collectives()
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            logits = tt.forward(c, params, tokens, vis, mesh=mesh)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            check(bool(torch.isfinite(logits).all()),
+                  f"{cfg.name} {key} prefill: logits not finite")
+            out[f"prefill_{key}"] = {
+                "ms": ms, "launches": {k: v for k, v in
+                                       _build.LAUNCHES.items() if v},
+                "census": dict(collectives.COLLECTIVES),
+                "gather_bytes": meter["bytes"], "gather_ms": meter["ms"],
+                "rows": logits.reshape(-1, logits.shape[-1])[rows].cpu()}
+            del logits
+        decodes = [("full", cfg, False)] + (
+            [("long", tp_long(cfg), True)] if more else [])
+        for key, c, long in decodes:
+            cache = tt.init_cache(c, batch, TP_SEQ, long=long, device=dev,
+                                  mesh=mesh)
+            if vis is not None:
+                tt.precompute_vision_cache(c, params, cache, vis, mesh=mesh)
+            meter.update(bytes=0, ms=0.0)
+            collectives.reset_collectives()
+            held, times = [], []
+            for t in range(TP_DECODE):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg, cache = tt.decode_step(c, params, cache,
+                                           tokens[:, t:t + 1], long=long,
+                                           mesh=mesh)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                if t % TP_DECODE_HELD == 0:
+                    held.append(lg[:, 0].cpu())
+            out[f"decode_{key}"] = {
+                "ms_per_token": statistics.median(times[1:]),
+                "census_a_token": {k: v / TP_DECODE for k, v in
+                                   collectives.COLLECTIVES.items()},
+                "gather_bytes_a_token": meter["bytes"] / TP_DECODE,
+                "gather_ms_a_token": meter["ms"] / TP_DECODE,
+                "rows": torch.cat(held)}
+            del cache
+    return out
+
+
+def tp_reference(torch, dev, name: str, tmp: str) -> dict:
+    """(b)-(d)'s single process on the card: the weights from a CUDA
+    generator (seed 0; the ranks draw the same numbers leaf by leaf),
+    :func:`tp_serve`'s runs, and the bf16 prefill once more with every
+    input embedding one bf16 ulp up (its one-ulp sensitivity, phase 9's
+    rule); saved to ``tmp`` for the ranks, the card left empty."""
+    from repro_torch.launch.serve import tensor_bytes
+    from repro_torch.models.transformer import arch_specs, forward
+    from repro_torch.nn import init_params
+
+    cfg = tp_config(name)
+    batch = TP_BATCH[name]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(arch_specs(cfg),
+                         torch.Generator(device=dev).manual_seed(0), dev)
+    open_gates(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = tensor_bytes(params)
+    res = tp_serve(torch, cfg, params, batch, dev, more=name == TP_QWEN)
+    tokens, rows = tp_tokens(torch, cfg, batch, dev)
+    with torch.inference_mode():
+        emb = params["embed"].to(torch.bfloat16)
+        params["embed"] = (emb.view(torch.int16) + 1).view(
+            torch.bfloat16).float()
+        del emb
+        moved = forward(cfg, params, tokens, tp_vision(torch, cfg, batch,
+                                                       dev))
+        moved = moved.reshape(-1, cfg.vocab_size)[rows].cpu()
+    base = res["prefill_bf16"]["rows"]
+    res["sens"] = float((moved - base).abs().max() / base.abs().max())
+    res.update(init_s=init_s, weight_bytes=weight_bytes,
+               peak_memory_bytes=torch.cuda.max_memory_allocated())
+    del params, moved
+    gc_cuda(torch)
+    torch.save(res, f"{tmp}/{name}-ref.pt")
+    return {k: (v if not isinstance(v, dict) else
+                {x: y for x, y in v.items() if x != "rows"})
+            for k, v in res.items()}
+
+
+def tp_bar(key: str, sens: float) -> float:
+    """(b)-(d)'s bar against the single process, relative to max |logit|:
+    TOL in fp32; in bf16 max(DECODE_TOL, LM_BF16_SENS_FACTOR times the
+    single process's one-ulp change), phase 9's rule."""
+    if "fp32" in key:
+        return TOL
+    return max(DECODE_TOL, LM_BF16_SENS_FACTOR * sens)
+
+
+def tp_model_job(torch, dev, rank, world, tmp, name) -> dict:
+    """Phase 20 (b)-(d), one rank: ``name`` at its published widths over
+    ("data", "model") = 1 x ``world``, weights drawn leaf by leaf and cut
+    (``sharding.init_sharded``), :func:`tp_serve`'s runs against the
+    single process's saved rows."""
+    from repro_torch.distributed import init_sharded
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import tensor_bytes
+    from repro_torch.models import transformer as tt
+
+    cfg = tp_config(name)
+    batch = TP_BATCH[name]
+    mesh = make_mesh(1, model=world)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = open_gates(init_sharded(
+        tt.arch_specs(cfg), torch.Generator(device=dev).manual_seed(0), mesh,
+        device=dev))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = tensor_bytes(params)
+    got = tp_serve(torch, cfg, params, batch, dev, mesh,
+                   more=name == TP_QWEN)
+    want = torch.load(f"{tmp}/{name}-ref.pt", weights_only=False)
+    v0, cols = tt.vocab_block(cfg, mesh)
+    h_loc = params["pattern"][0]["wq"].shape[-2]
+    kv_loc = params["pattern"][0]["wk"].shape[-2]
+    out = {"rank": rank, "vocab_block": [v0, cols],
+           "heads": [h_loc, kv_loc], "init_s": init_s,
+           "weight_bytes": weight_bytes,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    for key, g in got.items():
+        w = want[key]["rows"]
+        rel = float((g["rows"] - w[:, v0:v0 + cols]).abs().max()
+                    / w.abs().max())
+        bar = tp_bar(key, want["sens"])
+        check(rel <= bar, f"({name}) {key} over model={world}: "
+              f"{rel:.3e} of max |logit| from the single process (bar "
+              f"{bar:.3e})")
+        out[key] = {k: v for k, v in g.items() if k != "rows"}
+        out[key].update(rel_err=rel, bar=bar)
+        if key.startswith("prefill"):
+            check(g["launches"] == {"flash_attention": cfg.num_layers
+                                    - cfg.pattern.count("xattn")
+                                    * cfg.repeats},
+                  f"({name}) {key}: launches {g['launches']}")
+            check(set(g["census"]) == {"all_gather"},
+                  f"({name}) {key}: census {g['census']}")
+    return out
+
+
+TP_JOBS = {"a": tp_smoke_job,
+           "b": lambda *a: tp_model_job(*a, TP_QWEN),
+           "c": lambda *a: tp_model_job(*a, TP_VLM),
+           "d2": lambda *a: tp_model_job(*a, TP_DEEPSEEK),
+           "d4": lambda *a: tp_model_job(*a, TP_DEEPSEEK)}
+
+
+def tensor_parallel(torch, dev, smi) -> dict:
+    """Phase 20: (a)-(d) (the constants' comment).  Both groups of ranks
+    start together; (a) starts at once, each model's ranks once this
+    process has run its single process and freed the card.  Returns the
+    phase's summary with K6's launches in the ranks."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp()
+    Path(f"{tmp}/go-a").touch()
+    groups = {g: mp.start_processes(tp_rank, args=(world, tmp, g),
+                                    nprocs=world, join=False,
+                                    start_method="spawn")
+              for g, (world, _) in TP_GROUPS.items()}
+    sections = {}
+    try:
+        out = _tensor_parallel(torch, dev, smi, tmp, groups, sections)
+    finally:
+        for ctx in groups.values():
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.terminate()
+                proc.join(timeout=30)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["sections_s"] = sections
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 20: {out['seconds']:.1f} s; sections (s) "
+          + json.dumps(sections), flush=True)
+    return out
+
+
+def _tensor_parallel(torch, dev, smi, tmp, groups, sections) -> dict:
+    """:func:`tensor_parallel`'s work once the ranks have started."""
+    from repro_torch.distributed import local_bytes
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import arch_specs
+
+    out = {"phase": 20}
+    t0 = time.perf_counter()
+    refs = {}
+    for name, job in ((TP_QWEN, "b"), (TP_VLM, "c"), (TP_DEEPSEEK, "d")):
+        t = time.perf_counter()
+        refs[name] = tp_reference(torch, dev, name, tmp)
+        sections[f"{job} single process"] = time.perf_counter() - t
+        for go in ((job,) if job != "d" else ("d2", "d4")):
+            Path(f"{tmp}/go-{go}").touch()
+
+    def reports(job, world, group):
+        t = time.perf_counter()
+        while not all(Path(f"{tmp}/{job}-r{r}.pt").exists()
+                      for r in range(world)):
+            for proc in groups[group].processes:
+                check(proc.exitcode in (None, 0),
+                      f"phase 20 group {group}: a rank exited "
+                      f"{proc.exitcode}")
+            time.sleep(0.05)
+        sections[f"{job} (wait)"] = time.perf_counter() - t
+        return [torch.load(f"{tmp}/{job}-r{r}.pt", weights_only=False)
+                for r in range(world)]
+
+    ranks = reports("a", 4, "four")
+    out["a"] = ranks[0]
+    print("phase 20 (a) tensor-parallel SMOKE configs, fp32, on the card "
+          "over 1 x 2, 2 x 2 and 1 x 4 (4 gloo ranks): " + json.dumps({
+              arch: {m: ranks_max(ranks, arch, m) for m in res}
+              for arch, res in ranks[0].items()}), flush=True)
+    out["launches"] = collections.Counter()
+    out["fp32_launches"] = collections.Counter()
+    out["launches_per_rank"] = []
+    for job, name, world, group in (("b", TP_QWEN, 2, "two"),
+                                    ("c", TP_VLM, 2, "two"),
+                                    ("d2", TP_DEEPSEEK, 2, "two"),
+                                    ("d4", TP_DEEPSEEK, 4, "four")):
+        ranks = reports(job, world, group)
+        for r in ranks:
+            out["launches"].update(r["prefill_bf16"]["launches"])
+            if "prefill_fp32" in r:
+                out["fp32_launches"].update(r["prefill_fp32"]["launches"])
+            out["launches_per_rank"].append(
+                r["prefill_bf16"]["launches"].get("flash_attention", 0))
+        cfg = tp_config(name)
+        out[job] = {"arch": name, "layers": cfg.num_layers,
+                    "mesh": {"data": 1, "model": world},
+                    "single_process": refs[name], "ranks": ranks}
+        print(f"phase 20 ({job}) {name} at its published widths, "
+              f"{cfg.num_layers} layers, tensor-parallel over model = "
+              f"{world} (gloo ranks on one card; {smi}): "
+              + json.dumps(out[job]), flush=True)
+    full = arch_specs(get_arch(TP_DEEPSEEK))
+    out["deepseek_full_depth_bytes_a_rank"] = {
+        m: local_bytes(full, {"data": 1, "model": m}) for m in (1, 2, 4, 8)}
+    print("phase 20 (d) deepseek-coder-33b at full depth, fp32 weight "
+          "bytes a rank by the placement: "
+          + json.dumps(out["deepseek_full_depth_bytes_a_rank"]), flush=True)
+    sections["all"] = time.perf_counter() - t0
+    return out
+
+
+def ranks_max(ranks, arch, mesh) -> dict:
+    return {"max_rel_err": max(r[arch][mesh]["max_rel_err"] for r in ranks),
+            "gathers_a_forward": ranks[0][arch][mesh]["gathers_a_forward"]}
+
+
 def gc_cuda(torch) -> None:
     import gc
     gc.collect()
@@ -5459,6 +5989,10 @@ def main() -> None:
     gc_cuda(torch)
     mesh = mesh_forms(torch, dev, smi)
     path_launches["moe ep mesh prefill"] = mesh["launches"]
+    gc_cuda(torch)
+    tp = tensor_parallel(torch, dev, smi)
+    path_launches.update({"tp prefill": tp["launches"],
+                          "tp fp32 prefill": tp["fp32_launches"]})
     torch.cuda.synchronize()
     print(f"phases: serving {t_serve:.1f} s, training {t_train:.1f} s (of "
           f"which SAT training {sat['seconds']:.1f} s, sampled training "
@@ -5469,7 +6003,7 @@ def main() -> None:
           f" s (of which MoE serving {moe_s:.1f} s, LM training "
           f"{lm_train['seconds']:.1f} s, the last three architectures "
           f"{last['seconds']:.1f} s, the mesh forms {mesh['seconds']:.1f} "
-          f"s); the script "
+          f"s, tensor parallelism {tp['seconds']:.1f} s); the script "
           f"{time.perf_counter() - T_START:.1f} s", flush=True)
     records = serve_records + train_records + lm_records
     kernels = []
@@ -5513,6 +6047,7 @@ def main() -> None:
         if name == "flash_attention":
             kernels[-1]["mesh_launches_per_rank"] = [
                 r.get(kernel, 0) for r in mesh["launches_per_rank"]]
+            kernels[-1]["tp_launches_per_rank"] = tp["launches_per_rank"]
         if name == "halo_spmm_stream":
             # K3 at the training shape (phase 6, fp32) beside its serving
             # shape, and its chunk walk at both.

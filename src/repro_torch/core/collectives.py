@@ -5,8 +5,9 @@ way ``kernels._build.LAUNCHES`` counts kernel launches (it replaces the
 reference's census of the compiled HLO).
 
 Ops and their census names: ``all_to_all`` (``all_to_all_single``),
-``all_reduce``, ``all_gather``, ``send`` / ``recv`` (one each a
-point-to-point op of :func:`exchange`) and ``barrier``.
+``all_reduce``, ``all_gather`` (also :func:`ordered_sum`'s one gather),
+``send`` / ``recv`` (one each a point-to-point op of :func:`exchange`)
+and ``barrier``.
 
 NCCL and gloo both take the card's tensors in the collectives (gloo
 copies them through host memory itself; ``chip_smoke.py`` phase 15
@@ -53,6 +54,30 @@ def all_gather(tensor: torch.Tensor, group=None) -> list:
             for _ in range(dist.get_world_size(group))]
     dist.all_gather(outs, tensor, group=group)
     return outs
+
+
+def ordered_sum(tensor: torch.Tensor, group=None,
+                acc_dtype: torch.dtype = None) -> torch.Tensor:
+    """The sum of every rank's ``tensor`` over ``group``: one
+    :func:`all_gather` of the partials, then ``parts[0] + parts[1] + ...``
+    in group-rank order, accumulated in ``acc_dtype`` (the tensor's own
+    dtype when None) and returned in the tensor's dtype.  Every rank adds
+    the same tensors in the same order, so all hold the same bits, and no
+    bit depends on the backend's reduction order (an ``all_reduce`` may
+    add in any)."""
+    return sum_in_order(all_gather(tensor, group),
+                        acc_dtype).to(tensor.dtype)
+
+
+def sum_in_order(parts: list, acc_dtype: torch.dtype = None
+                 ) -> torch.Tensor:
+    """``parts[0] + parts[1] + ...`` (equal shapes) in list order,
+    accumulated and returned in ``acc_dtype`` (the first part's dtype
+    when None): the same bits wherever the same list is added."""
+    acc = parts[0] if acc_dtype is None else parts[0].to(acc_dtype)
+    for p in parts[1:]:
+        acc = acc + p
+    return acc
 
 
 def _host(t: torch.Tensor, group) -> torch.Tensor:

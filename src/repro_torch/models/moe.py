@@ -80,23 +80,48 @@ def load_balance_loss(logits: torch.Tensor, ids: torch.Tensor,
     return num_experts * torch.sum(f_mean * p_mean)
 
 
-def moe_ref(x: torch.Tensor, params: dict, k: int) -> torch.Tensor:
+def moe_ref(x: torch.Tensor, params: dict, k: int, *,
+            mesh: Optional[object] = None,
+            model_axis: str = "model") -> torch.Tensor:
     """Exact dropless MoE (all experts on all tokens).  x: (B, S, d);
-    params: router (d, E), w_gate / w_up (E, d, f), w_down (E, f, d)."""
+    params: router (d, E), w_gate / w_up (E, d, f), w_down (E, f, d).
+
+    Over a ``mesh`` with ``model_axis`` the experts are sharded as in
+    :func:`moe_ep` (global or this rank's weights): each rank runs its
+    experts on every token of ``x``, keeps the assignments routed to them
+    and the partials are added over "model" in rank order
+    (``collectives.ordered_sum``); the router stays whole."""
     b, s, d = x.shape
-    if params["w_gate"].shape[0] != params["router"].shape[1]:
+    num_experts = params["router"].shape[1]
+    shard, n_shards = 0, 1
+    if mesh is not None and model_axis in (mesh.mesh_dim_names or ()):
+        shard, n_shards = (mesh.get_local_rank(model_axis),
+                           dim_size(mesh, model_axis))
+        if num_experts % n_shards:
+            raise ValueError(f"E={num_experts} % model={n_shards}")
+    elif params["w_gate"].shape[0] != num_experts:
         raise ValueError("moe_ref needs every expert's weights; sharded "
                          "experts run through moe_ep over their mesh")
+    w_gate, w_up, w_down = (expert_rows(params[key], num_experts, shard,
+                                        n_shards) for key in EXPERT_LEAVES)
     xf = x.reshape(b * s, d).float()
     weights, ids, _ = _route(xf, params["router"], k)
-    # (E, T, f) for every expert, each weight read in place.
-    g = torch.matmul(xf, params["w_gate"].float())
-    u = torch.matmul(xf, params["w_up"].float())
-    y_all = torch.matmul(F.silu(g) * u, params["w_down"].float())
+    # (E_loc, T, f) for every local expert, each weight read in place.
+    g = torch.matmul(xf, w_gate.float())
+    u = torch.matmul(xf, w_up.float())
+    y_all = torch.matmul(F.silu(g) * u, w_down.float())
     del g, u
     tok = torch.arange(b * s, device=x.device)[:, None]
-    sel = y_all[ids.long(), tok]                          # (T, k, d)
-    out = torch.sum(weights[..., None] * sel, dim=1)
+    if n_shards == 1:
+        sel = y_all[ids.long(), tok]                      # (T, k, d)
+        out = torch.sum(weights[..., None] * sel, dim=1)
+        return out.reshape(b, s, d).to(x.dtype)
+    e_loc = num_experts // n_shards
+    local = ids.long() - shard * e_loc
+    mine = (local >= 0) & (local < e_loc)
+    sel = y_all[local.clamp(0, e_loc - 1), tok]
+    part = torch.sum(torch.where(mine, weights, 0.0)[..., None] * sel, dim=1)
+    out = collectives.ordered_sum(part, mesh.get_group(model_axis))
     return out.reshape(b, s, d).to(x.dtype)
 
 
@@ -165,16 +190,6 @@ def _combine(tok: torch.Tensor, contrib: torch.Tensor, t: int,
     for j in range(k):
         out = out + take_rows(padded, slot[:, j])
     return out
-
-
-def _ordered_sum(parts: list) -> torch.Tensor:
-    """``parts[0] + parts[1] + ...`` in list (group-rank) order: every
-    rank adds the same tensors in the same order, so all hold the same
-    bits."""
-    acc = parts[0]
-    for p in parts[1:]:
-        acc = acc + p
-    return acc
 
 
 def expert_rows(w: torch.Tensor, num_experts: int, shard: int,
@@ -279,8 +294,7 @@ def moe_ep(x: torch.Tensor, params: dict, k: int, *,
     part = _moe_local(x_loc, params["router"], *w, k=k,
                       num_experts=num_experts, shard_idx=shard,
                       num_shards=n_shards, capacity_per_expert=c_e)
-    out = _ordered_sum(collectives.all_gather(part,
-                                              mesh.get_group(model_axis)))
+    out = collectives.ordered_sum(part, mesh.get_group(model_axis))
     # The batch blocks back in row-major order: the last batch dimension
     # first, so each gather concatenates whole blocks of the one before.
     for a in reversed(baxes):
@@ -289,13 +303,16 @@ def moe_ep(x: torch.Tensor, params: dict, k: int, *,
 
 
 def moe_ffn(x: torch.Tensor, params: dict, k: int, *, impl: str = "auto",
-            capacity_factor: float = 1.25,
-            mesh: Optional[object] = None) -> torch.Tensor:
-    """``impl``: "ref" (:func:`moe_ref`), "ep" (:func:`moe_ep` over
-    ``mesh``) or "auto": "ep" when a mesh is given, else "ref", as the
-    reference picks by its active mesh."""
+            capacity_factor: float = 1.25, mesh: Optional[object] = None,
+            batch_axes: tuple = ("pod", "data")) -> torch.Tensor:
+    """``impl``: "ref" (:func:`moe_ref`, its experts sharded over a mesh's
+    "model" dimension), "ep" (:func:`moe_ep` over ``mesh`` and
+    ``batch_axes``) or "auto": "ep" when a mesh is given, else "ref", as
+    the reference picks by its active mesh.  ``batch_axes=()``: ``x`` is
+    this rank's rows already (the tensor-parallel transformer's)."""
     if impl == "auto":
         impl = "ep" if mesh is not None else "ref"
     if impl == "ref":
-        return moe_ref(x, params, k)
-    return moe_ep(x, params, k, capacity_factor=capacity_factor, mesh=mesh)
+        return moe_ref(x, params, k, mesh=mesh)
+    return moe_ep(x, params, k, capacity_factor=capacity_factor, mesh=mesh,
+                  batch_axes=batch_axes)

@@ -23,10 +23,37 @@ pattern): under grad each repeat's pattern pass runs inside
 ``torch.utils.checkpoint`` (non-reentrant), which keeps only its input
 and recomputes the rest in the backward; the same ops on the same
 inputs, so no bit changes.  ``scan_layers`` is a JAX mechanic with no
-effect here, and ``logical_constraint`` (sharding) has no counterpart on
-one card.  The embedding gathers differentiate through
+effect here.  The embedding gathers differentiate through
 ``nn.take_rows``, whose backward gives the same bits run to run on the
 CPU too.
+
+Tensor parallelism (``forward`` / ``decode_step`` /
+``precompute_vision_cache`` with ``mesh=`` a ``DeviceMesh`` whose
+"model" dimension is above 1): parameters and caches are placed by the
+reference's logical axis rules (``distributed.sharding``; ``rules``
+overrides its ``DEFAULT_RULES``, where the reference marks activations
+with ``logical_constraint``), and each rank computes with its blocks
+only: Megatron-style, the column-parallel products (``wq``/``wk``/``wv``
+by heads, ``w_gate``/``w_up`` and the shared expert's by ``mlp``, the
+RG-LRU's projections by ``rnn``, ``lm_head`` by ``vocab``) need no
+exchange, and each row-parallel one (``wo``, ``w_down``, the RG-LRU's
+``w_out``, mLSTM's projections of its ``mlp`` rows) gives a partial sum,
+taken in fp32, that one ``all_gather`` over "model" turns into the
+whole, added in rank order and rounded once to the activation dtype
+(``core.collectives.ordered_sum``): one rounding of the whole product,
+as on one device and in the reference's GSPMD sum.  Which leaves are
+cut comes from their resolved placement, once a block kind.  The
+embedding over a cut vocabulary is the same sum (exact: one rank holds
+each row).  mLSTM gathers its ``up``
+columns (the [xi | gate] split runs across the blocks) and sLSTM its
+heads before the whole ``w_out``.  Where "model" divides the query heads
+but not the KV heads, the KV weights and cache stay whole and a rank
+projects, writes and reads only the KV head its query heads share.  The
+batch is cut over ("pod", "data") by the "batch" rule; the MoE blocks
+run ``moe_ep`` (or the dropless ``moe_ref``) on the rank's rows with the
+experts over "model" and the router whole.  The logits are the rank's
+block ((rows, S, vocab block): :func:`batch_rows`, :func:`vocab_block`);
+:func:`gather_logits` and :func:`vocab_argmax` join them.
 
 Prefill (``forward``) runs attention through
 :func:`repro_torch.models.attention.prefill_attention` with
@@ -43,13 +70,17 @@ rows, the ring's slot, the states), so a step copies no cache.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import collectives
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding
+from repro_torch.launch.mesh import dim_size
 from repro_torch.models.attention import (NEG_INF, cross_attention,
                                           decode_attention,
                                           prefill_attention, repeat_kv)
@@ -58,7 +89,7 @@ from repro_torch.models.recurrent import (mlstm_parallel, mlstm_step,
                                           rg_lru, rg_lru_step, slstm_scan)
 from repro_torch.models.stale_kv import StaleKVConfig, stale_kv_decode
 from repro_torch.nn import (ParamSpec, apply_rope, dense, gelu, rms_norm,
-                            swiglu, take_rows)
+                            take_rows)
 
 Pytree = Any
 
@@ -316,14 +347,245 @@ def arch_specs(cfg: ArchConfig) -> Pytree:
 
 
 # ---------------------------------------------------------------------------
+# Tensor parallelism over a mesh's "model" dimension
+# ---------------------------------------------------------------------------
+
+class _Shards:
+    """A rank of a mesh whose "model" dimension is above 1, for one block
+    kind (None: the embedding and the head): its model group and index,
+    and ``cut``, the logical axis of each of the block's leaves that
+    "model" cuts, None where the leaf is whole (their resolved placement:
+    :func:`_cut_leaves`)."""
+
+    def __init__(self, mesh, rules: Optional[dict], cut: dict):
+        self.mesh, self.rules, self.cut = mesh, rules, cut
+        self.group = mesh.get_group("model")
+        self.rank = mesh.get_local_rank("model")
+
+    def gather(self, part: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' blocks of a dim cut over "model", concatenated."""
+        return torch.cat(collectives.all_gather(part, self.group), dim=dim)
+
+
+def _tensor_parallel(mesh) -> bool:
+    """Whether ``mesh`` has a "model" dimension above 1 (else the model
+    runs whole, as on one device)."""
+    return mesh is not None and dim_size(mesh, "model") > 1
+
+
+def _rule_keys(mesh, rules: Optional[dict]) -> tuple:
+    """The mesh's sizes and the merged rules as cache keys."""
+    return (tuple(sharding.mesh_sizes(mesh).items()),
+            tuple(sorted(sharding.merged_rules(rules).items())))
+
+
+def _shards(cfg: ArchConfig, mesh, rules: Optional[dict]
+            ) -> Optional[dict]:
+    """This rank's :class:`_Shards` by block kind (None: the embedding and
+    the head); None without a "model" dimension above 1."""
+    if not _tensor_parallel(mesh):
+        return None
+    cuts = _cut_leaves(cfg, *_rule_keys(mesh, rules))
+    return {kind: _Shards(mesh, rules, cut) for kind, cut in cuts.items()}
+
+
+def _of(tps: Optional[dict], kind: Optional[str]) -> Optional[_Shards]:
+    """``kind``'s :class:`_Shards` of :func:`_shards`' dict (None
+    without tensor parallelism)."""
+    return None if tps is None else tps[kind]
+
+
+@functools.lru_cache(maxsize=64)
+def _param_places(cfg: ArchConfig, sizes: tuple, rules: tuple):
+    places = sharding.placements(arch_specs(cfg), dict(sizes), dict(rules))
+    bad = {n for _, pl in _leaves(places) for entry in pl
+           for n in sharding.entry_names(entry) if n != "model"}
+    if bad:
+        raise ValueError(
+            f"{cfg.name}: the rules place parameters over {sorted(bad)}; "
+            f"serving shards parameters over 'model' only (FSDP is the "
+            f"trainer's, ROADMAP §1)")
+    return places
+
+
+@functools.lru_cache(maxsize=64)
+def _cut_leaves(cfg: ArchConfig, sizes: tuple, rules: tuple) -> dict:
+    """{block kind (None: the top level): {leaf: the logical axis "model"
+    cuts, or None}}, from :func:`_param_places` (a leaf takes "model" on
+    one dim at most)."""
+    specs = arch_specs(cfg)
+
+    def axis(spec: ParamSpec, shape, placement) -> Optional[str]:
+        return next((a for a, e in zip(spec.axes, placement)
+                     if e is not None), None)
+
+    cut = sharding.map_placed(axis, specs,
+                              _param_places(cfg, sizes, rules))
+    out = {None: {k: cut[k] for k in ("embed", "lm_head")}}
+    out.update(zip(cfg.pattern + cfg.tail, cut["pattern"] + cut["tail"]))
+    return out
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def _local_params(cfg: ArchConfig, params: Pytree, mesh,
+                  rules: Optional[dict]) -> Pytree:
+    """This rank's blocks of ``params``: leaves already cut are kept, whole
+    ones are cut as views (``sharding.shard_params`` makes the copies
+    that let the whole be freed)."""
+    return sharding.map_placed(
+        lambda t, shape, pl: sharding.cut(t, shape, pl, mesh, False),
+        params, _param_places(cfg, *_rule_keys(mesh, rules)))
+
+
+def _row(tp: Optional[_Shards], leaf: str, product, x: torch.Tensor,
+         w: torch.Tensor) -> torch.Tensor:
+    """``product(x, w)`` of the row-parallel leaf ``w`` (``leaf``; its cut
+    dim the one contracted) in ``x``'s dtype.  Where "model" cuts it, this
+    rank's partial is taken in fp32 (the weights rounded to ``x``'s dtype
+    first, as one device rounds them), the partials added over "model" in
+    rank order (``core.collectives.ordered_sum``) and the sum rounded
+    once: the single device's one rounding of the whole product, as the
+    reference's GSPMD sums inside one product."""
+    w = w.to(x.dtype)
+    if tp is None or not tp.cut[leaf]:
+        return product(x, w)
+    part = product(x.float(), w.float())
+    return collectives.ordered_sum(part, tp.group).to(x.dtype)
+
+
+# The output projection of (B, S, heads, head_dim) over its heads.
+_HEADS_OUT = functools.partial(torch.einsum, "bshk,hkd->bsd")
+
+
+def batch_rows(batch: int, mesh, rules: Optional[dict] = None) -> tuple:
+    """(first row, rows) of this rank's block of a global batch of
+    ``batch`` rows: the "batch" rule resolved over the mesh (("pod",
+    "data") by default; a dimension that does not divide the rows left
+    out, so batch-1 decode is replicated).  The whole batch without a
+    "model" dimension above 1."""
+    if not _tensor_parallel(mesh):
+        return 0, batch
+    (entry,) = sharding.resolve(("batch",), sharding.merged_rules(rules),
+                                sharding.mesh_sizes(mesh), (batch,))
+    idx, count = sharding.block_index(entry, mesh)
+    return idx * (batch // count), batch // count
+
+
+def vocab_block(cfg: ArchConfig, mesh, rules: Optional[dict] = None
+                ) -> tuple:
+    """(offset, size) of this rank's block of the vocabulary: the columns
+    of ``lm_head`` it holds and of the logits it returns.  The whole
+    vocabulary where "model" does not divide it (or is absent)."""
+    if not _tensor_parallel(mesh):
+        return 0, cfg.vocab_size
+    entry = sharding.resolve(("embed", "vocab"), sharding.merged_rules(rules),
+                             sharding.mesh_sizes(mesh),
+                             (cfg.d_model, cfg.vocab_size))[1]
+    idx, count = sharding.block_index(entry, mesh)
+    return idx * (cfg.vocab_size // count), cfg.vocab_size // count
+
+
+def gather_logits(cfg: ArchConfig, logits: torch.Tensor, batch: int, mesh,
+                  rules: Optional[dict] = None) -> torch.Tensor:
+    """The global (batch, S, vocab) logits from every rank's block (one
+    gather over "model" where the vocabulary is cut, one a batch
+    dimension the rows were cut over): for callers that need the whole
+    tensor.  ``logits`` as it is without a "model" dimension above 1."""
+    tps = _shards(cfg, mesh, rules)
+    if tps is None:
+        return logits
+    if tps[None].cut["lm_head"]:
+        logits = tps[None].gather(logits, -1)
+    return _gather_rows(mesh, logits, batch, rules)
+
+
+def _gather_rows(mesh, x: torch.Tensor, batch: int,
+                 rules: Optional[dict]) -> torch.Tensor:
+    """The global batch from every rank's rows: the last batch dimension
+    first, so each gather concatenates whole blocks of the one before."""
+    (entry,) = sharding.resolve(("batch",), sharding.merged_rules(rules),
+                                sharding.mesh_sizes(mesh), (batch,))
+    for a in reversed(sharding.entry_names(entry)):
+        if dim_size(mesh, a) > 1:
+            x = torch.cat(collectives.all_gather(x, mesh.get_group(a)))
+    return x
+
+
+def vocab_argmax(cfg: ArchConfig, logits: torch.Tensor, batch: int, mesh,
+                 rules: Optional[dict] = None) -> torch.Tensor:
+    """``torch.argmax(gather_logits(...), dim=-1)`` without gathering the
+    logits: each rank's (max, index) pair a row, gathered over "model"
+    (one gather, the pairs packed in float64: exact for indices below
+    2^53), the largest value taken, a tie to the lower index and a NaN
+    before any number, as ``torch.argmax`` breaks them; then the rows
+    gathered over the batch dimensions.  (batch, S) int64 on every
+    rank."""
+    tps = _shards(cfg, mesh, rules)
+    if tps is None:
+        return torch.argmax(logits, dim=-1)
+    tp = tps[None]
+    if tp.cut["lm_head"]:
+        offset = tp.rank * logits.shape[-1]
+        val, idx = torch.max(logits, dim=-1)
+        # torch.max picks the first maximal index, a NaN first of all.
+        pairs = torch.stack([val.double(), (idx + offset).double()])
+        got = torch.stack(collectives.all_gather(pairs, tp.group))
+        vals, idxs = got[:, 0], got[:, 1]
+        nan = torch.isnan(vals)
+        best = torch.where(nan, -1.0, vals).amax(dim=0)
+        rank = torch.where(nan.any(dim=0), nan.double().argmax(dim=0),
+                           (vals == best).double().argmax(dim=0))
+        out = idxs.gather(0, rank[None])[0].long()
+    else:
+        out = torch.argmax(logits, dim=-1)
+    return _gather_rows(mesh, out, batch, rules)
+
+
+def _kv_slice(cfg: ArchConfig, p: dict, tp: Optional[_Shards]):
+    """(first, count) of the KV heads this rank's query heads read where
+    the KV weights are whole but the query heads cut ("model" divides
+    ``heads`` but not ``kv_heads``: head h reads KV head h // rep); None
+    otherwise."""
+    if tp is None or not tp.cut["wq"] or tp.cut["wk"]:
+        return None
+    h_loc = p["wq"].shape[-2]
+    rep = cfg.num_heads // cfg.num_kv_heads
+    if rep % h_loc:
+        raise ValueError(
+            f"{cfg.name}: {h_loc} query heads a rank read parts of "
+            f"several of the {cfg.num_kv_heads} whole KV heads (rep {rep})")
+    return tp.rank * h_loc // rep, 1
+
+
+def _kv_view(cache: dict, sl) -> dict:
+    """The cache's tensors narrowed to the KV heads ``sl`` (views: writes
+    land in the whole cache); the cache itself where ``sl`` is None."""
+    if sl is None:
+        return cache
+    return {k: v.narrow(-2, sl[0], sl[1]) for k, v in cache.items()}
+
+
+# ---------------------------------------------------------------------------
 # Block forward (prefill)
 # ---------------------------------------------------------------------------
 
 def _qkv(cfg: ArchConfig, p: dict, h: torch.Tensor,
-         positions: torch.Tensor) -> tuple:
+         positions: torch.Tensor, tp: Optional[_Shards] = None) -> tuple:
+    """Q, K and V of this rank's heads (every head without a mesh)."""
+    wk, wv = p["wk"], p["wv"]
+    sl = _kv_slice(cfg, p, tp)
+    if sl is not None:
+        wk, wv = wk.narrow(-2, *sl), wv.narrow(-2, *sl)
     q = torch.einsum("bsd,dhk->bshk", h, p["wq"].to(h.dtype))
-    k = torch.einsum("bsd,dhk->bshk", h, p["wk"].to(h.dtype))
-    v = torch.einsum("bsd,dhk->bshk", h, p["wv"].to(h.dtype))
+    k = torch.einsum("bsd,dhk->bshk", h, wk.to(h.dtype))
+    v = torch.einsum("bsd,dhk->bshk", h, wv.to(h.dtype))
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
@@ -332,47 +594,65 @@ def _qkv(cfg: ArchConfig, p: dict, h: torch.Tensor,
     return q, k, v
 
 
-def _attn_out(p: dict, attn: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    return x + torch.einsum("bshk,hkd->bsd", attn, p["wo"].to(attn.dtype))
+def _attn_out(cfg: ArchConfig, p: dict, attn: torch.Tensor,
+              x: torch.Tensor, tp: Optional[_Shards] = None
+              ) -> torch.Tensor:
+    """x + the output projection of this rank's heads, summed over
+    "model" where the heads are cut."""
+    return x + _row(tp, "wo", _HEADS_OUT, attn, p["wo"])
 
 
-def _mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
-    h = rms_norm(x, p["ln2"])
-    return x + swiglu(h, p["w_gate"].to(h.dtype), p["w_up"].to(h.dtype),
-                      p["w_down"].to(h.dtype))
+def _swiglu(h: torch.Tensor, p: dict, tp: Optional[_Shards],
+            prefix: str = "w") -> torch.Tensor:
+    """SwiGLU of rms-normed ``h`` through ``p``'s ``{prefix}_gate``,
+    ``_up`` and ``_down`` (the MLP's; "ws" the shared expert's): this
+    rank's ``mlp`` columns where they are cut, its ``_down`` rows then
+    row-parallel (:func:`_row`)."""
+    a = F.silu(dense(h, p[f"{prefix}_gate"].to(h.dtype))) \
+        * dense(h, p[f"{prefix}_up"].to(h.dtype))
+    return _row(tp, f"{prefix}_down", dense, a, p[f"{prefix}_down"])
 
 
-def _moe(cfg: ArchConfig, p: dict, x: torch.Tensor,
-         mesh=None) -> torch.Tensor:
+def _mlp(cfg: ArchConfig, p: dict, x: torch.Tensor,
+         tp: Optional[_Shards] = None) -> torch.Tensor:
+    """x + the SwiGLU MLP of rms_norm(x)."""
+    return x + _swiglu(rms_norm(x, p["ln2"]), p, tp)
+
+
+def _moe(cfg: ArchConfig, p: dict, x: torch.Tensor, mesh=None,
+         tp: Optional[_Shards] = None) -> torch.Tensor:
     """x + the MoE FFN of rms_norm(x) (+ the shared expert); ``mesh``:
-    the ``DeviceMesh`` of the expert-parallel ``moe_ep``."""
+    the ``DeviceMesh`` the experts are sharded over (``moe_ep``, or the
+    dropless ``moe_ref``).  Under tensor parallelism ``x`` holds this
+    rank's rows and the shared expert is cut over ``mlp``."""
     h2 = rms_norm(x, p["ln2"])
     moe_params = {"router": p["router"], "w_gate": p["w_gate_e"],
                   "w_up": p["w_up_e"], "w_down": p["w_down_e"]}
+    kw = {} if tp is None else {"batch_axes": ()}
     out = moe_ffn(h2, moe_params, cfg.experts_per_token,
                   impl=cfg.moe_impl, capacity_factor=cfg.moe_capacity_factor,
-                  mesh=mesh)
+                  mesh=mesh, **kw)
     if cfg.shared_expert:
-        out = out + swiglu(h2, p["ws_gate"].to(h2.dtype),
-                           p["ws_up"].to(h2.dtype),
-                           p["ws_down"].to(h2.dtype))
+        out = out + _swiglu(h2, p, tp, "ws")
     return x + out
 
 
 def _ffn(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor,
-         mesh=None) -> torch.Tensor:
+         ctx: dict) -> torch.Tensor:
     """An attention block's second half: the MoE of "moe", else the
     MLP."""
-    return _moe(cfg, p, x, mesh) if kind == "moe" else _mlp(p, x)
+    if kind == "moe":
+        return _moe(cfg, p, x, ctx["mesh"], ctx["tp"])
+    return _mlp(cfg, p, x, ctx["tp"])
 
 
 def _fwd_attn(cfg, kind, p, x, ctx):
     h = rms_norm(x, p["ln1"])
-    q, k, v = _qkv(cfg, p, h, ctx["positions"])
+    q, k, v = _qkv(cfg, p, h, ctx["positions"], ctx["tp"])
     attn = prefill_attention(q, k, v,
                              window=cfg.window if kind == "swa" else 0,
                              backend=cfg.attn_backend)
-    return _ffn(cfg, kind, p, _attn_out(p, attn, x), ctx["mesh"])
+    return _ffn(cfg, kind, p, _attn_out(cfg, p, attn, x, ctx["tp"]), ctx)
 
 
 def _conv1d_causal(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -385,50 +665,140 @@ def _conv1d_causal(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _fwd_rec(cfg, kind, p, x, ctx):
+    """The RG-LRU block: its ``rnn`` channels cut over "model" (the scan
+    is elementwise in them), ``w_out`` row-parallel."""
+    tp = ctx["tp"]
     h = rms_norm(x, p["ln1"])
     y = gelu(dense(h, p["w_y"].to(h.dtype)))
     bx = _conv1d_causal(dense(h, p["w_x"].to(h.dtype)), p["conv_w"])
     gx = dense(h, p["w_gate_x"].to(h.dtype))
     ga = dense(h, p["w_gate_a"].to(h.dtype))
     lru, _ = rg_lru(bx, gx, ga, p["log_lambda"])
-    x = x + dense(y * lru, p["w_out"].to(h.dtype))
-    return _mlp(p, x)
+    return _mlp(cfg, p, x + _row(tp, "w_out", dense, y * lru, p["w_out"]),
+                tp)
+
+
+def _mlstm_in(cfg: ArchConfig, p: dict, h: torch.Tensor,
+              tp: Optional[_Shards], lhs: str, out: str) -> tuple:
+    """The mLSTM block's projections of rms_norm(x) ``h`` (einsum
+    subscripts ``lhs``, i/f laid out as ``out``, q/k/v as ``out`` + "k":
+    "bsd" / "bhs" in prefill, "bd" / "bh" in decode): (q, k, v, i_pre,
+    f_pre, gate) of this rank's heads (every head where ``heads`` is
+    whole).  Under tensor parallelism ``w_up``'s ``mlp`` columns are
+    gathered (the [xi | gate] split runs across the blocks); where the
+    projections' ``mlp`` rows are cut, their products of this rank's rows
+    of ``xi`` are row-parallel (:func:`_row`'s rounding, the five summed
+    in one gather)."""
+    up = dense(h, p["w_up"].to(h.dtype))
+    if tp is not None and tp.cut["w_up"]:
+        up = tp.gather(up, -1)
+    di = cfg.mlstm_expansion * cfg.d_model
+    xi, gate = up[..., :di], up[..., di:]
+    ws = [p[w].to(xi.dtype) for w in ("wq", "wk", "wv", "w_i", "w_f")]
+    rows_cut = tp is not None and tp.cut["wq"] == "mlp"
+    if rows_cut:
+        rows = ws[0].shape[0]
+        xi = xi.narrow(-1, tp.rank * rows, rows).float()
+        ws = [w.float() for w in ws]
+    q, k, v = (torch.einsum(f"{lhs},dhk->{out}k", xi, w) for w in ws[:3])
+    i_pre, f_pre = (torch.einsum(f"{lhs},dh->{out}", xi, w)
+                    for w in ws[3:])
+    if rows_cut:
+        hd = q.shape[-1]
+        packed = torch.cat([q, k, v, i_pre[..., None], f_pre[..., None]],
+                           dim=-1)
+        packed = collectives.ordered_sum(packed, tp.group).to(h.dtype)
+        q, k, v = packed[..., :hd], packed[..., hd:2 * hd], \
+            packed[..., 2 * hd:3 * hd]
+        i_pre, f_pre = packed[..., 3 * hd], packed[..., 3 * hd + 1]
+    h_loc = _mlstm_heads(cfg, tp)
+    if h_loc < cfg.num_heads:
+        # This rank's heads: the cache's ``heads`` block (the projections
+        # give no others where "model" cuts their heads).
+        if tp.cut["wq"] != "heads":
+            at = out.index("h")
+            q, k, v, i_pre, f_pre = (t.narrow(at, tp.rank * h_loc, h_loc)
+                                     for t in (q, k, v, i_pre, f_pre))
+        gate = gate.narrow(-1, tp.rank * h_loc * (di // cfg.num_heads),
+                           h_loc * (di // cfg.num_heads))
+    return q, k, v, i_pre, f_pre, gate
+
+
+def _mlstm_heads(cfg: ArchConfig, tp: Optional[_Shards]) -> int:
+    """The mLSTM heads a rank runs: its block of the state's ``heads``
+    dim (``cache_specs``' placement), every head where "model" leaves it
+    whole."""
+    if tp is None:
+        return cfg.num_heads
+    (entry,) = sharding.resolve(("heads",), sharding.merged_rules(tp.rules),
+                                sharding.mesh_sizes(tp.mesh),
+                                (cfg.num_heads,))
+    return cfg.num_heads // sharding.block_index(entry, tp.mesh)[1]
+
+
+def _mlstm_out(cfg: ArchConfig, p: dict, core: torch.Tensor,
+               gate: torch.Tensor, tp: Optional[_Shards]) -> torch.Tensor:
+    """The gated core (this rank's heads' channels) through ``w_down``,
+    row-parallel where its ``mlp`` rows are cut (:func:`_row`).  Where
+    "model" cuts one of the two only, the channels are first made
+    ``w_down``'s rows: gathered, or this rank's block taken."""
+    z = core * F.silu(gate)
+    if tp is not None:
+        heads_cut = _mlstm_heads(cfg, tp) < cfg.num_heads
+        if heads_cut and not tp.cut["w_down"]:
+            z = tp.gather(z, -1)
+        elif tp.cut["w_down"] and not heads_cut:
+            rows = p["w_down"].shape[0]
+            z = z.narrow(-1, tp.rank * rows, rows)
+    return _row(tp, "w_down", dense, z, p["w_down"])
 
 
 def _fwd_mlstm(cfg, kind, p, x, ctx):
+    tp = ctx["tp"]
     h = rms_norm(x, p["ln1"])
-    up = dense(h, p["w_up"].to(h.dtype))
-    di = up.shape[-1] // 2
-    xi, gate = up[..., :di], up[..., di:]
-    b, s, _ = xi.shape
-    q, k, v = (torch.einsum("bsd,dhk->bhsk", xi, p[w].to(xi.dtype))
-               for w in ("wq", "wk", "wv"))
-    i_pre, f_pre = (torch.einsum("bsd,dh->bhs", xi, p[w].to(xi.dtype))
-                    for w in ("w_i", "w_f"))
+    q, k, v, i_pre, f_pre, gate = _mlstm_in(cfg, p, h, tp, "bsd", "bhs")
+    b, s, _ = h.shape
     core = mlstm_parallel(q, k, v, i_pre, f_pre)           # (B, H, S, dh)
-    core = core.transpose(1, 2).reshape(b, s, di)
-    return x + dense(core * F.silu(gate), p["w_down"].to(h.dtype))
+    core = core.transpose(1, 2).reshape(b, s, -1)
+    return x + _mlstm_out(cfg, p, core, gate, tp)
 
 
 def _fwd_slstm(cfg, kind, p, x, ctx, state: Optional[dict] = None):
-    """The sLSTM block over (B, S, d) from ``state`` (zeros when None).
-    Returns (new x, the final state)."""
+    """The sLSTM block over (B, S, d) from ``state`` (zeros when None):
+    this rank's heads (cut over "model"; the recurrence is per head),
+    gathered before the whole ``w_out``.  Returns (new x, the final
+    state)."""
+    tp = ctx["tp"]
     h = rms_norm(x, p["ln1"])
     wx = torch.einsum("bsd,dhgk->bshgk", h, p["w_in"].to(h.dtype))
     hs, state = slstm_scan(wx, {g: p[f"r_{g}"] for g in "zifo"}, state)
+    if tp is not None and tp.cut["w_in"]:
+        hs = tp.gather(hs, 2)
     b, s = h.shape[:2]
     x = x + dense(hs.reshape(b, s, -1), p["w_out"].to(h.dtype))
-    return _mlp(p, x), state
+    return _mlp(cfg, p, x, tp), state
 
 
-def _xattn(p: dict, x: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
-           v: torch.Tensor) -> torch.Tensor:
+def _xattn(cfg: ArchConfig, p: dict, x: torch.Tensor, q: torch.Tensor,
+           k: torch.Tensor, v: torch.Tensor,
+           tp: Optional[_Shards]) -> torch.Tensor:
     """x + tanh(gate) * the cross-attention's output (the product in
-    fp32, as the reference's fp32 gate promotes it), then the MLP."""
-    attn = cross_attention(q, k, v)
-    out = torch.einsum("bshk,hkd->bsd", attn, p["wo"].to(attn.dtype))
+    fp32, as the reference's fp32 gate promotes it; this rank's heads
+    summed over "model" first), then the MLP."""
+    out = _row(tp, "wo", _HEADS_OUT, cross_attention(q, k, v), p["wo"])
     gate = torch.tanh(p["gate"].float())[0]
-    return _mlp(p, x + (gate * out.float()).to(x.dtype))
+    return _mlp(cfg, p, x + (gate * out.float()).to(x.dtype), tp)
+
+
+def _vision_kv(cfg: ArchConfig, p: dict, vis: torch.Tensor, eq: str,
+               tp: Optional[_Shards]) -> tuple:
+    """The vision K/V of this rank's KV heads (``eq`` the einsum)."""
+    wk, wv = p["wk"], p["wv"]
+    sl = _kv_slice(cfg, p, tp)
+    if sl is not None:
+        wk, wv = wk.narrow(-2, *sl), wv.narrow(-2, *sl)
+    return (torch.einsum(eq, vis, wk.to(vis.dtype)),
+            torch.einsum(eq, vis, wv.to(vis.dtype)))
 
 
 def _fwd_xattn(cfg, kind, p, x, ctx):
@@ -437,9 +807,8 @@ def _fwd_xattn(cfg, kind, p, x, ctx):
         raise ValueError(f"{cfg.name}: xattn blocks need a vision input")
     h = rms_norm(x, p["ln1"])
     q = torch.einsum("bsd,dhk->bshk", h, p["wq"].to(h.dtype))
-    k = torch.einsum("bpv,vhk->bphk", vis, p["wk"].to(h.dtype))
-    v = torch.einsum("bpv,vhk->bphk", vis, p["wv"].to(h.dtype))
-    return _xattn(p, x, q, k, v)
+    k, v = _vision_kv(cfg, p, vis.to(h.dtype), "bpv,vhk->bphk", ctx["tp"])
+    return _xattn(cfg, p, x, q, k, v, ctx["tp"])
 
 
 _FWD = {"attn": _fwd_attn, "swa": _fwd_attn, "moe": _fwd_attn,
@@ -448,9 +817,11 @@ _FWD = {"attn": _fwd_attn, "swa": _fwd_attn, "moe": _fwd_attn,
 
 
 def _fwd_block(cfg, kind, p, x, ctx):
+    """One block; ``ctx["tp"]`` its kind's :class:`_Shards`."""
     if kind not in _FWD:
         raise ValueError(kind)
-    return _FWD[kind](cfg, kind, p, x, ctx)
+    return _FWD[kind](cfg, kind, p, x,
+                      dict(ctx, tp=_of(ctx["shards"], kind)))
 
 
 def _layer(tree: dict, r: int) -> dict:
@@ -466,10 +837,21 @@ def _repeat(cfg: ArchConfig, pattern: list, r: int, x: torch.Tensor,
     return x
 
 
-def _embed(cfg: ArchConfig, params: Pytree,
-           tokens: torch.Tensor) -> torch.Tensor:
+def _embed(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
+           tp: Optional[_Shards] = None) -> torch.Tensor:
+    """The scaled token embeddings.  Where the vocabulary is cut over
+    "model", each rank looks up the tokens of its block, writes zeros for
+    the rest and the blocks are summed: exact, one rank gives each row."""
     dt = cfg.act_dtype
-    x = take_rows(params["embed"], tokens.long()).to(dt)
+    table = params["embed"]
+    if tp is not None and tp.cut["embed"]:
+        local = tokens.long() - tp.rank * table.shape[0]
+        mine = (local >= 0) & (local < table.shape[0])
+        rows = take_rows(table, torch.where(mine, local, 0)).to(dt)
+        x = collectives.ordered_sum(
+            torch.where(mine[..., None], rows, 0.0).to(dt), tp.group)
+    else:
+        x = take_rows(table, tokens.long()).to(dt)
     return x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
 
 
@@ -479,18 +861,31 @@ def _logits(params: Pytree, x: torch.Tensor) -> torch.Tensor:
 
 
 def forward(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
-            vision: Optional[torch.Tensor] = None,
-            mesh=None) -> torch.Tensor:
+            vision: Optional[torch.Tensor] = None, mesh=None,
+            rules: Optional[dict] = None) -> torch.Tensor:
     """tokens: (B, S) int → logits (B, S, vocab) f32.  ``vision``: the
     (B, num_patches, vision_dim) patch embeddings ``xattn`` blocks
-    attend to, cast to the activation dtype.  ``mesh``: the
-    ``DeviceMesh`` the MoE blocks' ``moe_ep`` shards its experts over
-    (``models.moe``; the tokens are global on every rank, as are the
-    logits)."""
-    x = _embed(cfg, params, tokens)
+    attend to, cast to the activation dtype.
+
+    ``mesh``: a ``DeviceMesh``.  With a "model" dimension above 1 the
+    model is tensor-parallel by ``rules`` (overrides of
+    ``distributed.sharding.DEFAULT_RULES``; module docstring): ``tokens``
+    and ``vision`` are the global batch on every rank, ``params`` whole
+    or this rank's blocks (``sharding.shard_params``), and the rank
+    returns its block of the logits, (rows, S, vocab block) at
+    :func:`batch_rows` and :func:`vocab_block` (:func:`gather_logits`
+    joins them).  Otherwise the mesh only shards the MoE blocks'
+    experts (``moe_ep``) and the logits are global."""
+    tps = _shards(cfg, mesh, rules)
+    if tps is not None:
+        params = _local_params(cfg, params, mesh, rules)
+        r0, rows = batch_rows(tokens.shape[0], mesh, rules)
+        tokens = tokens[r0:r0 + rows]
+        vision = None if vision is None else vision[r0:r0 + rows]
+    x = _embed(cfg, params, tokens, _of(tps, None))
     ctx = {"positions": torch.arange(tokens.shape[1], device=x.device),
            "vision": None if vision is None else vision.to(x.dtype),
-           "mesh": mesh}
+           "mesh": mesh, "shards": tps}
     remat = cfg.remat and torch.is_grad_enabled()
     for r in range(cfg.repeats):
         if remat:
@@ -618,21 +1013,32 @@ def cache_specs(cfg: ArchConfig, batch: int, max_seq: int,
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
-               long: bool = False, device="cuda") -> dict:
+               long: bool = False, device="cuda", mesh=None,
+               rules: Optional[dict] = None) -> dict:
     """Zeros of :func:`cache_specs` (mLSTM's ``m`` starts at 0, as the
-    reference's does)."""
+    reference's does): over a ``mesh`` with a "model" dimension above 1,
+    this rank's blocks of them (``batch`` the global batch), as
+    ``sharding.shard_cache`` would cut the whole cache."""
     dev = resolve_device(device)
-    return _map_specs(
-        lambda s: torch.zeros(s.shape, dtype=s.dtype, device=dev),
-        cache_specs(cfg, batch, max_seq, long))
+    specs = cache_specs(cfg, batch, max_seq, long)
+    if not _tensor_parallel(mesh):
+        return _map_specs(
+            lambda s: torch.zeros(s.shape, dtype=s.dtype, device=dev), specs)
+    sizes = sharding.mesh_sizes(mesh)
+    return sharding.map_placed(
+        lambda s, shape, pl: torch.zeros(
+            sharding.local_shape(shape, pl, sizes), dtype=s.dtype,
+            device=dev),
+        specs, sharding.placements(specs, sizes, rules))
 
 
-def _dec_attn(cfg, p, x, cache, pos, skv: Optional[StaleKVConfig]):
+def _dec_attn(cfg, p, x, cache, pos, skv: Optional[StaleKVConfig], tp):
     """x: (B, 1, d) through one attention block's attention against its
     cache — the stale-KV ``long`` cache when ``skv`` is given — which is
-    updated in place.  Returns the new x."""
+    updated in place (the heads this rank reads).  Returns the new x."""
     h = rms_norm(x, p["ln1"])
-    q, k, v = _qkv(cfg, p, h, pos[:, None])
+    q, k, v = _qkv(cfg, p, h, pos[:, None], tp)
+    cache = _kv_view(cache, _kv_slice(cfg, p, tp))
     if skv is not None:
         attn, _ = stale_kv_decode(skv, cache, q, k, v, pos)
     else:
@@ -640,15 +1046,16 @@ def _dec_attn(cfg, p, x, cache, pos, skv: Optional[StaleKVConfig]):
         cache["k"].index_copy_(1, slot, k)
         cache["v"].index_copy_(1, slot, v)
         attn = decode_attention(q, cache["k"], cache["v"], pos)
-    return _attn_out(p, attn, x)
+    return _attn_out(cfg, p, attn, x, tp)
 
 
-def _dec_swa(cfg, p, x, cache, pos):
+def _dec_swa(cfg, p, x, cache, pos, tp):
     """A ``swa`` block's attention over its ring (row ``pos % window``
     takes the new K/V in place), masked by each row's absolute position
     as the reference masks it."""
     h = rms_norm(x, p["ln1"])
-    q, k, v = _qkv(cfg, p, h, pos[:, None])
+    q, k, v = _qkv(cfg, p, h, pos[:, None], tp)
+    cache = _kv_view(cache, _kv_slice(cfg, p, tp))
     slot = pos[:1].long() % cfg.window
     cache["k"].index_copy_(1, slot, k)
     cache["v"].index_copy_(1, slot, v)
@@ -657,7 +1064,7 @@ def _dec_swa(cfg, p, x, cache, pos):
     p0 = pos[:1].long()
     abs_pos = torch.where(idx <= slot, p0 - slot + idx,
                           p0 - slot + idx - ring)
-    rep = cfg.num_heads // cfg.num_kv_heads
+    rep = q.shape[2] // k.shape[2]
     q32 = q[:, 0].float() * cfg.hd ** -0.5
     kf = repeat_kv(cache["k"], rep).float()
     vf = repeat_kv(cache["v"], rep).float()
@@ -666,10 +1073,10 @@ def _dec_swa(cfg, p, x, cache, pos):
     logits = torch.where(mask[None, None, :], logits, NEG_INF)
     pa = torch.softmax(logits, dim=-1)
     attn = torch.einsum("bhs,bshd->bhd", pa, vf)[:, None].to(q.dtype)
-    return _attn_out(p, attn, x)
+    return _attn_out(cfg, p, attn, x, tp)
 
 
-def _dec_rec(cfg, p, x, cache):
+def _dec_rec(cfg, p, x, cache, tp):
     h = rms_norm(x, p["ln1"])[:, 0]                        # (B, d)
     y = gelu(h @ p["w_y"].to(h.dtype))
     bx_in = h @ p["w_x"].to(h.dtype)
@@ -684,84 +1091,108 @@ def _dec_rec(cfg, p, x, cache):
     lru, h_new = rg_lru_step(bx, gx, ga, p["log_lambda"], cache["h"])
     cache["conv"].copy_(torch.cat([conv[:, 1:], bx_in[:, None]], dim=1))
     cache["h"].copy_(h_new)
-    x = x + ((y * lru) @ p["w_out"].to(h.dtype))[:, None]
-    return _mlp(p, x)
+    out = _row(tp, "w_out", torch.matmul, y * lru, p["w_out"])
+    return _mlp(cfg, p, x + out[:, None], tp)
 
 
-def _dec_mlstm(cfg, p, x, cache):
+def _dec_mlstm(cfg, p, x, cache, tp):
     h = rms_norm(x, p["ln1"])[:, 0]
-    up = h @ p["w_up"].to(h.dtype)
-    di = up.shape[-1] // 2
-    xi, gate = up[..., :di], up[..., di:]
-    q, k, v = (torch.einsum("bd,dhk->bhk", xi, p[w].to(xi.dtype))
-               for w in ("wq", "wk", "wv"))
-    i_pre, f_pre = (torch.einsum("bd,dh->bh", xi, p[w].to(xi.dtype))
-                    for w in ("w_i", "w_f"))
+    q, k, v, i_pre, f_pre, gate = _mlstm_in(cfg, p, h, tp, "bd", "bh")
     core, state = mlstm_step(q, k, v, i_pre, f_pre, cache)
     for key, val in state.items():
         cache[key].copy_(val)
-    core = core.reshape(core.shape[0], -1)
-    out = (core.to(h.dtype) * F.silu(gate)) @ p["w_down"].to(h.dtype)
-    return x + out[:, None]
+    core = core.reshape(core.shape[0], -1).to(h.dtype)
+    return x + _mlstm_out(cfg, p, core, gate, tp)[:, None]
 
 
-def _dec_slstm(cfg, p, x, cache):
-    x, state = _fwd_slstm(cfg, "slstm", p, x, None, state=cache)
+def _dec_slstm(cfg, p, x, cache, tp):
+    x, state = _fwd_slstm(cfg, "slstm", p, x, {"tp": tp}, state=cache)
     for key, val in state.items():
         cache[key].copy_(val)
     return x
 
 
-def _dec_xattn(cfg, p, x, cache):
+def _dec_xattn(cfg, p, x, cache, tp):
     h = rms_norm(x, p["ln1"])
     q = torch.einsum("bsd,dhk->bshk", h, p["wq"].to(h.dtype))
-    return _xattn(p, x, q, cache["k"], cache["v"])
+    cache = _kv_view(cache, _kv_slice(cfg, p, tp))
+    return _xattn(cfg, p, x, q, cache["k"], cache["v"], tp)
 
 
-def _dec_block(cfg, kind, p, x, cache, pos, skv, mesh=None):
+def _dec_block(cfg, kind, p, x, cache, pos, skv, ctx):
     """One block of a decode step; its cache is updated in place."""
+    tp = _of(ctx["shards"], kind)
+    ctx = dict(ctx, tp=tp)
     if kind in ("attn", "moe"):
-        return _ffn(cfg, kind, p, _dec_attn(cfg, p, x, cache, pos, skv),
-                    mesh)
+        return _ffn(cfg, kind, p,
+                    _dec_attn(cfg, p, x, cache, pos, skv, tp), ctx)
     if kind == "swa":
-        return _mlp(p, _dec_swa(cfg, p, x, cache, pos))
+        return _mlp(cfg, p, _dec_swa(cfg, p, x, cache, pos, tp), tp)
     if kind == "rec":
-        return _dec_rec(cfg, p, x, cache)
+        return _dec_rec(cfg, p, x, cache, tp)
     if kind == "mlstm":
-        return _dec_mlstm(cfg, p, x, cache)
+        return _dec_mlstm(cfg, p, x, cache, tp)
     if kind == "slstm":
-        return _dec_slstm(cfg, p, x, cache)
+        return _dec_slstm(cfg, p, x, cache, tp)
     if kind == "xattn":
-        return _dec_xattn(cfg, p, x, cache)
+        return _dec_xattn(cfg, p, x, cache, tp)
     raise ValueError(kind)
 
 
+def _local_cache(cache: dict, rows: int) -> None:
+    """ValueError unless ``cache`` holds this rank's ``rows`` rows."""
+    if cache["pos"].shape[0] != rows:
+        raise ValueError(
+            f"the cache holds {cache['pos'].shape[0]} rows, this rank "
+            f"{rows}: over a mesh decode takes this rank's cache "
+            f"(init_cache(..., mesh=) or sharding.shard_cache)")
+
+
 def precompute_vision_cache(cfg: ArchConfig, params: Pytree, cache: dict,
-                            vision: torch.Tensor) -> dict:
+                            vision: torch.Tensor, mesh=None,
+                            rules: Optional[dict] = None) -> dict:
     """Fill the ``xattn`` blocks' cache (in place) with the vision K/V,
     every repeat projected at once (the reference's ``"bpv,rvhk->rbphk"``).
     ``vision``: (B, num_patches, vision_dim), cast to the activation
-    dtype.  Returns the cache."""
+    dtype.  ``mesh`` and ``rules`` as :func:`forward`'s: ``vision`` is the
+    global batch, the cache this rank's, filled for its KV heads.
+    Returns the cache."""
+    tps = _shards(cfg, mesh, rules)
+    tp = _of(tps, "xattn") if "xattn" in cfg.pattern else None
+    if tps is not None:
+        params = _local_params(cfg, params, mesh, rules)
+        r0, rows = batch_rows(vision.shape[0], mesh, rules)
+        _local_cache(cache, rows)
+        vision = vision[r0:r0 + rows]
     vis = vision.to(cfg.act_dtype)
     for kind, p, entry in zip(cfg.pattern, params["pattern"],
                               cache["pattern"]):
         if kind == "xattn":
-            for key, w in (("k", "wk"), ("v", "wv")):
-                entry[key].copy_(torch.einsum("bpv,rvhk->rbphk", vis,
-                                              p[w].to(vis.dtype)))
+            k, v = _vision_kv(cfg, p, vis, "bpv,rvhk->rbphk", tp)
+            entry = _kv_view(entry, _kv_slice(cfg, p, tp))
+            entry["k"].copy_(k)
+            entry["v"].copy_(v)
     return cache
 
 
 def decode_step(cfg: ArchConfig, params: Pytree, cache: dict,
-                tokens: torch.Tensor, long: bool = False,
-                mesh=None) -> tuple:
+                tokens: torch.Tensor, long: bool = False, mesh=None,
+                rules: Optional[dict] = None) -> tuple:
     """tokens: (B, 1) → (logits (B, 1, vocab), cache).  The cache's
     tensors are updated in place; the returned dict holds them and
     ``pos + 1``.  ``long``: attention blocks read the stale-KV cache,
     sized from the first attention block of the pattern (none: the
     pattern has no such block, and ``long`` changes nothing).  ``mesh``
-    as :func:`forward`'s (the cache is global on every rank)."""
-    x = _embed(cfg, params, tokens)
+    and ``rules`` as :func:`forward`'s: ``tokens`` the global batch, the
+    cache this rank's (:func:`init_cache` with the mesh, or
+    ``sharding.shard_cache``), the logits its block."""
+    tps = _shards(cfg, mesh, rules)
+    if tps is not None:
+        params = _local_params(cfg, params, mesh, rules)
+        r0, rows = batch_rows(tokens.shape[0], mesh, rules)
+        _local_cache(cache, rows)
+        tokens = tokens[r0:r0 + rows]
+    x = _embed(cfg, params, tokens, _of(tps, None))
     pos = cache["pos"]
     skv = None
     if long:
@@ -775,7 +1206,8 @@ def decode_step(cfg: ArchConfig, params: Pytree, cache: dict,
               for kind, p, c in zip(cfg.pattern, params["pattern"],
                                     cache["pattern"])]
     layers += list(zip(cfg.tail, params["tail"], cache["tail"]))
+    ctx = {"mesh": mesh, "shards": tps}
     for kind, p, c in layers:
-        x = _dec_block(cfg, kind, p, x, c, pos, skv, mesh)
+        x = _dec_block(cfg, kind, p, x, c, pos, skv, ctx)
     return _logits(params, x), {"pattern": cache["pattern"],
                                 "tail": cache["tail"], "pos": pos + 1}

@@ -163,7 +163,7 @@ class _DataSplit:
         dimension first, then the one before; every rank gets the same
         bits."""
         for g in reversed(self.groups):
-            t = _ordered_sum(collectives.all_gather(t, g))
+            t = collectives.ordered_sum(t, g, torch.float32)
         return t
 
 
@@ -261,18 +261,10 @@ def _rebuild(tree: Pytree, leaves) -> Pytree:
     return next(leaves)
 
 
-def _ordered_sum(copies) -> torch.Tensor:
-    """Float32 sum of equal-shape tensors, in list order."""
-    acc = copies[0].float()
-    for c in copies[1:]:
-        acc = acc + c.float()
-    return acc
-
-
 def _pod_mean(copies) -> torch.Tensor:
     """Float32 mean of equal-shape tensors: summed in pod order, then
     divided by their count."""
-    return _ordered_sum(copies) / len(copies)
+    return collectives.sum_in_order(copies, torch.float32) / len(copies)
 
 
 def _pod_divergence(params: Pytree) -> torch.Tensor:
@@ -413,8 +405,11 @@ def _make_pod_mesh_step(settings: TrainSettings, mesh,
     return train_step
 
 
-def make_serve_step(cfg: ArchConfig, long: bool = False) -> Callable:
-    """serve_step(params, cache, tokens) → (logits, cache)."""
+def make_serve_step(cfg: ArchConfig, long: bool = False, mesh=None,
+                    rules: Optional[dict] = None) -> Callable:
+    """serve_step(params, cache, tokens) → (logits, cache); ``mesh`` and
+    ``rules`` as ``decode_step``'s (tensor parallelism over "model")."""
     def serve_step(params, cache, tokens):
-        return decode_step(cfg, params, cache, tokens, long=long)
+        return decode_step(cfg, params, cache, tokens, long=long, mesh=mesh,
+                           rules=rules)
     return serve_step

@@ -43,7 +43,8 @@ def test_port_sources_import_no_jax_and_no_reference():
             PORT / "graph" / "sampler.py",
             PORT / "launch" / "async_straggler.py",
             PORT / "launch" / "mesh.py",
-            PORT / "core" / "collectives.py"} <= set(files)
+            PORT / "core" / "collectives.py",
+            PORT / "distributed" / "sharding.py"} <= set(files)
     for path in files:
         for name in _imported(path):
             root = name.split(".")[0]
@@ -55,7 +56,8 @@ def test_importing_every_module_loads_no_jax():
     assert {"repro_torch.core.async_engine",
             "repro_torch.launch.async_straggler",
             "repro_torch.launch.mesh",
-            "repro_torch.core.collectives"} <= set(mods)
+            "repro_torch.core.collectives",
+            "repro_torch.distributed.sharding"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

@@ -13,6 +13,7 @@ This module imports no JAX, so the ranks start quickly.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import tempfile
 
@@ -676,8 +677,8 @@ def moe_job(world: int, inputs: str, cases: list, cf: float) -> dict:
     (``shard_experts``) weights; ``moe_ffn(impl="auto", mesh=...)``; the
     census of a call; the refusals (E not a multiple of "model"; a
     "model" dimension on the GNN exchange and the LM trainer); scout and
-    kimi SMOKE forward and decode with a mesh against the single
-    process."""
+    kimi SMOKE forward and decode with a mesh under the expert-parallel
+    rules against the single process."""
     from repro_torch.configs import get_smoke_arch
     from repro_torch.core import collectives, halo_exchange
     from repro_torch.models import moe
@@ -726,8 +727,10 @@ def moe_job(world: int, inputs: str, cases: list, cf: float) -> dict:
             out["refusals"][label] = None
         except ValueError as e:
             out["refusals"][label] = str(e)
-    # The transformer with a mesh: scout (top-1) and kimi (top-2) SMOKE,
-    # moe_impl "ep", against the single process.
+    # The transformer with a mesh under the expert-parallel rules (every
+    # dense leaf whole): scout (top-1) and kimi (top-2) SMOKE, moe_impl
+    # "ep", against the single process.
+    from repro_torch.distributed import EXPERT_PARALLEL_RULES as ep
     out["models"] = {}
     for arch in ("llama4-scout-17b-a16e", "kimi-k2-1t-a32b"):
         cfg = dataclasses.replace(get_smoke_arch(arch), moe_impl="ep")
@@ -743,16 +746,278 @@ def moe_job(world: int, inputs: str, cases: list, cf: float) -> dict:
                     ("model4 sharded", meshes["model4"], mine, 2),
                     ("data2_model2 B1", meshes["data2_model2"], params, 1)):
                 t = toks[:b]
-                same = torch.equal(forward(cfg, p, t, mesh=mesh),
+                same = torch.equal(forward(cfg, p, t, mesh=mesh, rules=ep),
                                    forward(cfg, params, t))
                 caches = [init_cache(cfg, b, 8, device="cpu")
                           for _ in range(2)]
                 for s in range(6):
                     a, caches[0] = decode_step(cfg, p, caches[0],
-                                               t[:, s:s + 1], mesh=mesh)
+                                               t[:, s:s + 1], mesh=mesh,
+                                               rules=ep)
                     w, caches[1] = decode_step(cfg, params, caches[1],
                                                t[:, s:s + 1])
                     same = same and torch.equal(a, w)
                 res[label] = same
         out["models"][arch] = res
+    return out
+
+
+# Tensor-parallel LM serving (tests/test_torch_sharding.py): the SMOKE
+# configs over three meshes of 4 ranks, each rank's logit blocks and the
+# checks made inside the ranks.
+
+def tp_meshes() -> dict:
+    """"1x2": ("replica", "model") = 2 x 2, two independent 1 x 2 meshes
+    side by side (no rule names "replica", so the batch is whole in each);
+    "2x2": ("data", "model") = 2 x 2; "1x4": ("data", "model") = 1 x 4."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.mesh import make_mesh
+    return {"1x2": init_device_mesh("cpu", (2, 2),
+                                    mesh_dim_names=("replica", "model")),
+            "2x2": make_mesh(2, model=2), "1x4": make_mesh(1, model=4)}
+
+
+def tp_long(cfg):
+    """The stale-KV settings of the tensor-parallel decode checks: a
+    window of 4 and a ratio of 2, so 8 steps push and attend to the far
+    field."""
+    return dataclasses.replace(cfg, long_window=4, long_ratio=2)
+
+
+def _digest(t) -> str:
+    import hashlib
+    return hashlib.sha1(t.detach().contiguous().view(torch.uint8)
+                        .numpy().tobytes()).hexdigest()
+
+
+def tp_job(world: int, inputs: str, steps: int) -> dict:
+    """Each SMOKE config's ``forward`` and ``steps`` decode steps (full and
+    ``long``) over every mesh of :func:`tp_meshes`, on parameters
+    sharded by ``sharding.shard_params``: this rank's logit blocks, their
+    largest difference from the port's single process (computed here),
+    the census of a forward, a digest of every ordered sum's output (the
+    ranks of a "model" group must agree bit for bit), the parameter
+    bytes against the single process's, and the vocab-parallel argmax
+    against ``torch.argmax`` of the gathered logits (ties and NaNs
+    included); the refusals of the tensor-parallel path."""
+    import pickle
+
+    from repro_torch.configs import get_smoke_arch
+    from repro_torch.core import collectives
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.serve import tensor_bytes
+    from repro_torch.models import transformer as tt
+    from repro_torch.nn import params_from_numpy
+
+    with open(inputs, "rb") as f:
+        data = pickle.load(f)
+    meshes = tp_meshes()
+    sums = []
+    inner = collectives.ordered_sum
+
+    def recorded(tensor, group=None, acc_dtype=None):
+        out = inner(tensor, group, acc_dtype)
+        sums.append(_digest(out))
+        return out
+
+    collectives.ordered_sum = recorded
+    out = {"rank": dist.get_rank(), "archs": {}}
+    try:
+        for arch, entry in data.items():
+            cfg = get_smoke_arch(arch)
+            params = params_from_numpy(entry["params"], "cpu")
+            toks = torch.from_numpy(entry["tokens"])
+            vis = (None if entry["vision"] is None
+                   else torch.from_numpy(entry["vision"]))
+            b = toks.shape[0]
+            res = {}
+            with torch.no_grad():
+                single = {"forward": tt.forward(cfg, params, toks, vis)}
+                for long in (False, True):
+                    c = tp_long(cfg) if long else cfg
+                    cache = tt.init_cache(c, b, 2 * steps, long=long,
+                                          device="cpu")
+                    if vis is not None:
+                        tt.precompute_vision_cache(c, params, cache, vis)
+                    logs = []
+                    for s in range(steps):
+                        lg, cache = tt.decode_step(
+                            c, params, cache, toks[:, s:s + 1], long=long)
+                        logs.append(lg)
+                    single["long" if long else "full"] = torch.stack(logs)
+                for name, mesh in meshes.items():
+                    specs = tt.arch_specs(cfg)
+                    mine = sharding.shard_params(params, specs, mesh)
+                    r0, rows = tt.batch_rows(b, mesh)
+                    v0, cols = tt.vocab_block(cfg, mesh)
+                    got = {}
+                    collectives.reset_collectives()
+                    sums.clear()
+                    got["forward"] = tt.forward(cfg, mine, toks, vis,
+                                                mesh=mesh)
+                    census = dict(collectives.COLLECTIVES)
+                    digests = list(sums)
+                    for long in (False, True):
+                        c = tp_long(cfg) if long else cfg
+                        cache = tt.init_cache(c, b, 2 * steps, long=long,
+                                              device="cpu", mesh=mesh)
+                        if vis is not None:
+                            tt.precompute_vision_cache(c, mine, cache, vis,
+                                                       mesh=mesh)
+                        logs = []
+                        for s in range(steps):
+                            lg, cache = tt.decode_step(
+                                c, mine, cache, toks[:, s:s + 1],
+                                long=long, mesh=mesh)
+                            logs.append(lg)
+                        got["long" if long else "full"] = torch.stack(logs)
+                    err = {}
+                    for key, val in got.items():
+                        want = single[key]
+                        want = (want[r0:r0 + rows] if key == "forward" else
+                                want[:, r0:r0 + rows])[..., v0:v0 + cols]
+                        err[key] = float((val - want).abs().max()
+                                         / single[key].abs().max())
+                    # The argmax of the last decode logits, and of logits
+                    # with ties across and inside the blocks and a NaN.
+                    last = got["full"][-1]
+                    ties = torch.zeros((b, 1, cfg.vocab_size))
+                    ties[0, 0, [3, cfg.vocab_size - 2]] = 7.0
+                    ties[1, 0, [cfg.vocab_size // 2 + 1,
+                                cfg.vocab_size - 1]] = 7.0
+                    ties[2, 0, cfg.vocab_size - 5] = float("nan")
+                    ties[3] = -float("inf")
+                    argmax_ok = True
+                    for whole in (tt.gather_logits(cfg, last, b, mesh),
+                                  ties):
+                        block = whole[r0:r0 + rows, ..., v0:v0 + cols]
+                        argmax_ok &= torch.equal(
+                            tt.vocab_argmax(cfg, block, b, mesh),
+                            torch.argmax(whole, dim=-1))
+                    bytes_ok = _tp_bytes_ok(mine, specs, mesh)
+                    res[name] = {
+                        "rows": (r0, rows), "cols": (v0, cols),
+                        "model_rank": mesh.get_local_rank("model"),
+                        "blocks": {k: v.numpy() for k, v in got.items()},
+                        "single_err": err, "census": census,
+                        "digests": digests, "argmax_ok": argmax_ok,
+                        "bytes_ok": bytes_ok,
+                        "bytes": tensor_bytes(mine),
+                        "single_bytes": tensor_bytes(params)}
+            out["archs"][arch] = res
+    finally:
+        collectives.ordered_sum = inner
+    out["refusals"] = _tp_refusals(meshes)
+    out["init_sharded"] = _tp_init_sharded(meshes)
+    out["row_bf16"] = _tp_row_bf16(meshes)
+    return out
+
+
+def _tp_row_bf16(meshes) -> dict:
+    """A bf16 row-parallel product over each mesh's "model" group
+    (``transformer._row``: fp32 partials, one rounding) against the whole
+    product in fp32 rounded once to bf16, as one device takes it: the
+    largest difference in bf16 ulps of the whole product, and the same
+    with each rank's partial rounded to bf16 before the fp32 sum."""
+    from repro_torch.core import collectives
+    from repro_torch.models import transformer as tt
+    from repro_torch.nn import dense
+    gen = torch.Generator().manual_seed(11)
+    x = torch.randn((32, 256), generator=gen).bfloat16()
+    w = torch.randn((256, 64), generator=gen)
+    once = (x.float() @ w.bfloat16().float()).bfloat16()
+    mag = once.abs()
+    ulp = (mag.view(torch.int16) + 1).view(torch.bfloat16).float() \
+        - mag.float()
+
+    def ulps(t):
+        return float(((t.float() - once.float()).abs() / ulp).max())
+
+    out = {}
+    for name, mesh in meshes.items():
+        tp = tt._Shards(mesh, None, {"w_down": "mlp"})
+        n = 256 // mesh.size(mesh.mesh_dim_names.index("model"))
+        sl = slice(tp.rank * n, (tp.rank + 1) * n)
+        got = tt._row(tp, "w_down", dense, x[:, sl], w[sl])
+        rounded = collectives.ordered_sum(dense(x[:, sl], w[sl].bfloat16()),
+                                          tp.group, torch.float32)
+        out[name] = {"dtype": str(got.dtype), "ulps": ulps(got),
+                     "ulps_bf16_partials": ulps(rounded)}
+    return out
+
+
+def _tp_init_sharded(meshes) -> dict:
+    """``sharding.init_sharded`` against ``shard_params`` of the whole
+    ``init_params`` draw (the same generator seed), bit for bit, on each
+    mesh (llama4-scout's SMOKE config: its experts and whole router)."""
+    from repro_torch.configs import get_smoke_arch
+    from repro_torch.distributed import init_sharded, shard_params
+    from repro_torch.models import transformer as tt
+    from repro_torch.nn import init_params
+    cfg = get_smoke_arch("llama4-scout-17b-a16e")
+    specs = tt.arch_specs(cfg)
+    whole = init_params(specs, torch.Generator().manual_seed(5), "cpu")
+    out = {}
+    for name, mesh in meshes.items():
+        want = shard_params(whole, specs, mesh)
+        got = init_sharded(specs, torch.Generator().manual_seed(5), mesh,
+                           device="cpu")
+        out[name] = {
+            "equal": _tree_equal_lists(got, want),
+            "router_whole": tuple(got["pattern"][0]["router"].shape)
+            == tuple(whole["pattern"][0]["router"].shape),
+            "expert_rows": got["pattern"][0]["w_gate_e"].shape[1]}
+    return out
+
+
+def _tree_equal_lists(a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_tree_equal_lists(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(_tree_equal_lists(x, y)
+                                        for x, y in zip(a, b))
+    return torch.equal(a, b) and a.is_contiguous()
+
+
+def _tp_bytes_ok(mine, specs, mesh) -> bool:
+    """Every leaf this rank holds is the whole leaf's numel over the
+    product of its placed dimensions' sizes (the whole where none is
+    placed)."""
+    from repro_torch.distributed import sharding
+    sizes = sharding.mesh_sizes(mesh)
+    places = sharding.placements(specs, sizes)
+    ok = []
+    sharding.map_placed(
+        lambda t, shape, pl: ok.append(
+            t.numel() * math.prod(math.prod(sizes[a] for a in
+                                            sharding.entry_names(e))
+                                  for e in pl) == math.prod(shape)),
+        mine, places)
+    return all(ok)
+
+
+def _tp_refusals(meshes) -> dict:
+    """The tensor-parallel path's ValueErrors: the FSDP rule (parameters
+    over "data") in serving, and query heads that read parts of several
+    whole KV heads (6 heads over 3 KV heads on a 2-way "model")."""
+    from repro_torch.configs import get_smoke_arch
+    from repro_torch.models import transformer as tt
+    from repro_torch.nn import init_params
+    out = {}
+    cfg = get_smoke_arch("qwen3-0.6b")
+    odd = dataclasses.replace(cfg, num_heads=6, num_kv_heads=3, head_dim=16)
+    toks = torch.zeros((4, 4), dtype=torch.long)
+    for label, c, mesh, rules in (
+            ("fsdp", cfg, meshes["2x2"], {"embed": "data"}),
+            ("kv heads", odd, meshes["1x2"], None)):
+        params = init_params(tt.arch_specs(c),
+                             torch.Generator().manual_seed(0), "cpu")
+        try:
+            with torch.no_grad():
+                tt.forward(c, params, toks, mesh=mesh, rules=rules)
+            out[label] = None
+        except ValueError as e:
+            out[label] = str(e)
     return out

@@ -338,9 +338,11 @@ def test_moe_ep_mesh_refusals_and_the_transformer(expert_parallel):
     """ValueError for E = 6 over "model" = 4 (the reference's text), and
     for a "model" dimension on the GNN exchange and the LM trainer;
     llama4-scout and kimi-k2 SMOKE (``moe_impl="ep"``) forward and six
-    decode steps over ("model",) = 4, with global and sharded experts,
-    and a replicated batch of 1 over 2 x 2, equal the single process bit
-    for bit."""
+    decode steps over ("model",) = 4 under the expert-parallel rules
+    (``sharding.EXPERT_PARALLEL_RULES``: every dense leaf whole), with
+    global and sharded experts, and a replicated batch of 1 over 2 x 2,
+    equal the single process bit for bit (tensor parallelism of the
+    dense leaves: ``tests/test_torch_sharding.py``)."""
     ranks, _ = expert_parallel
     for r in ranks:
         assert r["refusals"]["E % model"] == "E=6 % model=4"
