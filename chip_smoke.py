@@ -348,6 +348,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -597,10 +598,11 @@ XATTN_GATE = 0.5
 # on LM_SMOKE_BATCH x MESH_MOE_SEQ tokens over ("data", "model") = 2 x 2
 # and 1 x 4 meshes and a replicated batch of 1, against the single-device
 # moe_ep of each batch block (the same capacity) on the CPU at TOL and on
-# the card at MOE_EP_TOL; the trainer's (pod 2, data 2) form against the
-# stacked form (LM_POD_STEPS steps at interval LM_POD_INTERVAL): the
-# step-1 gradient within TOL of a leaf's max, the metrics within
-# TRAJ_TOL.  (b)
+# the card at MOE_EP_TOL; the trainer's (pod 2, data 2) form, FSDP inside
+# each pod (the trainer's rules), against the stacked form (LM_POD_STEPS
+# steps at interval LM_POD_INTERVAL): the step-1 gradient (gathered
+# whole) within TOL of a leaf's max, the metrics within TRAJ_TOL, the
+# census (MESH_FSDP).  (b)
 # llama4-scout at its published widths, MOE_LAYERS layers, moe_impl "ep",
 # on a 1 x 2 ("data", "model") mesh (8 of the 16 experts a rank): bf16
 # prefills through K6 at MOE_DROPLESS_CF and the config's factor and
@@ -611,12 +613,16 @@ XATTN_GATE = 0.5
 # vocabulary ids), bit for bit or within MOE_EP_TOL of their max over the
 # tokens no route tie moved, in bf16 within LM_BF16_SENS_FACTOR times the
 # single process's own one-ulp change where larger (ep_compare).  (c)
-# qwen3-0.6b at its published widths, the every_step baseline on
-# ("data",) = 2, MESH_DP_STEPS steps of the LM slice's LM_BATCH x LM_SEQ
-# tokens against the single process: the losses within TRAJ_TOL, the
-# step-1 gradient within TOL of a leaf's max or twice its own bf16
-# one-ulp change where larger (mesh_dp_job; the params after step 1
-# printed: Adam's first step amplifies rounding, params_diff).
+# qwen3-0.6b at its published widths, depth cut to MESH_DP_LAYERS of its
+# 28 layers (phase 21 (b) trains it at full depth over data 2 x model
+# 2; the cut keeps the script inside its time limit), the every_step
+# baseline on ("data",) = 2 under the trainer's rules (FSDP over
+# "data"; the blocks drawn leaf by leaf), MESH_DP_STEPS steps of the LM
+# slice's LM_BATCH x LM_SEQ tokens against the single process: the
+# losses within TRAJ_TOL, the step-1 gradient (gathered whole) within TOL
+# of a leaf's max or twice its own bf16 one-ulp change where larger
+# (mesh_dp_job; the params after step 1 printed: Adam's first step
+# amplifies rounding, params_diff), the same census every step.
 MESH_SMOKE_WORLD = 4
 MESH_MOE_SEQ = 64
 MESH_EP_WORLD = 2
@@ -624,6 +630,11 @@ MESH_DECODE = 32
 MESH_LOGIT_ROWS = 64
 MESH_DP_WORLD = 2
 MESH_DP_STEPS = 4
+MESH_DP_LAYERS = 14
+# (a)'s FSDP over "data" = 2 at the SMOKE widths, a step: the gathers of
+# the forward and its recomputation (the aux loss's embedding table too)
+# and one reduce-scatter (all_to_all) a leaf cut over "data".
+MESH_FSDP = {LM_TRAIN_ARCH: (40, 21), MOE_ARCH: (53, 28)}
 
 # Phase 20: tensor-parallel LM serving (the reference's sharding rules,
 # repro_torch.distributed.sharding), on gloo ranks sharing card 0
@@ -666,6 +677,47 @@ TP_DECODE_HELD = 2
 # and 2 rows a slot, so that 8 and 32 steps read the far field's slot
 # sums, which are cut over KV heads.
 TP_LONG = {"long_window": 4, "long_ratio": 2}
+
+# Phase 21: the LM trainer's tensor parallelism and FSDP (the reference
+# trainer's rules {"embed": "data"}, TRAIN_RULES), on gloo ranks sharing
+# card 0, two groups spawned together at the phase's start as phase 20's
+# (TT_GROUPS).  (a) 4 ranks: every SMOKE config in fp32 (gates open),
+# TT_SMOKE_STEPS steps of TT_SMOKE_BATCH x TT_SMOKE_SEQ tokens under an
+# uneven mask over ("replica", "model") = 2 x 2 (two 1 x 2 meshes),
+# ("data", "model") = 2 x 2 (FSDP) and the digest shard_map form over
+# (pod 2, model 2) at interval TT_POD_INTERVAL, each against the card's
+# single process (the stacked form for the pods; a config's single runs
+# on one rank, the configs dealt round the ranks, shared through files):
+# the step-1 loss within LM_LOSS_TOL, each leaf of the step-1 gradient
+# (gathered whole) within TOL of its max |g|, every step's loss, ce and
+# aux within LM_FP32_TOL; the census only all_gathers (and, where "data"
+# splits the batch, the mask count's all_reduce and the FSDP backward's
+# all_to_alls), the same on every rank.  (b) qwen3-0.6b at its published
+# widths over model = 2 and over (data 2, model 2), (c)
+# deepseek-coder-33b cut to TT_DEEPSEEK_LAYERS layers (Adafactor, its
+# published optimizer) over model = 2, both with fp32 activations (the
+# bars are fp32's): the single process first in this process, beside (a)
+# (weights from a CUDA generator, seed 0; its metrics and step-1
+# gradient kept on the host), freed before the ranks draw theirs leaf by
+# leaf (sharding.init_sharded); TT_STEPS[name] steps of TT_BATCH x
+# TT_SEQ tokens (bounding gloo's host traffic): (b) over 2 ranks and (c)
+# beside (a), (b) over 4 ranks alone at the end; the same bars, each
+# rank's block of the gradient against the single process's; each
+# rank's step ms, bytes gathered and their ms, train-state bytes and
+# peak memory.  The 2-rank group first takes two SMOKE steps ("w"), so
+# that its first timed step does not carry the process's first use of
+# the card.  No kernel launches on this path.
+TT_GROUPS = {"four": (4, ("a", "b4")), "two": (2, ("w", "b2", "c2"))}
+TT_SMOKE_STEPS = 4
+TT_SMOKE_BATCH = 4
+TT_SMOKE_SEQ = 16
+TT_POD_INTERVAL = 2
+TT_QWEN = "qwen3-0.6b"
+TT_DEEPSEEK = "deepseek-coder-33b"
+TT_DEEPSEEK_LAYERS = 2
+TT_BATCH = 2
+TT_SEQ = 1024
+TT_STEPS = {TT_QWEN: 4, TT_DEEPSEEK: 2}
 
 # Kernels redesigned for Hopper, by source: ptxas's register and spill
 # lines of their instantiations are printed after the build.
@@ -4740,30 +4792,44 @@ def mesh_rank(rank: int, world: int, tmp: str, job: str) -> None:
 
 
 def gather_meter() -> dict:
-    """Make ``collectives.all_gather`` also add, to the returned dict, the
-    bytes this rank receives (the other ranks' tensors) and the
-    milliseconds it takes (synchronised on both sides); the caller zeroes
-    it before a run.  A second call returns the first one's dict."""
+    """Make ``collectives.all_gather`` (and ``all_to_all_single``, the FSDP
+    backward's reduce-scatter) also add, to the returned dict, the bytes
+    this rank receives (the other ranks' tensors) and the milliseconds it
+    takes (synchronised on both sides); the caller zeroes it before a
+    run.  A second call returns the first one's dict."""
     import torch
+    import torch.distributed as dist
 
     from repro_torch.core import collectives
     if hasattr(collectives.all_gather, "meter"):
         return collectives.all_gather.meter
     meter = {"bytes": 0, "ms": 0.0}
-    inner = collectives.all_gather
+    gather, to_all = collectives.all_gather, collectives.all_to_all_single
 
-    def metered(tensor, group=None):
+    def timed(fn, *args):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        outs = inner(tensor, group)
+        out = fn(*args)
         torch.cuda.synchronize()
         meter["ms"] += (time.perf_counter() - t) * 1e3
+        return out
+
+    def metered(tensor, group=None):
+        outs = timed(gather, tensor, group)
         meter["bytes"] += (len(outs) - 1) * tensor.numel() * \
             tensor.element_size()
         return outs
 
+    def metered_to_all(output, input, group=None):
+        timed(to_all, output, input, group)
+        n = dist.get_world_size(group)
+        meter["bytes"] += (n - 1) * output.numel() // n * \
+            output.element_size()
+        return output
+
     metered.meter = meter
     collectives.all_gather = metered
+    collectives.all_to_all_single = metered_to_all
     return meter
 
 
@@ -4792,6 +4858,18 @@ def dev_rel(got, want) -> float:
     """max |got - want| over max |want|, on the tensors' device."""
     return float((got.float() - want.float()).abs().max()) / max(
         float(want.float().abs().max()), 1e-30)
+
+
+def leaf_names(tree, prefix: str = "") -> list:
+    """Each leaf's path ("pattern/0/wq"), in the trainer's pytree order
+    (sorted dict keys, list positions)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in leaf_names(v, f"{prefix}{i}/")]
+    return [prefix.rstrip("/")]
 
 
 def leaf_err(torch, want, got) -> float:
@@ -4825,6 +4903,7 @@ def mesh_smoke_job(torch, dev, rank, world, tmp) -> dict:
     the trainer's (pod 2, data 2) form at the SMOKE widths."""
     from repro_torch.configs import get_smoke_arch
     from repro_torch.core import collectives
+    from repro_torch.distributed import TRAIN_RULES, gather_whole
     from repro_torch.kernels import _build
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import moe
@@ -4892,37 +4971,45 @@ def mesh_smoke_job(torch, dev, rank, world, tmp) -> dict:
         pods = dataclasses.replace(stacked, pod_impl="shard_map")
         batches = _lm_batches(torch, cfg, LM_POD_STEPS, LM_SMOKE_BATCH,
                               LM_SMOKE_SEQ, 3, dev)
+        specs = arch_specs(cfg)
         sb = init_train_state(cfg, stacked, device=dev)
-        sc = init_train_state(cfg, pods, device=dev)
-        # The step-1 gradient: the data ranks' shares summed, against the
-        # pod batch's.
+        # FSDP inside each pod (the trainer's rules): this rank's blocks.
+        sc = init_train_state(cfg, pods, device=dev, mesh=mesh)
+        # The step-1 gradient (the clip's input, gathered whole) against
+        # the pod batch's.
         pod_batch = {key: trainer._pod_slice(v, pod, 2)
                      for key, v in batches[0].items()}
-        split = trainer._DataSplit(mesh, ["data"])
-        want = trainer.loss_and_grads(cfg, pods, sc["params"], pod_batch)
-        got = trainer._sum_shares(split, *trainer.loss_and_grads(
-            cfg, pods, sc["params"],
-            {key: split.rows(v) for key, v in pod_batch.items()}, split))
-        res = {"grad_err": leaf_err(torch, want[2], got[2]),
-               "loss_rel": [], "params_err": [], "census": []}
-        del want, got
-        fb, fc = make_train_step(cfg, stacked), make_train_step(cfg, pods,
-                                                                 mesh)
-        for b in batches:
+        want = trainer.loss_and_grads(cfg, pods, gather_whole(
+            sc["params"], specs, mesh, TRAIN_RULES), pod_batch)[2]
+        res = {"loss_rel": [], "params_err": [], "census": []}
+        fb, fc = make_train_step(cfg, stacked), make_train_step(
+            cfg, pods, mesh)
+        grads = capture_grads()
+        for i, b in enumerate(batches):
             sb, mb = fb(sb, b)
+            grads.clear()
             collectives.reset_collectives()
             sc, mc = fc(sc, b)
             res["census"].append(dict(collectives.COLLECTIVES))
+            if i == 0:
+                res["grad_err"] = leaf_err(torch, want, gather_whole(
+                    grads[0], specs, mesh, TRAIN_RULES))
+                del want
+            grads.clear()
             res["loss_rel"].append(max(
                 abs(float(mc[key]) - float(mb[key]))
                 / max(abs(float(mb[key])), 1e-30)
                 for key in ("loss", "ce", "aux")))
             res["params_err"].append(params_diff(
                 torch, [x[pod] for x in tree_leaves(sb["params"])],
-                tree_leaves(sc["params"])))
+                tree_leaves(gather_whole(sc["params"], specs, mesh,
+                                         TRAIN_RULES))))
         aux = int(cfg.num_experts > 0)
-        want_census = [{"all_reduce": 1, "all_gather": 2 + aux + (
-            (s + 1) % LM_POD_INTERVAL == 0)} for s in range(LM_POD_STEPS)]
+        gathers, scatters = MESH_FSDP[arch]
+        want_census = [{"all_reduce": 1, "all_to_all": scatters,
+                        "all_gather": gathers + 2 + aux + (
+                            (s + 1) % LM_POD_INTERVAL == 0)}
+                       for s in range(LM_POD_STEPS)]
         if rank == 0:
             print(f"phase 19 (a) {arch} pod 2 x data 2 vs stacked, rank 0: "
                   + json.dumps(res), flush=True)
@@ -4933,7 +5020,8 @@ def mesh_smoke_job(torch, dev, rank, world, tmp) -> dict:
         check(res["census"] == want_census, f"(a) {arch} pod 2 x data 2: "
               f"census {res['census']}")
         res["checksum"] = [int(p.view(torch.int32).long().sum())
-                           for p in tree_leaves(sc["params"])]
+                           for p in tree_leaves(gather_whole(
+                               sc["params"], specs, mesh, TRAIN_RULES))]
         out["train"][arch] = res
     out["pod"] = pod
     out["launches"] = dict(_build.LAUNCHES)
@@ -5231,9 +5319,9 @@ def capture_grads() -> list:
     log = []
     clip = trainer.clip_by_global_norm
 
-    def recorded(grads, max_norm):
+    def recorded(grads, max_norm, *groups):
         log.append(grads)
-        return clip(grads, max_norm)
+        return clip(grads, max_norm, *groups)
 
     recorded.log = log
     trainer.clip_by_global_norm = recorded
@@ -5242,9 +5330,10 @@ def capture_grads() -> list:
 
 def mesh_dp_job(torch, dev, rank, world, tmp) -> dict:
     """Phase 19 (c), one of MESH_DP_WORLD ranks: qwen3-0.6b's every_step
-    baseline over ("data",) = world at full width; rank 0 first runs the
-    single process on the same batches and holds the mesh run to it: the
-    losses, and the step-1 gradient (before the clip) leaf by leaf within
+    baseline over ("data",) = world at full width, FSDP over "data" (the
+    trainer's rules); rank 0 first runs the single process on the same
+    batches and holds the mesh run to it: the losses, and the step-1
+    gradient (before the clip, gathered whole) leaf by leaf within
     TOL of the leaf's max or, where larger, LM_BF16_SENS_FACTOR times the
     single process's own change when every input embedding moves one
     bf16 ulp (bf16 activations: the half-batch products round
@@ -5252,6 +5341,8 @@ def mesh_dp_job(torch, dev, rank, world, tmp) -> dict:
     (:func:`params_diff`)."""
     from repro_torch.configs import get_arch
     from repro_torch.core import collectives
+    from repro_torch.distributed import (TRAIN_RULES, gather_whole,
+                                         init_sharded)
     from repro_torch.kernels import _build
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.transformer import arch_specs
@@ -5260,19 +5351,21 @@ def mesh_dp_job(torch, dev, rank, world, tmp) -> dict:
     from repro_torch.train import TrainSettings, make_train_step
     from repro_torch.train.trainer import _state, loss_and_grads
 
-    cfg = get_arch(LM_TRAIN_ARCH)
+    cfg = dataclasses.replace(get_arch(LM_TRAIN_ARCH),
+                              num_layers=MESH_DP_LAYERS)
     settings = TrainSettings(total_steps=LM_TRAIN_STEPS,
                              warmup_steps=max(LM_TRAIN_STEPS // 20, 2))
     batches = _lm_batches(torch, cfg, MESH_DP_STEPS, LM_BATCH, LM_SEQ, 6,
                           dev)
-    params = init_params(arch_specs(cfg),
-                         torch.Generator(device=dev).manual_seed(0), dev)
+    specs = arch_specs(cfg)
     mesh = make_mesh(world)
     meter = gather_meter()
     grads = capture_grads()
     _build.reset_launches()
     out = {"rank": rank}
     if rank == 0:
+        params = init_params(specs, torch.Generator(device=dev).manual_seed(0),
+                             dev)
         state = _state(cfg, settings, tree_map(torch.clone, params))
         step = make_train_step(cfg, settings)
         single = []
@@ -5292,15 +5385,18 @@ def mesh_dp_job(torch, dev, rank, world, tmp) -> dict:
             torch.bfloat16).float())
         del emb
         moved = loss_and_grads(cfg, settings, bumped, batches[0])[2]
-        del bumped
+        del bumped, params
         sens = [dev_rel(m, g) for g, m in zip(tree_leaves(grad1),
                                               tree_leaves(moved))]
         del moved
         gc_cuda(torch)
     collectives.barrier()
     torch.cuda.reset_peak_memory_stats()
-    state = _state(cfg, settings, params)
-    del params
+    # FSDP over "data" (the trainer's rules): this rank's blocks of the
+    # same draw.
+    state = _state(cfg, settings, init_sharded(
+        specs, torch.Generator(device=dev).manual_seed(0), mesh,
+        TRAIN_RULES, dev))
     step = make_train_step(cfg, settings, mesh)
     losses, step_ms, census, gathers = [], [], [], []
     for i, b in enumerate(batches):
@@ -5313,9 +5409,13 @@ def mesh_dp_job(torch, dev, rank, world, tmp) -> dict:
         step_ms.append((time.perf_counter() - t) * 1e3)
         census.append(dict(collectives.COLLECTIVES))
         gathers.append({"bytes": meter["bytes"], "ms": meter["ms"]})
+        # Every rank gathers (a collective); rank 0 compares.
+        whole = ((gather_whole(grads[0], specs, mesh, TRAIN_RULES),
+                  gather_whole(state["params"], specs, mesh, TRAIN_RULES))
+                 if i == 0 else None)
         if i == 0 and rank == 0:
             err = [dev_rel(g, w) for w, g in zip(tree_leaves(grad1),
-                                                 tree_leaves(grads[0]))]
+                                                 tree_leaves(whole[0]))]
             ratio = [e / max(TOL, LM_BF16_SENS_FACTOR * z)
                      for e, z in zip(err, sens)]
             worst = max(range(len(ratio)), key=ratio.__getitem__)
@@ -5323,14 +5423,16 @@ def mesh_dp_job(torch, dev, rank, world, tmp) -> dict:
                 "err_over_bar": ratio[worst], "leaf": worst,
                 "err": err[worst], "sensitivity": sens[worst],
                 "max_err": max(err), "max_sensitivity": max(sens)}
-            out["params_step1"] = params_diff(torch, step1, state["params"])
+            out["params_step1"] = params_diff(torch, step1, whole[1])
             del step1, grad1
+        del whole
         grads.clear()
     out.update(losses=losses, step_ms=step_ms, census=census,
                gathers=gathers, launches=dict(_build.LAUNCHES),
                peak_memory_bytes=torch.cuda.max_memory_allocated(),
                checksum=[int(p.view(torch.int32).long().sum())
-                         for p in tree_leaves(state["params"])])
+                         for p in tree_leaves(gather_whole(
+                             state["params"], specs, mesh, TRAIN_RULES))])
     if rank == 0:
         out.update(single_losses=single, trajectory_rel=max(
             abs(a - b) / abs(b) for a, b in zip(losses, single)))
@@ -5339,8 +5441,8 @@ def mesh_dp_job(torch, dev, rank, world, tmp) -> dict:
               f"against the single process's {single} (bar {TRAJ_TOL})")
         check(out["grad_step1"]["err_over_bar"] <= 1.0, f"(c) step-1 "
               f"gradient against the single process: {out['grad_step1']}")
-    check(census == [{"all_reduce": 1, "all_gather": 1}] * MESH_DP_STEPS,
-          f"(c) census {census}")
+    tt_census_ok("(c)", census, True)
+    check(all(c == census[0] for c in census), f"(c) census {census}")
     check(not any(out["launches"].values()),
           f"(c) kernels launched: {out['launches']}")
     return out
@@ -5417,7 +5519,7 @@ def _mesh_forms(torch, dev, smi, tmp, groups, reports, sections) -> dict:
             sums = [r["train"][arch]["checksum"] for r in ranks
                     if r["pod"] == p]
             check(sums[0] == sums[1], f"(a) {arch}: the data ranks of pod "
-                  f"{p} hold different params")
+                  f"{p} gather different params")
     out["a"] = {
         "moe": {key: {k: v for k, v in res.items() if k != "y"}
                 for key, res in first["moe"].items()},
@@ -5460,13 +5562,17 @@ def _mesh_forms(torch, dev, smi, tmp, groups, reports, sections) -> dict:
 
     ranks = reports("c", MESH_DP_WORLD)
     check(ranks[0]["checksum"] == ranks[1]["checksum"],
-          "(c) the data ranks hold different params")
-    out["c"] = {"arch": LM_TRAIN_ARCH, "mesh": {"data": MESH_DP_WORLD},
+          "(c) the data ranks gather different params")
+    check(ranks[0]["census"] == ranks[1]["census"],
+          "(c) the data ranks' censuses differ")
+    out["c"] = {"arch": LM_TRAIN_ARCH, "layers": MESH_DP_LAYERS,
+                "mesh": {"data": MESH_DP_WORLD},
                 "batch": LM_BATCH, "seq": LM_SEQ, "steps": MESH_DP_STEPS,
                 "ranks": [{k: v for k, v in r.items() if k != "checksum"}
                           for r in ranks]}
     print(f"phase 19 (c) {LM_TRAIN_ARCH} every_step over ('data',) = "
-          f"{MESH_DP_WORLD} at its published widths ({smi}): "
+          f"{MESH_DP_WORLD} at its published widths, {MESH_DP_LAYERS} "
+          f"layers ({smi}): "
           + json.dumps(out["c"]), flush=True)
     return out
 
@@ -5475,11 +5581,13 @@ def _mesh_forms(torch, dev, smi, tmp, groups, reports, sections) -> dict:
 # Phase 20: tensor-parallel LM serving
 # ---------------------------------------------------------------------------
 
-def tp_rank(rank: int, world: int, tmp: str, group: str) -> None:
-    """One gloo rank of a phase 20 group, all ranks sharing card 0: it
-    joins its group at once, then runs the group's jobs in order, each
-    when the parent's go file for it appears, and writes each report to
-    ``tmp``.  A failed check exits the rank non-zero, which fails the
+def tp_rank(rank: int, world: int, tmp: str, group: str, groups: dict,
+            jobs: dict) -> None:
+    """One gloo rank of a phase 20 or 21 group (``groups``: each group's
+    world and jobs; ``jobs``: each job's function), all ranks sharing card
+    0: it joins its group at once, then runs the group's jobs in order,
+    each when the parent's go file for it appears, and writes each report
+    to ``tmp``.  A failed check exits the rank non-zero, which fails the
     script."""
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     import torch
@@ -5495,10 +5603,10 @@ def tp_rank(rank: int, world: int, tmp: str, group: str) -> None:
     dist.init_process_group("gloo", init_method=f"file://{tmp}/store-{group}",
                             world_size=world, rank=rank)
     try:
-        for job in TP_GROUPS[group][1]:
+        for job in groups[group][1]:
             while not Path(f"{tmp}/go-{job}").exists():
                 time.sleep(0.05)
-            out = TP_JOBS[job](torch, dev, rank, world, tmp)
+            out = jobs[job](torch, dev, rank, world, tmp)
             # Written whole, then renamed: the parent waits for the name.
             torch.save(out, f"{tmp}/{job}-r{rank}.part")
             os.replace(f"{tmp}/{job}-r{rank}.part", f"{tmp}/{job}-r{rank}.pt")
@@ -5800,10 +5908,10 @@ def tp_model_job(torch, dev, rank, world, tmp, name) -> dict:
 
 
 TP_JOBS = {"a": tp_smoke_job,
-           "b": lambda *a: tp_model_job(*a, TP_QWEN),
-           "c": lambda *a: tp_model_job(*a, TP_VLM),
-           "d2": lambda *a: tp_model_job(*a, TP_DEEPSEEK),
-           "d4": lambda *a: tp_model_job(*a, TP_DEEPSEEK)}
+           "b": functools.partial(tp_model_job, name=TP_QWEN),
+           "c": functools.partial(tp_model_job, name=TP_VLM),
+           "d2": functools.partial(tp_model_job, name=TP_DEEPSEEK),
+           "d4": functools.partial(tp_model_job, name=TP_DEEPSEEK)}
 
 
 def tensor_parallel(torch, dev, smi) -> dict:
@@ -5819,7 +5927,8 @@ def tensor_parallel(torch, dev, smi) -> dict:
     t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp()
     Path(f"{tmp}/go-a").touch()
-    groups = {g: mp.start_processes(tp_rank, args=(world, tmp, g),
+    groups = {g: mp.start_processes(tp_rank, args=(world, tmp, g,
+                                                   TP_GROUPS, TP_JOBS),
                                     nprocs=world, join=False,
                                     start_method="spawn")
               for g, (world, _) in TP_GROUPS.items()}
@@ -5903,6 +6012,449 @@ def _tensor_parallel(torch, dev, smi, tmp, groups, sections) -> dict:
     print("phase 20 (d) deepseek-coder-33b at full depth, fp32 weight "
           "bytes a rank by the placement: "
           + json.dumps(out["deepseek_full_depth_bytes_a_rank"]), flush=True)
+    sections["all"] = time.perf_counter() - t0
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 21: the LM trainer's tensor parallelism and FSDP
+# ---------------------------------------------------------------------------
+
+def tt_batches(torch, cfg, n, batch, seq, dev) -> list:
+    """``n`` batches of ``batch`` x ``seq`` tokens (CPU generator, seed
+    5) with an uneven mask (a VLM's with its vision input)."""
+    gen = torch.Generator().manual_seed(5)
+    out = []
+    for _ in range(n):
+        toks = torch.randint(0, cfg.vocab_size, (batch, seq + 1),
+                             generator=gen)
+        mask = (torch.rand((batch, seq), generator=gen) < 0.75).float()
+        mask[0, :2] = 1.0
+        b = {"tokens": toks[:, :-1], "labels": toks[:, 1:], "mask": mask}
+        if cfg.vision_dim:
+            b["vision"] = torch.randn((batch, cfg.num_patches,
+                                       cfg.vision_dim), generator=gen)
+        out.append({k: v.to(dev) for k, v in b.items()})
+    return out
+
+
+def tt_settings(pods: bool = False, stacked: bool = False):
+    from repro_torch.train import TrainSettings
+    if not pods:
+        return TrainSettings(total_steps=20, warmup_steps=2)
+    return TrainSettings(sync_mode="digest", n_pod=2,
+                         sync_interval=TT_POD_INTERVAL, total_steps=20,
+                         warmup_steps=2,
+                         pod_impl="vmap" if stacked else "shard_map")
+
+
+def tt_run(torch, cfg, settings, state, batches, mesh=None) -> dict:
+    """``make_train_step`` over ``batches``: each step's metrics, census
+    and ms (synchronised), the bytes gathered and their ms a step, and
+    the clip's input of each step-1 call (a pod's in the stacked form)."""
+    from repro_torch.core import collectives
+    from repro_torch.kernels import _build
+    from repro_torch.train import make_train_step
+
+    step = make_train_step(cfg, settings, mesh)
+    grads, meter = capture_grads(), gather_meter()
+    grads.clear()
+    out = {"metrics": [], "census": [], "ms": [], "gather_bytes": [],
+           "gather_ms": []}
+    _build.reset_launches()
+    for i, b in enumerate(batches):
+        collectives.reset_collectives()
+        meter.update(bytes=0, ms=0.0)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, b)
+        metrics = {k: float(m[k]) for k in ("loss", "ce", "aux")}
+        out["ms"].append((time.perf_counter() - t) * 1e3)
+        out["metrics"].append(metrics)
+        out["census"].append(dict(collectives.COLLECTIVES))
+        out["gather_bytes"].append(meter["bytes"])
+        out["gather_ms"].append(meter["ms"])
+        if i == 0:
+            out["grad1"] = list(grads)
+        grads.clear()
+    launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+    check(not launched, f"{cfg.name}: the training path launched {launched}")
+    out["state"] = state
+    return out
+
+
+def tt_hold(tag, got: dict, want: dict) -> dict:
+    """The bars of a run against the single process's metrics: the
+    step-1 loss within LM_LOSS_TOL, every step's loss, ce and aux within
+    LM_FP32_TOL (relative).  Returns the largest differences."""
+    loss1 = abs(got[0]["loss"] - want[0]["loss"]) / abs(want[0]["loss"])
+    check(loss1 <= LM_LOSS_TOL, f"{tag}: step-1 loss {got[0]['loss']} "
+          f"against {want[0]['loss']} ({loss1:.3e}, bar {LM_LOSS_TOL})")
+    traj = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        for k in ("loss", "ce", "aux"):
+            e = abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
+            traj = max(traj, e)
+            check(e <= LM_FP32_TOL, f"{tag}: step {i + 1} {k} {g[k]} "
+                  f"against {w[k]} ({e:.3e}, bar {LM_FP32_TOL})")
+    return {"loss1_rel": loss1, "traj_rel": traj}
+
+
+def tt_census_ok(tag, census: list, data_split: bool) -> None:
+    """Gathers every step, and where "data" splits the batch (and, by the
+    FSDP rule, the parameters) the mask count's all_reduce and the FSDP
+    backward's all_to_alls; nothing else."""
+    for c in census:
+        check(set(c) <= {"all_gather", "all_reduce", "all_to_all"}
+              and c.get("all_reduce", 0) == int(data_split)
+              and (c.get("all_to_all", 0) > 0) == data_split
+              and c.get("all_gather", 0) > 0, f"{tag}: census {c}")
+
+
+def tt_smoke_job(torch, dev, rank, world, tmp) -> dict:
+    """Phase 21 (a), one of 4 ranks (the constants' comment)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import all_archs, get_smoke_arch
+    from repro_torch.distributed import (TRAIN_RULES, gather_whole,
+                                         shard_params, train_state_specs)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import arch_specs
+    from repro_torch.nn import init_params
+    from repro_torch.optim import tree_map
+    from repro_torch.train.trainer import _state
+
+    meshes = {"1x2": init_device_mesh("cpu", (2, 2),
+                                      mesh_dim_names=("replica", "model")),
+              "2x2": make_mesh(2, model=2),
+              "pod2_model2": make_mesh(1, pod=2, model=2)}
+
+    def setup(arch):
+        cfg = get_smoke_arch(arch)
+        params = open_gates(init_params(
+            arch_specs(cfg), torch.Generator().manual_seed(0), dev))
+        return cfg, params, tt_batches(torch, cfg, TT_SMOKE_STEPS,
+                                       TT_SMOKE_BATCH, TT_SMOKE_SEQ, dev)
+
+    # The single process's runs: a config's on one rank, dealt round.
+    archs = list(all_archs())
+    for arch in archs[rank::world]:
+        cfg, params, batches = setup(arch)
+        single = {}
+        for key, st in (("every", tt_settings()),
+                        ("stacked", tt_settings(True, True))):
+            run = tt_run(torch, cfg, st, _state(
+                cfg, st, tree_map(torch.clone, params)), batches)
+            single[key] = {"metrics": run["metrics"], "grad1": [
+                tree_map(lambda g: g.cpu(), g) for g in run["grad1"]]}
+        torch.save(single, f"{tmp}/a-single-{arch}.part")
+        os.replace(f"{tmp}/a-single-{arch}.part",
+                   f"{tmp}/a-single-{arch}.pt")
+    out = {}
+    for arch in archs:
+        cfg, params, batches = setup(arch)
+        specs = arch_specs(cfg)
+        while not Path(f"{tmp}/a-single-{arch}.pt").exists():
+            time.sleep(0.05)
+        single = torch.load(f"{tmp}/a-single-{arch}.pt",
+                            weights_only=False)
+        res = {}
+        for name, mesh in meshes.items():
+            pods = name.startswith("pod")
+            st = tt_settings(pods)
+            whole = _state(cfg, st, tree_map(torch.clone, params))
+            state = shard_params(whole, train_state_specs(specs,
+                                                          cfg.optimizer),
+                                 mesh, TRAIN_RULES)
+            del whole
+            got = tt_run(torch, cfg, st, state, batches, mesh)
+            tag = f"(a) {arch} over {name}"
+            ref = single["stacked" if pods else "every"]
+            want = ref["grad1"][mesh.get_local_rank("pod") if pods else 0]
+            g1 = tree_map(lambda g: g.cpu(), gather_whole(
+                got["grad1"][0], specs, mesh, TRAIN_RULES))
+            err = leaf_err(torch, want, g1)
+            check(err <= TOL, f"{tag}: step-1 gradient {err:.3e} of a "
+                  f"leaf's max (bar {TOL})")
+            tt_census_ok(tag, got["census"], name == "2x2")
+            res[name] = dict(tt_hold(tag, got["metrics"], ref["metrics"]),
+                             grad_err=err, census=got["census"])
+            del got, g1, state
+        out[arch] = res
+        del single, params
+    return out
+
+
+def tt_config(name: str):
+    """(b)-(c)'s config: published widths with fp32 activations;
+    deepseek's depth cut to TT_DEEPSEEK_LAYERS."""
+    from repro_torch.configs import get_arch
+    cfg = dataclasses.replace(get_arch(name), dtype="float32")
+    if name == TT_DEEPSEEK:
+        cfg = dataclasses.replace(cfg, num_layers=TT_DEEPSEEK_LAYERS)
+    return cfg
+
+
+def tt_reference(torch, dev, name: str, tmp: str) -> dict:
+    """(b)-(c)'s single process on the card: its metrics and its step-1
+    gradient saved to ``tmp`` for the ranks; the card left empty.  Also
+    the gradient's own sensitivity to rounding: the step-1 gradient
+    again with every input embedding one fp32 ulp up (phase 9's rule at
+    fp32), each leaf's change over the leaf's max (``ulp_by_leaf``)."""
+    from repro_torch.launch.serve import tensor_bytes
+    from repro_torch.models.transformer import arch_specs
+    from repro_torch.nn import init_params
+    from repro_torch.optim import tree_leaves, tree_map
+    from repro_torch.train.trainer import _state, loss_and_grads
+
+    cfg = tt_config(name)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(arch_specs(cfg),
+                         torch.Generator(device=dev).manual_seed(0), dev)
+    state = _state(cfg, tt_settings(), params)
+    del params
+    state_bytes = tensor_bytes(state)
+    batches = tt_batches(torch, cfg, TT_STEPS[name], TT_BATCH, TT_SEQ, dev)
+    run = tt_run(torch, cfg, tt_settings(), state, batches)
+    del state, run["state"]
+    peak = torch.cuda.max_memory_allocated()
+    grad1 = run.pop("grad1")[0]
+    params = init_params(arch_specs(cfg),
+                         torch.Generator(device=dev).manual_seed(0), dev)
+    params["embed"] = (params["embed"].view(torch.int32) + 1).view(
+        torch.float32)
+    moved = loss_and_grads(cfg, tt_settings(), params, batches[0])[2]
+    del params
+    ulp = [dev_rel(m, g) for g, m in zip(tree_leaves(grad1),
+                                         tree_leaves(moved))]
+    del moved
+    grad1 = tree_map(lambda g: g.cpu(), grad1)
+    torch.save({"metrics": run["metrics"], "grad1": grad1},
+               f"{tmp}/{name}-train-ref.pt")
+    del grad1
+    res = dict(run, state_bytes=state_bytes, peak_memory_bytes=peak,
+               ulp_by_leaf=ulp)
+    gc_cuda(torch)
+    return res
+
+
+def tt_model_job(torch, dev, rank, world, tmp, name, data) -> dict:
+    """Phase 21 (b)-(c), one rank: ``name`` over ("data", "model") =
+    ``data`` x ``world / data`` under the FSDP rule, its state drawn leaf
+    by leaf and cut, against the single process's saved run."""
+    from repro_torch.distributed import (TRAIN_RULES, init_sharded,
+                                         shard_params)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import tensor_bytes
+    from repro_torch.models.transformer import arch_specs
+    from repro_torch.optim import tree_leaves
+    from repro_torch.train.trainer import _state
+
+    cfg = tt_config(name)
+    mesh = make_mesh(data, model=world // data)
+    tag = f"({name}) over data {data} x model {world // data}"
+    torch.cuda.reset_peak_memory_stats()
+    params = init_sharded(arch_specs(cfg),
+                          torch.Generator(device=dev).manual_seed(0), mesh,
+                          TRAIN_RULES, dev)
+    state = _state(cfg, tt_settings(), params)
+    del params
+    state_bytes = tensor_bytes(state)
+    batches = tt_batches(torch, cfg, TT_STEPS[name], TT_BATCH, TT_SEQ, dev)
+    got = tt_run(torch, cfg, tt_settings(), state, batches, mesh)
+    del state, got["state"]
+    want = torch.load(f"{tmp}/{name}-train-ref.pt", mmap=True,
+                      weights_only=False)
+    mine = shard_params(want["grad1"], arch_specs(cfg), mesh, TRAIN_RULES,
+                        copy=False)
+    # Each leaf's block against the single process's block, over the
+    # whole leaf's max, and a pattern leaf's by layer (its leading
+    # repeats dim): the parent takes the largest over the ranks.
+    errs, by_layer = [], []
+    for name, g, w, whole in zip(
+            leaf_names(want["grad1"]), tree_leaves(got.pop("grad1")[0]),
+            tree_leaves(mine), tree_leaves(want["grad1"])):
+        diff = (g.float() - w.to(dev).float()).abs()
+        top = max(float(whole.abs().max()), 1e-30)
+        errs.append(float(diff.max()) / top)
+        by_layer.append((diff.reshape(len(diff), -1).amax(1) / top).tolist()
+                        if name.startswith("pattern/") else None)
+        del diff
+    err = max(errs)
+    check(err <= TOL, f"{tag}: step-1 gradient {err:.3e} of a leaf's max "
+          f"(bar {TOL})")
+    tt_census_ok(tag, got["census"], data > 1)
+    return dict({k: v for k, v in got.items() if k != "metrics"},
+                **tt_hold(tag, got["metrics"], want["metrics"]),
+                rank=rank, grad_err=err, grad_err_by_leaf=errs,
+                grad_err_by_layer=by_layer,
+                state_bytes=state_bytes,
+                peak_memory_bytes=torch.cuda.max_memory_allocated())
+
+
+def tt_warm_job(torch, dev, rank, world, tmp) -> dict:
+    """Two SMOKE steps of qwen3-0.6b over ("data", "model") = 1 x world:
+    the 2-rank group's first use of the card, untimed."""
+    from repro_torch.configs import get_smoke_arch
+    from repro_torch.distributed import TRAIN_RULES, init_sharded
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import arch_specs
+    from repro_torch.train.trainer import _state
+
+    cfg = get_smoke_arch(TT_QWEN)
+    mesh = make_mesh(1, model=world)
+    state = _state(cfg, tt_settings(), init_sharded(
+        arch_specs(cfg), torch.Generator().manual_seed(0), mesh,
+        TRAIN_RULES, dev))
+    tt_run(torch, cfg, tt_settings(), state,
+           tt_batches(torch, cfg, 2, TT_SMOKE_BATCH, TT_SMOKE_SEQ, dev),
+           mesh)
+    return {}
+
+
+TT_JOBS = {"w": tt_warm_job, "a": tt_smoke_job,
+           "b2": functools.partial(tt_model_job, name=TT_QWEN, data=1),
+           "b4": functools.partial(tt_model_job, name=TT_QWEN, data=2),
+           "c2": functools.partial(tt_model_job, name=TT_DEEPSEEK, data=1)}
+
+
+def tensor_parallel_training(torch, dev, smi) -> dict:
+    """Phase 21: (a)-(c) (the constants' comment).  Both groups start
+    together: (a) at once, beside this process's single-process runs and
+    then (b) over 2 ranks and (c); (b) over 4 ranks last, alone."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp()
+    Path(f"{tmp}/go-a").touch()
+    Path(f"{tmp}/go-w").touch()
+    groups = {g: mp.start_processes(tp_rank, args=(world, tmp, g,
+                                                   TT_GROUPS, TT_JOBS),
+                                    nprocs=world, join=False,
+                                    start_method="spawn")
+              for g, (world, _) in TT_GROUPS.items()}
+    sections = {}
+    try:
+        out = _tensor_parallel_training(torch, dev, smi, tmp, groups,
+                                        sections)
+    finally:
+        for ctx in groups.values():
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.terminate()
+                proc.join(timeout=30)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["sections_s"] = sections
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 21: {out['seconds']:.1f} s; sections (s) "
+          + json.dumps(sections), flush=True)
+    return out
+
+
+def _tensor_parallel_training(torch, dev, smi, tmp, groups,
+                              sections) -> dict:
+    """:func:`tensor_parallel_training`'s work once the ranks have
+    started."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import (TRAIN_RULES, local_bytes,
+                                         train_state_specs)
+    from repro_torch.models.transformer import arch_specs
+    from repro_torch.nn import abstract_params
+
+    out = {"phase": 21}
+    t0 = time.perf_counter()
+    refs = {}
+    for name, job in ((TT_QWEN, "b2"), (TT_DEEPSEEK, "c2")):
+        t = time.perf_counter()
+        refs[name] = tt_reference(torch, dev, name, tmp)
+        sections[f"{name} single process"] = time.perf_counter() - t
+        Path(f"{tmp}/go-{job}").touch()
+
+    def reports(job, world, group):
+        Path(f"{tmp}/go-{job}").touch()
+        t = time.perf_counter()
+        while not all(Path(f"{tmp}/{job}-r{r}.pt").exists()
+                      for r in range(world)):
+            for proc in groups[group].processes:
+                check(proc.exitcode in (None, 0),
+                      f"phase 21 group {group}: a rank exited "
+                      f"{proc.exitcode}")
+            time.sleep(0.05)
+        sections[f"{job} (wait)"] = time.perf_counter() - t
+        return [torch.load(f"{tmp}/{job}-r{r}.pt", weights_only=False)
+                for r in range(world)]
+
+    ranks = reports("a", 4, "four")
+    for arch, res in ranks[0].items():
+        for mesh in res:
+            census = [r[arch][mesh].pop("census") for r in ranks]
+            check(all(c == census[0] for c in census),
+                  f"(a) {arch} over {mesh}: the ranks' censuses differ")
+            res[mesh]["gathers_a_step"] = census[0][0].get("all_gather", 0)
+            for key in ("grad_err", "loss1_rel", "traj_rel"):
+                res[mesh][key] = max(r[arch][mesh][key] for r in ranks)
+    out["a"] = ranks[0]
+    print("phase 21 (a) sharded training of the SMOKE configs, fp32, on "
+          "the card over 1 x 2, 2 x 2 (FSDP) and (pod 2, model 2) (4 gloo "
+          "ranks): " + json.dumps(out["a"]), flush=True)
+    for job, name, world, group in (("b2", TT_QWEN, 2, "two"),
+                                    ("c2", TT_DEEPSEEK, 2, "two"),
+                                    ("b4", TT_QWEN, 4, "four")):
+        ranks = reports(job, world, group)
+        census = [r.pop("census") for r in ranks]
+        check(all(c == census[0] for c in census),
+              f"({job}) the ranks' censuses differ")
+        cfg = tt_config(name)
+        data = 2 if job == "b4" else 1
+        # The worst leaf of the step-1 gradient over the ranks, beside
+        # the single process's own change under one fp32 ulp of its
+        # input, and the largest error of a pattern leaf by layer (the
+        # backward runs from the last layer to the first).
+        errs = [max(e) for e in zip(*(r.pop("grad_err_by_leaf")
+                                      for r in ranks))]
+        layers = [None if ls[0] is None else [max(v) for v in zip(*ls)]
+                  for ls in zip(*(r.pop("grad_err_by_layer")
+                                  for r in ranks))]
+        ulp = refs[name]["ulp_by_leaf"]
+        names = leaf_names(abstract_params(arch_specs(cfg)))
+        worst = max(range(len(errs)), key=errs.__getitem__)
+        most = max(range(len(ulp)), key=ulp.__getitem__)
+        out[job] = {"arch": name, "layers": cfg.num_layers,
+                    "optimizer": cfg.optimizer,
+                    "mesh": {"data": data, "model": world // data},
+                    "batch": TT_BATCH, "seq": TT_SEQ,
+                    "census_a_step": census[0],
+                    "grad_worst_leaf": {
+                        "leaf": names[worst], "err": errs[worst],
+                        "err_by_layer": layers[worst],
+                        "single_one_ulp_change": ulp[worst],
+                        "single_one_ulp_change_max": ulp[most],
+                        "single_one_ulp_change_max_leaf": names[most]},
+                    "grad_err_by_layer": [
+                        max(ls[i] for ls in layers if ls is not None)
+                        for i in range(cfg.repeats)],
+                    "single_process": {k: v for k, v in refs[name].items()
+                                       if k not in ("census",
+                                                    "ulp_by_leaf")},
+                    "ranks": ranks}
+        print(f"phase 21 ({job}) {name} training at its published widths "
+              f"(fp32 activations), {cfg.num_layers} layers, over data "
+              f"{data} x model {world // data} (gloo ranks on one card; "
+              f"{smi}): " + json.dumps(out[job]), flush=True)
+    full = arch_specs(get_arch(TT_DEEPSEEK))
+    state = train_state_specs(full, "adafactor")
+    out["deepseek_full_depth_state_bytes_a_rank"] = {
+        f"data {d} x model {m}": local_bytes(state, {"data": d, "model": m},
+                                             TRAIN_RULES)
+        for d in (1, 2) for m in (1, 2, 4, 8)}
+    print("phase 21 (c) deepseek-coder-33b at full depth (62 layers), "
+          "Adafactor train-state bytes a rank by the placement (the "
+          "FSDP rule): "
+          + json.dumps(out["deepseek_full_depth_state_bytes_a_rank"]),
+          flush=True)
     sections["all"] = time.perf_counter() - t0
     return out
 
@@ -5993,6 +6545,8 @@ def main() -> None:
     tp = tensor_parallel(torch, dev, smi)
     path_launches.update({"tp prefill": tp["launches"],
                           "tp fp32 prefill": tp["fp32_launches"]})
+    gc_cuda(torch)
+    tt = tensor_parallel_training(torch, dev, smi)
     torch.cuda.synchronize()
     print(f"phases: serving {t_serve:.1f} s, training {t_train:.1f} s (of "
           f"which SAT training {sat['seconds']:.1f} s, sampled training "
@@ -6003,7 +6557,8 @@ def main() -> None:
           f" s (of which MoE serving {moe_s:.1f} s, LM training "
           f"{lm_train['seconds']:.1f} s, the last three architectures "
           f"{last['seconds']:.1f} s, the mesh forms {mesh['seconds']:.1f} "
-          f"s, tensor parallelism {tp['seconds']:.1f} s); the script "
+          f"s, tensor parallelism {tp['seconds']:.1f} s, sharded "
+          f"training {tt['seconds']:.1f} s); the script "
           f"{time.perf_counter() - T_START:.1f} s", flush=True)
     records = serve_records + train_records + lm_records
     kernels = []

@@ -4,10 +4,30 @@ op's entry of :data:`COLLECTIVES` — the collective census, counted the
 way ``kernels._build.LAUNCHES`` counts kernel launches (it replaces the
 reference's census of the compiled HLO).
 
-Ops and their census names: ``all_to_all`` (``all_to_all_single``),
-``all_reduce``, ``all_gather`` (also :func:`ordered_sum`'s one gather),
-``send`` / ``recv`` (one each a point-to-point op of :func:`exchange`)
-and ``barrier``.
+Ops and their census names: ``all_to_all`` (``all_to_all_single``,
+also the backward's of :func:`fsdp_gather`), ``all_reduce``,
+``all_gather`` (also the one gather of :func:`ordered_sum`,
+:func:`gather_blocks` and :func:`fsdp_gather`, and the backward's of
+:func:`sum_grad`), ``send`` / ``recv`` (one each a point-to-point op of
+:func:`exchange`) and ``barrier``.
+
+The forms the sharded model differentiates through (Megatron's f and g,
+and the FSDP gather), none with a float atomic or a backend reduction
+order:
+
+* :func:`ordered_sum` (g): the sum of every rank's partial; its backward
+  hands the gradient to this rank's partial as it is, since every rank
+  of the group computes the same values downstream;
+* :func:`sum_grad` (f): the identity, where a value every rank holds
+  enters rank-specific work (a product with this rank's block of a
+  weight, or a slice); its backward adds the ranks' gradients in rank
+  order;
+* :func:`gather_blocks`: the ranks' blocks of a dim, concatenated; its
+  backward keeps this rank's slice of the gradient;
+* :func:`fsdp_gather`: the same concatenation of a parameter cut over
+  "data"; its backward takes every rank's gradient of this rank's block
+  (one all-to-all) and adds them in rank order (a reduce-scatter, the
+  data-parallel sum of that leaf's gradient).
 
 NCCL and gloo both take the card's tensors in the collectives (gloo
 copies them through host memory itself; ``chip_smoke.py`` phase 15
@@ -64,9 +84,88 @@ def ordered_sum(tensor: torch.Tensor, group=None,
     dtype when None) and returned in the tensor's dtype.  Every rank adds
     the same tensors in the same order, so all hold the same bits, and no
     bit depends on the backend's reduction order (an ``all_reduce`` may
-    add in any)."""
-    return sum_in_order(all_gather(tensor, group),
-                        acc_dtype).to(tensor.dtype)
+    add in any).  Backward: the gradient, to this rank's partial as it
+    is (module docstring)."""
+    return _OrderedSum.apply(tensor, group, acc_dtype)
+
+
+class _OrderedSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tensor, group, acc_dtype):
+        return sum_in_order(all_gather(tensor, group),
+                            acc_dtype).to(tensor.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+def sum_grad(tensor: torch.Tensor, group=None) -> torch.Tensor:
+    """``tensor`` itself; under autograd, its gradient is the float32 sum
+    of every rank's in group-rank order (:func:`ordered_sum`), in the
+    tensor's dtype.  A tensor that takes no gradient is returned as it
+    is."""
+    if not (torch.is_grad_enabled() and tensor.requires_grad):
+        return tensor
+    return _SumGrad.apply(tensor, group)
+
+
+class _SumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tensor, group):
+        ctx.group = group
+        return tensor.view_as(tensor)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ordered_sum(grad, ctx.group, torch.float32), None
+
+
+def gather_blocks(tensor: torch.Tensor, group=None,
+                  dim: int = -1) -> torch.Tensor:
+    """Every rank's block of dim ``dim``, concatenated in group-rank
+    order (one :func:`all_gather`).  Backward: this rank's slice of the
+    gradient."""
+    return _GatherBlocks.apply(tensor, group, dim)
+
+
+class _GatherBlocks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tensor, group, dim):
+        ctx.dim, ctx.n = dim, tensor.shape[dim]
+        ctx.rank = dist.get_rank(group)
+        return torch.cat(all_gather(tensor, group), dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None
+
+
+def fsdp_gather(tensor: torch.Tensor, group=None,
+                dim: int = 0) -> torch.Tensor:
+    """A parameter's blocks of dim ``dim`` (cut over "data"), concatenated
+    in group-rank order (one :func:`all_gather`).  Backward: each rank's
+    gradient cut into the ranks' blocks, block r sent to rank r (one
+    :func:`all_to_all_single`), and the blocks received added in rank
+    order in float32: this rank's block of the ranks' summed gradient (a
+    deterministic reduce-scatter)."""
+    return _FsdpGather.apply(tensor, group, dim)
+
+
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tensor, group, dim):
+        ctx.group, ctx.dim, ctx.n = group, dim, tensor.shape[dim]
+        ctx.rank = dist.get_rank(group)
+        return torch.cat(all_gather(tensor, group), dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        blocks = grad.movedim(ctx.dim, 0).contiguous()
+        mine = all_to_all_single(torch.empty_like(blocks), blocks, ctx.group)
+        total = sum_in_order(list(mine.split(ctx.n)), torch.float32)
+        return (total.to(grad.dtype).movedim(0, ctx.dim).contiguous(), None,
+                None)
 
 
 def sum_in_order(parts: list, acc_dtype: torch.dtype = None

@@ -25,14 +25,26 @@ One placement departs from :func:`resolve`: the MoE router (``("embed",
 "expert")``) is whole on every rank (:data:`WHOLE_LEAVES`), since
 ``models.moe`` routes each token over all experts on every rank (d x E
 a layer, under 0.01% of llama4-scout's weights).
+
+Training (:data:`TRAIN_RULES`, the reference's ``axis_rules(mesh,
+{"embed": "data"})``) also cuts every ``embed`` dim over "data" (FSDP).
+The train state (:func:`train_state_specs`, the reference's) places each
+optimizer leaf like its parameter, Adafactor's ``row`` / ``col`` by the
+axes they keep, so :func:`shard_params`, :func:`init_sharded` and
+:func:`local_bytes` cover it; :func:`gather_whole` joins a rank's blocks
+into the whole tree (checkpoints), and :func:`leaf_groups` names the
+process group that cuts each dim of each leaf (the optimizers' whole-leaf
+statistics).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Optional, Sequence
 
 import torch
 
+from repro_torch.core import collectives
 from repro_torch.device import resolve_device
 from repro_torch.nn.params import ParamSpec, _init_leaf
 
@@ -64,6 +76,10 @@ DEFAULT_RULES: dict[str, Any] = {
 # experts over "model": expert parallelism alone (``models.moe.moe_ep``).
 EXPERT_PARALLEL_RULES: dict[str, Any] = {
     name: None for name in ("vocab", "mlp", "heads", "kv_heads", "rnn")}
+
+# The reference trainer's overrides (``launch/train.py``): FSDP, every
+# ``embed`` dim over "data".
+TRAIN_RULES: dict[str, Any] = {"embed": "data"}
 
 # Leaves kept whole on every rank whatever their axes resolve to (module
 # docstring).
@@ -171,17 +187,19 @@ def placements(specs: Pytree, sizes: dict, rules: Optional[dict] = None
                ) -> Pytree:
     """The tree of each ParamSpec leaf's ``(shape, placement)``: its whole
     shape and its resolved entries (the shape given, so non-dividing dims
-    stay whole); :data:`WHOLE_LEAVES` whole."""
+    stay whole); :data:`WHOLE_LEAVES` whole, and every leaf under one of
+    their keys (an optimizer's state of such a leaf)."""
     merged = merged_rules(rules)
 
-    def walk(node, key=None):
+    def walk(node, whole=False):
         if isinstance(node, ParamSpec):
-            if key in WHOLE_LEAVES:
+            if whole:
                 return node.shape, (None,) * len(node.shape)
             return node.shape, resolve(node.axes, merged, sizes, node.shape)
         if isinstance(node, (list, tuple)):
-            return [walk(v) for v in node]
-        return {k: walk(v, k) for k, v in node.items()}
+            return [walk(v, whole) for v in node]
+        return {k: walk(v, whole or k in WHOLE_LEAVES)
+                for k, v in node.items()}
 
     return walk(specs)
 
@@ -245,3 +263,120 @@ def local_bytes(specs: Pytree, sizes: dict,
         return sum(walk(node[k], place[k]) for k in node)
 
     return walk(specs, places)
+
+
+def opt_state_specs(optimizer: str, specs: Pytree) -> Pytree:
+    """The optimizer state's ParamSpec tree (the reference's
+    ``launch/specs.py::opt_state_specs``): fp32 zeros, AdamW's ``m`` and
+    ``v`` shaped and named as each parameter, Adafactor's ``row`` / ``col``
+    with the axes of the dims they keep (``v`` for a 1-D leaf)."""
+    f32 = torch.float32
+
+    def zeros(shape, axes) -> ParamSpec:
+        return ParamSpec(tuple(shape), tuple(axes), init="zeros", dtype=f32)
+
+    def walk(fn, node):
+        if isinstance(node, ParamSpec):
+            return fn(node)
+        if isinstance(node, (list, tuple)):
+            return [walk(fn, v) for v in node]
+        return {k: walk(fn, v) for k, v in node.items()}
+
+    if optimizer in ("adam", "adamw"):
+        like = lambda sp: zeros(sp.shape, sp.axes)
+        return {"m": walk(like, specs), "v": walk(like, specs)}
+    if optimizer == "adafactor":
+        def leaf(sp):
+            if len(sp.shape) >= 2:
+                return {"row": zeros(sp.shape[:-1], sp.axes[:-1]),
+                        "col": zeros(sp.shape[:-2] + sp.shape[-1:],
+                                     sp.axes[:-2] + sp.axes[-1:])}
+            return {"v": zeros(sp.shape, sp.axes)}
+        return walk(leaf, specs)
+    if optimizer == "sgd":
+        return ()
+    raise ValueError(optimizer)
+
+
+def train_state_specs(specs: Pytree, optimizer: str) -> dict:
+    """The train state's ParamSpec tree: ``{"params", "opt_state",
+    "step"}`` (``step`` a 0-d int32)."""
+    return {"params": specs, "opt_state": opt_state_specs(optimizer, specs),
+            "step": ParamSpec((), (), init="zeros", dtype=torch.int32)}
+
+
+def gather_whole(tree: Pytree, specs: Pytree, mesh,
+                 rules: Optional[dict] = None) -> Pytree:
+    """The whole tree from every rank's blocks (:func:`shard_params`'
+    inverse): each placed dim gathered over its mesh dimensions, the
+    minor one first, and concatenated in rank order; every rank gets the
+    same bits."""
+    places = placements(specs, mesh_sizes(mesh), rules)
+
+    def whole(t, shape, placement):
+        for dim, entry in enumerate(placement):
+            for a in reversed(entry_names(entry)):
+                if mesh.size(mesh.mesh_dim_names.index(a)) > 1:
+                    t = torch.cat(collectives.all_gather(
+                        t, mesh.get_group(a)), dim=dim)
+        return t
+
+    return map_placed(whole, tree, places)
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafGroups:
+    """How one leaf is cut: per dim, the mesh dimension that cuts it
+    (None: whole), its process group and its size — what a statistic over
+    the whole leaf adds over."""
+    names: tuple
+    groups: tuple
+    counts: tuple
+
+    def over(self, dims=None) -> list:
+        """The groups cutting ``dims`` (every dim when None), each once,
+        in dim order."""
+        dims = range(len(self.names)) if dims is None else dims
+        seen, out = set(), []
+        for d in dims:
+            if self.names[d] is not None and self.names[d] not in seen:
+                seen.add(self.names[d])
+                out.append(self.groups[d])
+        return out
+
+    def cut_by(self, name: str) -> bool:
+        return name in self.names
+
+
+def leaf_groups(specs: Pytree, mesh, rules: Optional[dict] = None
+                ) -> Pytree:
+    """:func:`placements`' tree as :class:`LeafGroups` leaves; a mesh
+    dimension of size 1 cuts nothing, and a dim placed over two above 1
+    is refused."""
+    sizes = mesh_sizes(mesh)
+
+    def leaf(spec, shape, placement):
+        names = []
+        for entry in placement:
+            cut = [a for a in entry_names(entry) if sizes[a] > 1]
+            if len(cut) > 1:
+                raise ValueError(f"a parameter dim placed over {cut}: one "
+                                 f"mesh dimension a dim at most")
+            names.append(cut[0] if cut else None)
+        return LeafGroups(tuple(names),
+                          tuple(None if a is None else mesh.get_group(a)
+                                for a in names),
+                          tuple(1 if a is None else sizes[a]
+                                for a in names))
+
+    return map_placed(leaf, _spec_tree(specs),
+                      placements(specs, sizes, rules))
+
+
+def _spec_tree(specs: Pytree) -> Pytree:
+    """``specs`` with lists for tuples, as :func:`map_placed` walks."""
+    if isinstance(specs, ParamSpec):
+        return specs
+    if isinstance(specs, (list, tuple)):
+        return [_spec_tree(v) for v in specs]
+    return {k: _spec_tree(v) for k, v in specs.items()}

@@ -10,8 +10,9 @@ On a ``("pod", "data")`` mesh rank ``p·data + d`` sits at coordinate
 ``[e·k, (e+1)·k)``.  A ``"model"`` dimension (the expert-parallel MoE,
 ``models.moe.moe_ep``) puts rank ``(p·data + d)·model + m`` at
 ``(p, d, m)``, as ``jax.make_mesh`` lays out the reference's
-``make_host_mesh``; the GNN paths and the LM trainer, whose rank is a
-block index, refuse it (:func:`refuse_model_dim`).
+``make_host_mesh``; the GNN paths, whose rank is a block index, refuse
+it (:func:`refuse_model_dim`), and the LM model and trainer shard their
+parameters over it (``distributed.sharding``).
 
 Run under ``torchrun`` (``env://``):
 
@@ -20,6 +21,7 @@ Run under ``torchrun`` (``env://``):
 """
 from __future__ import annotations
 
+import gc
 import os
 
 import torch
@@ -96,3 +98,15 @@ def init_distributed(backend: str, device="cuda", data: int = None,
         data = dist.get_world_size() // (pod * model)
     kind = "cuda" if backend == "nccl" else "cpu"
     return make_mesh(data, pod, kind, model), dev
+
+
+def close_distributed() -> None:
+    """Destroy the job's process groups, once the caller has dropped its
+    last reference to the job's ``DeviceMesh``.  A mesh holds its groups,
+    so ``destroy_process_group`` alone leaves a gloo group alive until
+    the interpreter shuts down, and freeing it there can abort the rank
+    ("terminate called without an active exception"), the more often the
+    sooner its peers have exited; the collection here frees the groups
+    first, in order."""
+    gc.collect()
+    dist.destroy_process_group()

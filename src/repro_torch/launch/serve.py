@@ -37,7 +37,8 @@ import torch.distributed as dist
 from repro_torch.configs import get_arch, get_smoke_arch
 from repro_torch.device import resolve_device
 from repro_torch.distributed import init_sharded
-from repro_torch.launch.mesh import BACKENDS, init_distributed
+from repro_torch.launch.mesh import (BACKENDS, close_distributed,
+                                     init_distributed)
 from repro_torch.launch.serving_driver import run_serve_loop
 from repro_torch.models.transformer import (ArchConfig, arch_specs,
                                             init_cache,
@@ -139,7 +140,8 @@ def main(argv=None):
           f"(steady p50 {stats.p50_ms:.1f} / p99 {stats.p99_ms:.1f} ms), "
           f"{tensor_bytes(params)} bytes of weights on {dev}", flush=True)
     if mesh is not None:
-        dist.destroy_process_group()
+        mesh = None
+        close_distributed()
     return stats
 
 

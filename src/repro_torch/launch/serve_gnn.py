@@ -39,7 +39,8 @@ from repro_torch.core.digest import prepare_graph_data, top_layer_reps
 from repro_torch.device import resolve_device
 from repro_torch.core.halo_exchange import part_slice
 from repro_torch.graph import make_dataset
-from repro_torch.launch.mesh import BACKENDS, init_distributed
+from repro_torch.launch.mesh import (BACKENDS, close_distributed,
+                                     init_distributed)
 from repro_torch.launch.serving_driver import (profile_serve_loop,
                                                run_serve_loop)
 from repro_torch.models.gnn import GNN, GNNConfig
@@ -91,7 +92,8 @@ def main(argv=None):
         return _serve(args, dev, mesh)
     finally:
         if mesh is not None:
-            dist.destroy_process_group()
+            mesh = None
+            close_distributed()
 
 
 def _serve(args, dev, mesh):

@@ -58,7 +58,8 @@ from repro_torch.core.digest import sampled_advance, save_state
 from repro_torch.core.halo_exchange import part_slice
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.graph import build_sampler, make_dataset
-from repro_torch.launch.mesh import BACKENDS, init_distributed
+from repro_torch.launch.mesh import (BACKENDS, close_distributed,
+                                     init_distributed)
 from repro_torch.launch.serving_driver import profile_serve_loop
 from repro_torch.models.gnn import GNNConfig
 from repro_torch.optim import adam
@@ -221,7 +222,8 @@ def main(argv=None):
         _train(args, dev, mesh)
     finally:
         if mesh is not None:
-            dist.destroy_process_group()
+            mesh = None
+            close_distributed()
 
 
 def _train(args, dev, mesh) -> None:

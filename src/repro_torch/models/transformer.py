@@ -55,6 +55,23 @@ experts over "model" and the router whole.  The logits are the rank's
 block ((rows, S, vocab block): :func:`batch_rows`, :func:`vocab_block`);
 :func:`gather_logits` and :func:`vocab_argmax` join them.
 
+Training runs ``forward``'s blocks under autograd, Megatron-style: the
+row-parallel sums hand their gradient to each rank's partial, each value
+every rank of "model" holds enters this rank's own work (a product with
+its block of a weight, a slice of its heads) through
+``collectives.sum_grad``, whose backward adds the ranks' gradients in
+rank order, as do whole weights used there (the shared KV heads,
+``q_norm`` / ``k_norm``, the router); the column gathers keep their
+slice of the gradient.  The rules may also place parameters
+over "data" (the reference's FSDP rule, ``{"embed": "data"}``): a block's
+leaves cut over "data" are gathered (``collectives.fsdp_gather``) at the
+block's start, inside its ``remat`` checkpoint, so the whole copies live
+for one block (and are gathered again by the recomputation), and their
+gradients are added over "data" in the gathers' backward.  The
+trainer's rules map "batch" to None: its rows are cut already.
+``decode_step`` and :func:`precompute_vision_cache` refuse placements
+over "data", as the reference serves under the default rules.
+
 Prefill (``forward``) runs attention through
 :func:`repro_torch.models.attention.prefill_attention` with
 ``cfg.attn_backend``: ``"kernel"`` takes K6, the hand-written
@@ -363,8 +380,34 @@ class _Shards:
         self.rank = mesh.get_local_rank("model")
 
     def gather(self, part: torch.Tensor, dim: int) -> torch.Tensor:
-        """The ranks' blocks of a dim cut over "model", concatenated."""
-        return torch.cat(collectives.all_gather(part, self.group), dim=dim)
+        """The ranks' blocks of a dim cut over "model", concatenated (the
+        gradient's slice back to this rank)."""
+        return collectives.gather_blocks(part, self.group, dim)
+
+    def enter(self, t: torch.Tensor) -> torch.Tensor:
+        """``t``, which every rank of "model" holds, where it enters this
+        rank's own work: under autograd its gradient is added over the
+        ranks (``collectives.sum_grad``)."""
+        return collectives.sum_grad(t, self.group)
+
+
+class _Fsdp:
+    """The parameters a rank holds cut over "data" (the FSDP rule): its
+    "data" group and, by block kind (None: the embedding, the final norm
+    and the head), the dim of each leaf cut over "data" in one layer's
+    view, None where the leaf is whole over "data"."""
+
+    def __init__(self, mesh, dims: dict):
+        self.group = mesh.get_group("data")
+        self.dims = dims
+
+    def gather(self, p: dict, kind: Optional[str]) -> dict:
+        """``p`` (a block's leaves, or the top-level ones) with every leaf
+        cut over "data" gathered whole over it."""
+        dims = self.dims[kind]
+        return {k: v if dims.get(k) is None
+                else collectives.fsdp_gather(v, self.group, dims[k])
+                for k, v in p.items()}
 
 
 def _tensor_parallel(mesh) -> bool:
@@ -389,6 +432,18 @@ def _shards(cfg: ArchConfig, mesh, rules: Optional[dict]
     return {kind: _Shards(mesh, rules, cut) for kind, cut in cuts.items()}
 
 
+def _fsdp(cfg: ArchConfig, mesh, rules: Optional[dict]) -> Optional[_Fsdp]:
+    """This rank's :class:`_Fsdp`; None where no leaf is cut over a "data"
+    dimension above 1."""
+    if mesh is None or dim_size(mesh, "data") == 1:
+        return None
+    dims = _data_dims(cfg, *_rule_keys(mesh, rules))
+    if not any(d is not None for kind in dims.values()
+               for d in kind.values()):
+        return None
+    return _Fsdp(mesh, dims)
+
+
 def _of(tps: Optional[dict], kind: Optional[str]) -> Optional[_Shards]:
     """``kind``'s :class:`_Shards` of :func:`_shards`' dict (None
     without tensor parallelism)."""
@@ -397,15 +452,52 @@ def _of(tps: Optional[dict], kind: Optional[str]) -> Optional[_Shards]:
 
 @functools.lru_cache(maxsize=64)
 def _param_places(cfg: ArchConfig, sizes: tuple, rules: tuple):
+    """The parameters' placements, over "model" and "data" only."""
     places = sharding.placements(arch_specs(cfg), dict(sizes), dict(rules))
-    bad = {n for _, pl in _leaves(places) for entry in pl
-           for n in sharding.entry_names(entry) if n != "model"}
+    bad = _placed_over(places) - {"model", "data"}
     if bad:
         raise ValueError(
             f"{cfg.name}: the rules place parameters over {sorted(bad)}; "
-            f"serving shards parameters over 'model' only (FSDP is the "
-            f"trainer's, ROADMAP §1)")
+            "the model shards parameters over 'model' and 'data' only")
     return places
+
+
+def _placed_over(places) -> set:
+    """The mesh dimensions any placement of ``places`` names."""
+    return {n for _, pl in _leaves(places) for entry in pl
+            for n in sharding.entry_names(entry)}
+
+
+def _serving_params(cfg: ArchConfig, params: Pytree, mesh,
+                    rules: Optional[dict]) -> Pytree:
+    """:func:`_local_params` for the serving paths, which refuse
+    placements over "data" (the reference serves under the default
+    rules; FSDP is the trainer's)."""
+    places = _param_places(cfg, *_rule_keys(mesh, rules))
+    if "data" in _placed_over(places):
+        raise ValueError(
+            f"{cfg.name}: the rules place parameters over ['data']; "
+            "serving shards parameters over 'model' only (FSDP is the "
+            "trainer's)")
+    return _local_params(cfg, params, mesh, rules)
+
+
+def _by_kind(cfg: ArchConfig, fn, places) -> dict:
+    """{block kind (None: the top level): {leaf: fn(axes, placement)}},
+    a pattern leaf's logical axes and placement without its ``repeats``
+    dim (one layer's view)."""
+    pairs = sharding.map_placed(lambda sp, shape, pl: (sp.axes, pl),
+                                arch_specs(cfg), places)
+
+    def layer(block: dict, skip: int) -> dict:
+        return {k: fn(axes[skip:], pl[skip:])
+                for k, (axes, pl) in block.items()}
+
+    out = {None: layer({k: pairs[k] for k in ("embed", "final_norm",
+                                              "lm_head")}, 0)}
+    out.update(zip(cfg.tail, [layer(b, 0) for b in pairs["tail"]]))
+    out.update(zip(cfg.pattern, [layer(b, 1) for b in pairs["pattern"]]))
+    return out
 
 
 @functools.lru_cache(maxsize=64)
@@ -413,17 +505,24 @@ def _cut_leaves(cfg: ArchConfig, sizes: tuple, rules: tuple) -> dict:
     """{block kind (None: the top level): {leaf: the logical axis "model"
     cuts, or None}}, from :func:`_param_places` (a leaf takes "model" on
     one dim at most)."""
-    specs = arch_specs(cfg)
+    def axis(axes, placement) -> Optional[str]:
+        return next((a for a, e in zip(axes, placement)
+                     if "model" in sharding.entry_names(e)), None)
 
-    def axis(spec: ParamSpec, shape, placement) -> Optional[str]:
-        return next((a for a, e in zip(spec.axes, placement)
-                     if e is not None), None)
+    return _by_kind(cfg, axis, _param_places(cfg, sizes, rules))
 
-    cut = sharding.map_placed(axis, specs,
-                              _param_places(cfg, sizes, rules))
-    out = {None: {k: cut[k] for k in ("embed", "lm_head")}}
-    out.update(zip(cfg.pattern + cfg.tail, cut["pattern"] + cut["tail"]))
-    return out
+
+@functools.lru_cache(maxsize=64)
+def _data_dims(cfg: ArchConfig, sizes: tuple, rules: tuple) -> dict:
+    """{block kind (None: the top level): {leaf: the dim "data" cuts in
+    one layer's view, or None}}."""
+    n = dict(sizes).get("data", 1)
+
+    def dim(axes, placement) -> Optional[int]:
+        return next((i for i, e in enumerate(placement)
+                     if "data" in sharding.entry_names(e) and n > 1), None)
+
+    return _by_kind(cfg, dim, _param_places(cfg, sizes, rules))
 
 
 def _leaves(tree) -> list:
@@ -580,15 +679,20 @@ def _qkv(cfg: ArchConfig, p: dict, h: torch.Tensor,
          positions: torch.Tensor, tp: Optional[_Shards] = None) -> tuple:
     """Q, K and V of this rank's heads (every head without a mesh)."""
     wk, wv = p["wk"], p["wv"]
+    q_norm, k_norm = p.get("q_norm"), p.get("k_norm")
+    if tp is not None and (tp.cut["wq"] or tp.cut["wk"]):
+        h = tp.enter(h)
+        if cfg.qk_norm:
+            q_norm, k_norm = tp.enter(q_norm), tp.enter(k_norm)
     sl = _kv_slice(cfg, p, tp)
     if sl is not None:
-        wk, wv = wk.narrow(-2, *sl), wv.narrow(-2, *sl)
+        wk, wv = tp.enter(wk).narrow(-2, *sl), tp.enter(wv).narrow(-2, *sl)
     q = torch.einsum("bsd,dhk->bshk", h, p["wq"].to(h.dtype))
     k = torch.einsum("bsd,dhk->bshk", h, wk.to(h.dtype))
     v = torch.einsum("bsd,dhk->bshk", h, wv.to(h.dtype))
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"])
-        k = rms_norm(k, p["k_norm"])
+        q = rms_norm(q, q_norm)
+        k = rms_norm(k, k_norm)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -608,6 +712,8 @@ def _swiglu(h: torch.Tensor, p: dict, tp: Optional[_Shards],
     ``_up`` and ``_down`` (the MLP's; "ws" the shared expert's): this
     rank's ``mlp`` columns where they are cut, its ``_down`` rows then
     row-parallel (:func:`_row`)."""
+    if tp is not None and tp.cut[f"{prefix}_gate"]:
+        h = tp.enter(h)
     a = F.silu(dense(h, p[f"{prefix}_gate"].to(h.dtype))) \
         * dense(h, p[f"{prefix}_up"].to(h.dtype))
     return _row(tp, f"{prefix}_down", dense, a, p[f"{prefix}_down"])
@@ -629,7 +735,13 @@ def _moe(cfg: ArchConfig, p: dict, x: torch.Tensor, mesh=None,
     moe_params = {"router": p["router"], "w_gate": p["w_gate_e"],
                   "w_up": p["w_up_e"], "w_down": p["w_down_e"]}
     kw = {} if tp is None else {"batch_axes": ()}
-    out = moe_ffn(h2, moe_params, cfg.experts_per_token,
+    h_in = h2
+    if tp is not None:
+        # Each rank runs its experts: the tokens and the whole router
+        # enter its own work.
+        h_in = tp.enter(h2)
+        moe_params["router"] = tp.enter(p["router"])
+    out = moe_ffn(h_in, moe_params, cfg.experts_per_token,
                   impl=cfg.moe_impl, capacity_factor=cfg.moe_capacity_factor,
                   mesh=mesh, **kw)
     if cfg.shared_expert:
@@ -669,6 +781,8 @@ def _fwd_rec(cfg, kind, p, x, ctx):
     is elementwise in them), ``w_out`` row-parallel."""
     tp = ctx["tp"]
     h = rms_norm(x, p["ln1"])
+    if tp is not None and tp.cut["w_y"]:
+        h = tp.enter(h)
     y = gelu(dense(h, p["w_y"].to(h.dtype)))
     bx = _conv1d_causal(dense(h, p["w_x"].to(h.dtype)), p["conv_w"])
     gx = dense(h, p["w_gate_x"].to(h.dtype))
@@ -689,13 +803,16 @@ def _mlstm_in(cfg: ArchConfig, p: dict, h: torch.Tensor,
     projections' ``mlp`` rows are cut, their products of this rank's rows
     of ``xi`` are row-parallel (:func:`_row`'s rounding, the five summed
     in one gather)."""
-    up = dense(h, p["w_up"].to(h.dtype))
     if tp is not None and tp.cut["w_up"]:
-        up = tp.gather(up, -1)
+        up = tp.gather(dense(tp.enter(h), p["w_up"].to(h.dtype)), -1)
+    else:
+        up = dense(h, p["w_up"].to(h.dtype))
     di = cfg.mlstm_expansion * cfg.d_model
     xi, gate = up[..., :di], up[..., di:]
     ws = [p[w].to(xi.dtype) for w in ("wq", "wk", "wv", "w_i", "w_f")]
     rows_cut = tp is not None and tp.cut["wq"] == "mlp"
+    if tp is not None and tp.cut["wq"]:
+        xi = tp.enter(xi)
     if rows_cut:
         rows = ws[0].shape[0]
         xi = xi.narrow(-1, tp.rank * rows, rows).float()
@@ -717,10 +834,12 @@ def _mlstm_in(cfg: ArchConfig, p: dict, h: torch.Tensor,
         # give no others where "model" cuts their heads).
         if tp.cut["wq"] != "heads":
             at = out.index("h")
-            q, k, v, i_pre, f_pre = (t.narrow(at, tp.rank * h_loc, h_loc)
-                                     for t in (q, k, v, i_pre, f_pre))
-        gate = gate.narrow(-1, tp.rank * h_loc * (di // cfg.num_heads),
-                           h_loc * (di // cfg.num_heads))
+            q, k, v, i_pre, f_pre = (
+                tp.enter(t).narrow(at, tp.rank * h_loc, h_loc)
+                for t in (q, k, v, i_pre, f_pre))
+        gate = tp.enter(gate).narrow(
+            -1, tp.rank * h_loc * (di // cfg.num_heads),
+            h_loc * (di // cfg.num_heads))
     return q, k, v, i_pre, f_pre, gate
 
 
@@ -749,7 +868,7 @@ def _mlstm_out(cfg: ArchConfig, p: dict, core: torch.Tensor,
             z = tp.gather(z, -1)
         elif tp.cut["w_down"] and not heads_cut:
             rows = p["w_down"].shape[0]
-            z = z.narrow(-1, tp.rank * rows, rows)
+            z = tp.enter(z).narrow(-1, tp.rank * rows, rows)
     return _row(tp, "w_down", dense, z, p["w_down"])
 
 
@@ -770,6 +889,8 @@ def _fwd_slstm(cfg, kind, p, x, ctx, state: Optional[dict] = None):
     state)."""
     tp = ctx["tp"]
     h = rms_norm(x, p["ln1"])
+    if tp is not None and tp.cut["w_in"]:
+        h = tp.enter(h)
     wx = torch.einsum("bsd,dhgk->bshgk", h, p["w_in"].to(h.dtype))
     hs, state = slstm_scan(wx, {g: p[f"r_{g}"] for g in "zifo"}, state)
     if tp is not None and tp.cut["w_in"]:
@@ -796,7 +917,7 @@ def _vision_kv(cfg: ArchConfig, p: dict, vis: torch.Tensor, eq: str,
     wk, wv = p["wk"], p["wv"]
     sl = _kv_slice(cfg, p, tp)
     if sl is not None:
-        wk, wv = wk.narrow(-2, *sl), wv.narrow(-2, *sl)
+        wk, wv = tp.enter(wk).narrow(-2, *sl), tp.enter(wv).narrow(-2, *sl)
     return (torch.einsum(eq, vis, wk.to(vis.dtype)),
             torch.einsum(eq, vis, wv.to(vis.dtype)))
 
@@ -806,8 +927,11 @@ def _fwd_xattn(cfg, kind, p, x, ctx):
     if vis is None:
         raise ValueError(f"{cfg.name}: xattn blocks need a vision input")
     h = rms_norm(x, p["ln1"])
+    tp = ctx["tp"]
+    if tp is not None and tp.cut["wq"]:
+        h = tp.enter(h)
     q = torch.einsum("bsd,dhk->bshk", h, p["wq"].to(h.dtype))
-    k, v = _vision_kv(cfg, p, vis.to(h.dtype), "bpv,vhk->bphk", ctx["tp"])
+    k, v = _vision_kv(cfg, p, vis.to(h.dtype), "bpv,vhk->bphk", tp)
     return _xattn(cfg, p, x, q, k, v, ctx["tp"])
 
 
@@ -817,9 +941,12 @@ _FWD = {"attn": _fwd_attn, "swa": _fwd_attn, "moe": _fwd_attn,
 
 
 def _fwd_block(cfg, kind, p, x, ctx):
-    """One block; ``ctx["tp"]`` its kind's :class:`_Shards`."""
+    """One block; ``ctx["tp"]`` its kind's :class:`_Shards`; its leaves
+    cut over "data" gathered first (``ctx["fsdp"]``)."""
     if kind not in _FWD:
         raise ValueError(kind)
+    if ctx.get("fsdp") is not None:
+        p = ctx["fsdp"].gather(p, kind)
     return _FWD[kind](cfg, kind, p, x,
                       dict(ctx, tp=_of(ctx["shards"], kind)))
 
@@ -837,27 +964,41 @@ def _repeat(cfg: ArchConfig, pattern: list, r: int, x: torch.Tensor,
     return x
 
 
-def _embed(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
-           tp: Optional[_Shards] = None) -> torch.Tensor:
-    """The scaled token embeddings.  Where the vocabulary is cut over
-    "model", each rank looks up the tokens of its block, writes zeros for
-    the rest and the blocks are summed: exact, one rank gives each row."""
-    dt = cfg.act_dtype
-    table = params["embed"]
+def _lookup(table: torch.Tensor, tokens: torch.Tensor,
+            tp: Optional[_Shards], dtype: torch.dtype) -> torch.Tensor:
+    """The embedding rows of ``tokens`` in ``dtype``.  Where the vocabulary
+    is cut over "model", each rank looks up the tokens of its block,
+    writes zeros for the rest and the blocks are summed: exact, one rank
+    gives each row."""
     if tp is not None and tp.cut["embed"]:
         local = tokens.long() - tp.rank * table.shape[0]
         mine = (local >= 0) & (local < table.shape[0])
-        rows = take_rows(table, torch.where(mine, local, 0)).to(dt)
-        x = collectives.ordered_sum(
-            torch.where(mine[..., None], rows, 0.0).to(dt), tp.group)
-    else:
-        x = take_rows(table, tokens.long()).to(dt)
+        rows = take_rows(table, torch.where(mine, local, 0)).to(dtype)
+        return collectives.ordered_sum(
+            torch.where(mine[..., None], rows, 0.0).to(dtype), tp.group)
+    return take_rows(table, tokens.long()).to(dtype)
+
+
+def _embed(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
+           tp: Optional[_Shards] = None) -> torch.Tensor:
+    """The scaled token embeddings (:func:`_lookup`)."""
+    dt = cfg.act_dtype
+    x = _lookup(params["embed"], tokens, tp, dt)
     return x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
 
 
-def _logits(params: Pytree, x: torch.Tensor) -> torch.Tensor:
+def _logits(params: Pytree, x: torch.Tensor,
+            tp: Optional[_Shards] = None) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"])
+    if tp is not None and tp.cut["lm_head"]:
+        x = tp.enter(x)
     return torch.matmul(x.float(), params["lm_head"].float())
+
+
+def _top(params: Pytree, keys: tuple, fs: Optional[_Fsdp]) -> dict:
+    """The top-level leaves ``keys``, gathered over "data" where cut."""
+    top = {k: params[k] for k in keys}
+    return top if fs is None else fs.gather(top, None)
 
 
 def forward(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
@@ -875,17 +1016,22 @@ def forward(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
     returns its block of the logits, (rows, S, vocab block) at
     :func:`batch_rows` and :func:`vocab_block` (:func:`gather_logits`
     joins them).  Otherwise the mesh only shards the MoE blocks'
-    experts (``moe_ep``) and the logits are global."""
+    experts (``moe_ep``) and the logits are global.  Rules that place
+    parameters over "data" (FSDP) gather each block's such leaves over it
+    (module docstring); rules that map "batch" to None (the trainer's)
+    take ``tokens`` and ``vision`` as this rank's rows."""
     tps = _shards(cfg, mesh, rules)
-    if tps is not None:
+    fs = _fsdp(cfg, mesh, rules)
+    if tps is not None or fs is not None:
         params = _local_params(cfg, params, mesh, rules)
+    if tps is not None:
         r0, rows = batch_rows(tokens.shape[0], mesh, rules)
         tokens = tokens[r0:r0 + rows]
         vision = None if vision is None else vision[r0:r0 + rows]
-    x = _embed(cfg, params, tokens, _of(tps, None))
+    x = _embed(cfg, _top(params, ("embed",), fs), tokens, _of(tps, None))
     ctx = {"positions": torch.arange(tokens.shape[1], device=x.device),
            "vision": None if vision is None else vision.to(x.dtype),
-           "mesh": mesh, "shards": tps}
+           "mesh": mesh, "shards": tps, "fsdp": fs}
     remat = cfg.remat and torch.is_grad_enabled()
     for r in range(cfg.repeats):
         if remat:
@@ -895,18 +1041,31 @@ def forward(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
             x = _repeat(cfg, params["pattern"], r, x, ctx)
     for kind, block in zip(cfg.tail, params["tail"]):
         x = _fwd_block(cfg, kind, block, x, ctx)
-    return _logits(params, x)
+    return _logits(_top(params, ("final_norm", "lm_head"), fs), x,
+                   _of(tps, None))
+
+
+def _token_rows(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
+                mesh, rules: Optional[dict]) -> torch.Tensor:
+    """The unscaled fp32 embedding rows of ``tokens``, (T, d): over a
+    sharded mesh (the trainer's placements) the table is gathered over
+    "data" and looked up over its vocabulary blocks (:func:`_lookup`)."""
+    fs = _fsdp(cfg, mesh, rules)
+    tp = _of(_shards(cfg, mesh, rules), None)
+    table = _top(params, ("embed",), fs)["embed"]
+    return _lookup(table, tokens, tp, torch.float32).reshape(-1, cfg.d_model)
 
 
 def aux_moe_loss(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
-                 x_embed: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 x_embed: Optional[torch.Tensor] = None, mesh=None,
+                 rules: Optional[dict] = None) -> torch.Tensor:
     """Router load-balance loss, from the first repeat's router of each
     MoE block of the pattern, on the unscaled fp32 token embeddings (the
-    reference's; ``x_embed`` is unused there too)."""
+    reference's; ``x_embed`` is unused there too).  ``mesh``, ``rules``:
+    the trainer's sharded parameters (:func:`forward`'s)."""
     if cfg.num_experts == 0:
         return torch.zeros((), device=params["embed"].device)
-    x = take_rows(params["embed"], tokens.long()).float().reshape(
-        -1, cfg.d_model)
+    x = _token_rows(cfg, params, tokens, mesh, rules)
     total = torch.zeros((), device=x.device)
     count = 0
     for kind, block in zip(cfg.pattern, params["pattern"]):
@@ -919,14 +1078,13 @@ def aux_moe_loss(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
     return total / max(count, 1)
 
 
-def aux_moe_stats(cfg: ArchConfig, params: Pytree,
-                  tokens: torch.Tensor) -> list:
+def aux_moe_stats(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
+                  mesh=None, rules: Optional[dict] = None) -> list:
     """:func:`aux_moe_loss`'s sums over ``tokens``, one pair a MoE block
     of the pattern: (top-1 dispatch counts (E,), router probability sums
     (E,)), fp32 — what a data-parallel step adds over its ranks before
     the product."""
-    x = take_rows(params["embed"], tokens.long()).float().reshape(
-        -1, cfg.d_model)
+    x = _token_rows(cfg, params, tokens, mesh, rules)
     out = []
     for kind, block in zip(cfg.pattern, params["pattern"]):
         if kind != "moe":
@@ -1160,7 +1318,7 @@ def precompute_vision_cache(cfg: ArchConfig, params: Pytree, cache: dict,
     tps = _shards(cfg, mesh, rules)
     tp = _of(tps, "xattn") if "xattn" in cfg.pattern else None
     if tps is not None:
-        params = _local_params(cfg, params, mesh, rules)
+        params = _serving_params(cfg, params, mesh, rules)
         r0, rows = batch_rows(vision.shape[0], mesh, rules)
         _local_cache(cache, rows)
         vision = vision[r0:r0 + rows]
@@ -1188,7 +1346,7 @@ def decode_step(cfg: ArchConfig, params: Pytree, cache: dict,
     ``sharding.shard_cache``), the logits its block."""
     tps = _shards(cfg, mesh, rules)
     if tps is not None:
-        params = _local_params(cfg, params, mesh, rules)
+        params = _serving_params(cfg, params, mesh, rules)
         r0, rows = batch_rows(tokens.shape[0], mesh, rules)
         _local_cache(cache, rows)
         tokens = tokens[r0:r0 + rows]

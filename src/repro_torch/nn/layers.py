@@ -126,6 +126,31 @@ def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return logz - gold
 
 
+def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor,
+                       offset: int, group=None) -> torch.Tensor:
+    """:func:`token_nll` of logits whose vocabulary is cut over the ranks
+    of ``group``: ``logits`` is this rank's block, the columns
+    ``[offset, offset + logits.shape[-1])``.  The max is taken over the
+    ranks (one gather); each rank's sum of exponentials and its share of
+    the label's logit (the rank that owns the id gives it, the others 0)
+    are added in rank order (one gather, ``core.collectives.ordered_sum``,
+    whose backward hands each rank its share's gradient).  The gradient
+    of a block is its softmax block minus its one-hot block.  Every rank
+    returns the same bits."""
+    # Imported here: repro_torch.core imports this package.
+    from repro_torch.core import collectives
+    logits = logits.float()
+    peak = torch.stack(collectives.all_gather(
+        logits.detach().amax(dim=-1), group)).amax(dim=0)
+    local = labels.long() - offset
+    mine = (local >= 0) & (local < logits.shape[-1])
+    gold = torch.gather(logits, -1, torch.where(mine, local, 0)[..., None])
+    both = collectives.ordered_sum(torch.stack(
+        [torch.sum(torch.exp(logits - peak[..., None]), dim=-1),
+         torch.where(mine, gold[..., 0], 0.0)]), group)
+    return peak + torch.log(both[0]) - both[1]
+
+
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                           mask: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:

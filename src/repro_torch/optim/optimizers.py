@@ -21,6 +21,16 @@ card).  Clipping keeps the global norm on the device: no host sync.
 Adafactor exists because the trillion-parameter assigned architecture
 (kimi-k2) cannot hold Adam's 8 bytes/param of momenta; factored second
 moments cost O(rows+cols).
+
+A sharded model (``train.make_train_step`` over a mesh) holds each
+parameter as this rank's block: ``groups`` (``distributed.leaf_groups``'
+tree, one ``LeafGroups`` a leaf) names the process group cutting each
+dim.  The global norm and Adafactor's row / column means, their mean and
+the update's RMS are then the whole leaf's: each rank's float32 sum over
+its block, added over exactly the groups that cut the dims summed, in
+rank order (``core.collectives.ordered_sum``), over the whole count.
+Every rank of a group gets the same bits.  AdamW is elementwise and
+takes no groups.
 """
 from __future__ import annotations
 
@@ -97,19 +107,48 @@ def _scalar(x, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), float(x), dtype=torch.float32, device=like.device)
 
 
-def _global_norm(tree: Pytree) -> torch.Tensor:
+def _whole_sum(t: torch.Tensor, groups: list) -> torch.Tensor:
+    """A rank's float32 partial sum ``t`` added over each process group in
+    ``groups`` in turn, in rank order."""
+    # Imported here: repro_torch.core imports this package.
+    from repro_torch.core import collectives
+    for g in groups:
+        t = collectives.ordered_sum(t, g, torch.float32)
+    return t
+
+
+def _global_norm(tree: Pytree, groups: Pytree = None) -> torch.Tensor:
     """sqrt of the sum, over the leaves in pytree order, of each leaf's
-    float32 sum of squares."""
+    float32 sum of squares; with ``groups``, each leaf's over the whole
+    leaf: the blocks' sums, stacked, are added over each mesh dimension
+    that cuts any leaf (one gather each), and a leaf takes the sum of the
+    dimensions that cut it."""
+    sums = [torch.sum(torch.square(leaf.float()))
+            for leaf in tree_leaves(tree)]
+    if groups is not None:
+        cuts = tree_leaves(groups)
+        own = torch.stack(sums)
+        names = sorted({a for c in cuts for a in c.names if a})
+        for name in names:
+            group = next(g for c in cuts for a, g in zip(c.names, c.groups)
+                         if a == name)
+            added = _whole_sum(own, [group])
+            mask = torch.tensor([c.cut_by(name) for c in cuts],
+                                device=own.device)
+            own = torch.where(mask, added, own)
+        sums = list(own.unbind())
     total = 0
-    for leaf in tree_leaves(tree):
-        total = total + torch.sum(torch.square(leaf.float()))
+    for s in sums:
+        total = total + s
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads: Pytree, max_norm: float) -> Pytree:
+def clip_by_global_norm(grads: Pytree, max_norm: float,
+                        groups: Pytree = None) -> Pytree:
     """``g · min(1, max_norm / (norm + 1e-12))`` for every leaf, in its
-    dtype; the norm and the scale stay on the device."""
-    norm = _global_norm(grads)
+    dtype; the norm and the scale stay on the device.  ``groups``: a
+    sharded model's (module docstring)."""
+    norm = _global_norm(grads, groups)
     scale = torch.clamp_max(max_norm / (norm + 1e-12), 1.0)
     return tree_map(lambda g: (g * scale).to(g.dtype), grads)
 
@@ -199,12 +238,26 @@ def _map_params(fn, params, *others):
     return fn(params, *others)
 
 
+def _mean(t: torch.Tensor, dim: int, cut, keepdim: bool = False
+          ) -> torch.Tensor:
+    """``torch.mean(t, dim)`` of the whole leaf, ``t`` a rank's block and
+    ``cut`` the leaf's :class:`LeafGroups` (None: whole) indexed like
+    ``t``'s dims."""
+    if cut is None or cut.names[dim] is None:
+        return torch.mean(t, dim=dim, keepdim=keepdim)
+    total = _whole_sum(torch.sum(t, dim=dim, keepdim=keepdim),
+                       cut.over([dim]))
+    return total / (t.shape[dim] * cut.counts[dim])
+
+
 def adafactor(lr: Union[float, Schedule], decay: float = 0.8,
-              eps: float = 1e-30, clip_threshold: float = 1.0) -> Optimizer:
+              eps: float = 1e-30, clip_threshold: float = 1.0,
+              groups: Pytree = None) -> Optimizer:
     """A leaf of two or more dims keeps ``row`` (the mean over its last
     dim) and ``col`` (over its second-to-last), its leading dims
     (``repeats``, experts) kept; a 1-D leaf keeps a full ``v``.  The
-    update's RMS clip is one reduction a leaf."""
+    update's RMS clip is one reduction a leaf.  ``groups``: a sharded
+    model's (module docstring)."""
     sched = lr if callable(lr) else constant_schedule(lr)
 
     def _factored(p):
@@ -225,14 +278,15 @@ def adafactor(lr: Union[float, Schedule], decay: float = 0.8,
         beta = 1.0 - t ** (-decay)
         lr_t = sched(step)
 
-        def leaf(p, g, s):
+        def leaf(p, g, s, cut=None):
             b = _scalar(beta, p)
             g = g.float()
             g2 = torch.square(g) + eps
             if _factored(p):
-                row = b * s["row"] + (1 - b) * torch.mean(g2, dim=-1)
-                col = b * s["col"] + (1 - b) * torch.mean(g2, dim=-2)
-                row_mean = torch.mean(row, dim=-1, keepdim=True)
+                n = p.ndim
+                row = b * s["row"] + (1 - b) * _mean(g2, n - 1, cut)
+                col = b * s["col"] + (1 - b) * _mean(g2, n - 2, cut)
+                row_mean = _mean(row, n - 2, cut, keepdim=True)
                 vhat = (row[..., :, None]
                         / torch.clamp_min(row_mean[..., None], eps)
                         * col[..., None, :])
@@ -243,12 +297,18 @@ def adafactor(lr: Union[float, Schedule], decay: float = 0.8,
                 upd = g * torch.rsqrt(torch.clamp_min(v, eps))
                 new_s = {"v": v}
             # Update clipping (RMS of update <= clip_threshold).
-            rms = torch.sqrt(torch.mean(torch.square(upd)) + 1e-30)
+            if cut is None or not cut.over():
+                ms = torch.mean(torch.square(upd))
+            else:
+                ms = (_whole_sum(torch.sum(torch.square(upd)), cut.over())
+                      / (upd.numel() * math.prod(cut.counts)))
+            rms = torch.sqrt(ms + 1e-30)
             upd = upd / torch.clamp_min(rms / clip_threshold, 1.0)
             return ((p.float() - _scalar(lr_t, p) * upd).to(p.dtype),
                     new_s)
 
-        out = _map_params(leaf, params, grads, state)
+        out = (_map_params(leaf, params, grads, state) if groups is None
+               else _map_params(leaf, params, grads, state, groups))
         return (_map_params(lambda p, o: o[0], params, out),
                 _map_params(lambda p, o: o[1], params, out))
 

@@ -33,9 +33,23 @@ backward), and the MoE aux loss with the per-expert dispatch counts
 gathered over the ranks (``E · f_e / T_pod`` a local token).  The
 gradients, with the loss and its parts, are gathered over the data
 ranks and added in rank order every step, before the clip, so every
-data rank steps on the same bits.  A ``"model"`` dimension above 1 is
-refused: the rank must be a batch block.  A mesh without a batch
-dimension above 1 gives the single-device step exactly.
+data rank steps on the same bits.
+
+Tensor parallelism and FSDP: the trainer places parameters by the
+reference trainer's rules, ``axis_rules(mesh, {"embed": "data"})``
+(``sharding.TRAIN_RULES``).  Over a mesh whose "model" dimension is
+above 1, or whose "data" dimension is (FSDP), each rank holds its blocks
+of the parameters and of the optimizer state (``distributed.sharding``,
+placed like their parameters) and runs ``forward`` on its rows, under
+the same rules with "batch" cut no further (:data:`FORWARD_RULES`): the
+row-parallel sums, the column gathers and the FSDP gathers differentiate
+through ``core.collectives``, the loss is the vocab-parallel masked CE
+over its logit block (``nn.layers.vocab_parallel_nll``), and the global
+norm and Adafactor take whole-leaf statistics (``optim``'s ``groups``).
+A leaf cut over "data" has its gradient summed over "data" by its
+gather's backward, then over the split's other dimension ("pod", in the
+``every_step`` form) with the other leaves' sums.  A mesh with nothing
+cut and no batch dimension above 1 gives the single-device step exactly.
 
 The pod mean is a float32 sum in pod order divided by the pod count, in
 both forms, so they agree bit for bit.  The state is ``{"params",
@@ -52,13 +66,14 @@ import torch
 
 from repro_torch.core import collectives
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import dim_size, refuse_model_dim
+from repro_torch.distributed import sharding
+from repro_torch.launch.mesh import dim_size
 from repro_torch.models.transformer import (ArchConfig, arch_specs,
                                             aux_moe_loss, aux_moe_stats,
-                                            decode_step, forward)
-from repro_torch.nn import (abstract_params, init_params,
-                            softmax_cross_entropy)
-from repro_torch.nn.layers import token_nll
+                                            decode_step, forward,
+                                            vocab_block)
+from repro_torch.nn import abstract_params, init_params
+from repro_torch.nn.layers import token_nll, vocab_parallel_nll
 from repro_torch.optim import (Optimizer, clip_by_global_norm,
                                make_optimizer, tree_leaves, tree_map,
                                warmup_cosine_schedule)
@@ -82,13 +97,15 @@ class TrainSettings:
     warmup_steps: int = 200
 
 
-def make_arch_optimizer(cfg: ArchConfig, settings: TrainSettings
-                        ) -> Optimizer:
+def make_arch_optimizer(cfg: ArchConfig, settings: TrainSettings,
+                        groups: Pytree = None) -> Optimizer:
+    """``groups``: a sharded model's ``distributed.leaf_groups`` (the
+    whole-leaf statistics of Adafactor)."""
     sched = warmup_cosine_schedule(cfg.learning_rate,
                                    settings.warmup_steps,
                                    settings.total_steps)
     if cfg.optimizer == "adafactor":
-        return make_optimizer("adafactor", sched)
+        return make_optimizer("adafactor", sched, groups=groups)
     if cfg.optimizer == "adamw":
         return make_optimizer("adamw", sched, weight_decay=0.01)
     return make_optimizer(cfg.optimizer, sched)
@@ -116,14 +133,37 @@ def _state(cfg: ArchConfig, settings: TrainSettings, params: Pytree) -> dict:
 
 
 def init_train_state(cfg: ArchConfig, settings: TrainSettings,
-                     seed: int = 0, device="cuda") -> dict:
+                     seed: int = 0, device="cuda", mesh=None) -> dict:
     """Parameters from ``torch.Generator().manual_seed(seed)`` (drawn on
     the host: the same values on every device), the optimizer's state
     and ``step`` 0; in the stacked-pod form every leaf carries a leading
-    ``n_pod`` dim of equal copies."""
-    params = init_params(arch_specs(cfg), torch.Generator().manual_seed(seed),
-                         resolve_device(device))
+    ``n_pod`` dim of equal copies.  Over a ``mesh`` that cuts the
+    parameters (:func:`make_train_step`'s), this rank's blocks of the
+    same numbers (``sharding.init_sharded``) and of the optimizer's
+    state."""
+    gen = torch.Generator().manual_seed(seed)
+    if _cuts(cfg, mesh) is not None:
+        params = sharding.init_sharded(arch_specs(cfg), gen, mesh,
+                                       sharding.TRAIN_RULES, device)
+    else:
+        params = init_params(arch_specs(cfg), gen, resolve_device(device))
     return _state(cfg, settings, params)
+
+
+# ``forward``'s rules in a sharded step: the trainer's, with "batch" cut
+# no further (the rows are this rank's already, the split's).
+FORWARD_RULES = dict(sharding.TRAIN_RULES, batch=None)
+
+
+def _cuts(cfg: ArchConfig, mesh) -> Optional[Pytree]:
+    """``distributed.leaf_groups`` of the parameters over ``mesh`` under the
+    trainer's rules; None where the mesh cuts no leaf."""
+    if mesh is None:
+        return None
+    groups = sharding.leaf_groups(arch_specs(cfg), mesh, sharding.TRAIN_RULES)
+    if all(n is None for lg in tree_leaves(groups) for n in lg.names):
+        return None
+    return groups
 
 
 def abstract_train_state(cfg: ArchConfig, settings: TrainSettings) -> dict:
@@ -138,6 +178,7 @@ class _DataSplit:
     ranks."""
 
     def __init__(self, mesh, axes: list):
+        self.axes = list(axes)
         self.groups = [mesh.get_group(a) for a in axes]
         sizes = [dim_size(mesh, a) for a in axes]
         self.n = 1
@@ -158,34 +199,56 @@ class _DataSplit:
             collectives.all_reduce(t, group=g)
         return t
 
-    def sum(self, t: torch.Tensor) -> torch.Tensor:
+    def sum(self, t: torch.Tensor,
+            late: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Float32 sum of every rank's ``t``, in rank order: over the last
         dimension first, then the one before; every rank gets the same
-        bits."""
-        for g in reversed(self.groups):
+        bits.  ``late``: float32 values summed over "data" already (the
+        gradients of leaves cut over "data"), appended to ``t`` once it is
+        summed over "data" and summed with it over the other
+        dimensions."""
+        for a, g in zip(reversed(self.axes), reversed(self.groups)):
             t = collectives.ordered_sum(t, g, torch.float32)
-        return t
+            if a == "data" and late is not None:
+                t, late = torch.cat([t, late]), None
+        return t if late is None else torch.cat([t, late])
 
 
-def _ce_share(logits: torch.Tensor, labels: torch.Tensor,
-              mask: Optional[torch.Tensor], split: _DataSplit
-              ) -> torch.Tensor:
+def _nll(cfg: ArchConfig, logits: torch.Tensor, labels: torch.Tensor,
+         mesh) -> torch.Tensor:
+    """Each position's NLL: over the vocabulary blocks where the logits
+    are this rank's block (``nn.layers.vocab_parallel_nll``)."""
+    if mesh is not None:
+        v0, n = vocab_block(cfg, mesh, FORWARD_RULES)
+        if n < cfg.vocab_size:
+            return vocab_parallel_nll(logits, labels, v0,
+                                      mesh.get_group("model"))
+    return token_nll(logits, labels)
+
+
+def _ce_share(nll: torch.Tensor, mask: Optional[torch.Tensor],
+              split: Optional[_DataSplit]) -> torch.Tensor:
     """This rank's share of the pod batch's masked-mean CE: its masked
-    sum over the pod's mask count."""
-    nll = token_nll(logits, labels)
+    sum over the pod's mask count (the whole mean without a split, as
+    ``nn.softmax_cross_entropy``)."""
+    if split is None and mask is None:
+        return torch.mean(nll)
     mask = torch.ones_like(nll) if mask is None else mask.float()
-    count = split.count(torch.sum(mask).detach())
+    count = torch.sum(mask)
+    if split is not None:
+        count = split.count(count.detach())
     return torch.sum(nll * mask) / torch.clamp_min(count, 1.0)
 
 
 def _aux_share(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
-               split: _DataSplit) -> torch.Tensor:
+               split: _DataSplit, mesh=None,
+               rules: Optional[dict] = None) -> torch.Tensor:
     """This rank's share of the pod batch's load-balance loss
     ``E · Σ_e f_e · p_e`` (a block mean): the dispatch counts and
     probability sums are gathered over the ranks (detached), and the
     local probability sum carries the gradient, ``E · f_e / T_pod`` a
     local token.  The shares add up to the pod's loss."""
-    stats = aux_moe_stats(cfg, params, tokens)
+    stats = aux_moe_stats(cfg, params, tokens, mesh, rules)
     e = cfg.num_experts
     total = split.sum(torch.cat([torch.cat([c, p.detach()])
                                  for c, p in stats]))
@@ -198,36 +261,39 @@ def _aux_share(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
 
 
 def _loss_fn(cfg: ArchConfig, settings: TrainSettings, params: Pytree,
-             batch: dict, split: Optional[_DataSplit] = None
-             ) -> tuple[torch.Tensor, dict]:
-    logits = forward(cfg, params, batch["tokens"], batch.get("vision"))
-    if split is None:
-        ce = softmax_cross_entropy(logits, batch["labels"],
-                                   batch.get("mask"))
-    else:
-        ce = _ce_share(logits, batch["labels"], batch.get("mask"), split)
+             batch: dict, split: Optional[_DataSplit] = None,
+             mesh=None) -> tuple[torch.Tensor, dict]:
+    rules = None if mesh is None else FORWARD_RULES
+    logits = forward(cfg, params, batch["tokens"], batch.get("vision"),
+                     mesh=mesh, rules=rules)
+    ce = _ce_share(_nll(cfg, logits, batch["labels"], mesh),
+                   batch.get("mask"), split)
     del logits
     loss = ce
     aux = torch.zeros((), dtype=torch.float32, device=ce.device)
     if cfg.num_experts:
-        aux = (aux_moe_loss(cfg, params, batch["tokens"]) if split is None
-               else _aux_share(cfg, params, batch["tokens"], split))
+        aux = (aux_moe_loss(cfg, params, batch["tokens"], mesh=mesh,
+                            rules=rules) if split is None
+               else _aux_share(cfg, params, batch["tokens"], split, mesh,
+                               rules))
         loss = loss + settings.aux_loss_weight * aux
     return loss, {"ce": ce, "aux": aux}
 
 
 def loss_and_grads(cfg: ArchConfig, settings: TrainSettings,
                    params: Pytree, batch: dict,
-                   split: Optional[_DataSplit] = None) -> tuple:
+                   split: Optional[_DataSplit] = None, mesh=None) -> tuple:
     """``(loss, parts, grads)`` of one pod's batch; ``grads`` has the
     tree of ``params`` and each leaf's dtype.  With ``split`` (a
     data-parallel step), ``batch`` is this rank's rows and the three are
-    its shares of the pod batch's, to be summed over the ranks."""
+    its shares of the split's batch, to be summed over the ranks
+    (:func:`_sum_shares`).  ``mesh``: ``params`` are this rank's blocks
+    over it (module docstring)."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     it = iter(leaves)
     live = _rebuild(params, it)
     with torch.enable_grad():
-        loss, parts = _loss_fn(cfg, settings, live, batch, split)
+        loss, parts = _loss_fn(cfg, settings, live, batch, split, mesh)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
@@ -235,20 +301,33 @@ def loss_and_grads(cfg: ArchConfig, settings: TrainSettings,
             _rebuild(params, iter(grads)))
 
 
-def _sum_shares(split: _DataSplit, loss, parts, grads) -> tuple:
-    """The pod batch's loss, parts and gradients: every rank's shares,
-    flattened into one float32 buffer, gathered and added in rank
-    order."""
+def _sum_shares(split: _DataSplit, loss, parts, grads,
+                summed: Optional[list] = None) -> tuple:
+    """The split batch's loss, parts and gradients: every rank's shares,
+    flattened into one float32 buffer, gathered and added in rank order.
+    ``summed``: a flag a leaf (pytree order) whose gradient is summed over
+    "data" already (cut over "data": its gather's backward added it),
+    then added over the split's other dimensions only."""
     leaves = tree_leaves(grads)
-    flat = torch.cat([g.float().reshape(-1) for g in leaves]
+    summed = summed or [False] * len(leaves)
+    flat = torch.cat([g.float().reshape(-1)
+                      for g, done in zip(leaves, summed) if not done]
                      + [torch.stack([loss, parts["ce"], parts["aux"]])])
-    total = split.sum(flat)
-    del flat
-    out, at = [], 0
-    for g in leaves:
-        out.append(total[at:at + g.numel()].reshape(g.shape).to(g.dtype))
-        at += g.numel()
-    loss, ce, aux = total[at:].unbind()
+    late = [g.float().reshape(-1) for g, done in zip(leaves, summed) if done]
+    total = split.sum(flat, torch.cat(late) if late else None)
+    at, rest = flat.numel(), flat.numel()
+    del flat, late
+    out, mine = [], 0
+    for g, done in zip(leaves, summed):
+        if done:
+            out.append(total[rest:rest + g.numel()].reshape(g.shape)
+                       .to(g.dtype))
+            rest += g.numel()
+        else:
+            out.append(total[mine:mine + g.numel()].reshape(g.shape)
+                       .to(g.dtype))
+            mine += g.numel()
+    loss, ce, aux = total[at - 3:at].unbind()
     return loss, {"ce": ce, "aux": aux}, _rebuild(grads, iter(out))
 
 
@@ -285,13 +364,20 @@ def make_train_step(cfg: ArchConfig, settings: TrainSettings,
     ``settings`` names (module docstring).  ``mesh``: the ``DeviceMesh``
     of ``pod_impl="shard_map"`` (one rank a pod over "pod", each pod's
     batch split over "data"), or of the data-parallel single-pod step
-    (the batch split over "pod" and "data"); the stacked pod form takes
-    none.  ``batch`` is the global batch on every rank.  Metrics are 0-d
-    tensors on the batch's device: ``loss``, ``ce``, ``aux`` (the pod
-    batches', then the pods' means) and, in the stacked form,
-    ``pod_divergence``."""
-    opt = make_arch_optimizer(cfg, settings)
-    refuse_model_dim(mesh, "make_train_step")
+    (the batch split over "pod" and "data"); either may have a "model"
+    dimension (tensor parallelism); the stacked pod form takes none.
+    Where the mesh cuts parameters (the reference trainer's rules,
+    ``{"embed": "data"}``: FSDP over a "data" dimension above 1),
+    ``state`` holds this rank's blocks (:func:`init_train_state` with the
+    same mesh).  ``batch`` is
+    the global batch on every rank.  Metrics are 0-d tensors on the
+    batch's device: ``loss``, ``ce``, ``aux`` (the pod batches', then the
+    pods' means) and, in the stacked form, ``pod_divergence``."""
+    groups = _cuts(cfg, mesh)
+    sharded = None if groups is None else mesh
+    summed = (None if groups is None
+              else [lg.cut_by("data") for lg in tree_leaves(groups)])
+    opt = make_arch_optimizer(cfg, settings, groups)
     pods = settings.sync_mode == "digest" and settings.n_pod > 1
     if mesh is not None and pods and settings.pod_impl != "shard_map":
         raise ValueError("the stacked pod form (pod_impl='vmap') runs on "
@@ -305,11 +391,12 @@ def make_train_step(cfg: ArchConfig, settings: TrainSettings,
         if split is not None:
             batch = {k: split.rows(v) for k, v in batch.items()}
         loss, parts, grads = loss_and_grads(cfg, settings, params, batch,
-                                            split)
+                                            split, sharded)
         if split is not None:
-            loss, parts, grads = _sum_shares(split, loss, parts, grads)
+            loss, parts, grads = _sum_shares(split, loss, parts, grads,
+                                             summed)
         if settings.grad_clip:
-            grads = clip_by_global_norm(grads, settings.grad_clip)
+            grads = clip_by_global_norm(grads, settings.grad_clip, groups)
         with torch.no_grad():
             new_params, new_opt = opt.update(grads, opt_state, params, step)
         return new_params, new_opt, loss, parts

@@ -41,6 +41,11 @@ from repro_torch.train import trainer as ttrainer
 
 REL = 1e-5
 TRAJ = 1e-4
+# The trainer's FSDP over "data" = 2 at the SMOKE widths, a step: the
+# gathers of the forward and its recomputation (the aux loss's embedding
+# table too), and one reduce-scatter (``all_to_all``) a leaf cut over
+# "data".
+FSDP = {"qwen3-0.6b": (40, 21), "llama4-scout-17b-a16e": (53, 28)}
 # Adafactor: a dense and a MoE config, and the two new families whose
 # published optimizer it is.
 ADAFACTOR = ("deepseek_coder_33b", "kimi_k2_1t_a32b", "recurrentgemma_9b",
@@ -433,13 +438,15 @@ def test_pod_form_equals_stacked_form(world, request):
     one ``all_gather`` of (loss, ce, aux) a step, and one of the
     flattened params at a sync step.  Refused (ValueError): no mesh and a
     ("data",) mesh (the reference's text), a mesh for the stacked form.
-    At world 4 the (pod 2, data 2) form against the stacked form
-    (qwen3-0.6b and llama4-scout SMOKE): the step-1 gradient and this
-    pod's params after step 1 within 1e-5 of a leaf's max, each step's
-    loss, ce and aux within 1e-4 (Adam's steps carry the sums' rounding
-    on, so later params are held through the trajectory); census
-    a step: the mask count's ``all_reduce``, the gradients' ``all_gather``
-    over "data" (and the aux loss's dispatch counts), the pod mean's."""
+    At world 4 the (pod 2, data 2) form, FSDP inside each pod (the
+    trainer's rules), against the stacked form (qwen3-0.6b and
+    llama4-scout SMOKE): the step-1 gradient and this pod's whole params
+    after step 1 within 1e-5 of a leaf's max, each step's loss, ce and
+    aux within 1e-4 (Adam's steps carry the sums' rounding on, so later
+    params are held through the trajectory); census a step (:data:`FSDP`):
+    the mask count's ``all_reduce``, the FSDP gathers and reduce-scatters,
+    the gradients' ``all_gather`` over "data" (and the aux loss's
+    dispatch counts), the pod mean's."""
     import test_torch_mesh as tm
     ranks = (request.getfixturevalue("pod_world4") if world == 4
              else tm.spawn("lm_pod_job", world, steps=8, interval=4))
@@ -458,15 +465,16 @@ def test_pod_form_equals_stacked_form(world, request):
         return
     for arch, aux in (("qwen3-0.6b", 0), ("llama4-scout-17b-a16e", 1)):
         res = [r[f"data2 {arch}"] for r in ranks]
+        gathers, scatters = FSDP[arch]
         for r in res:
             assert r["grad_err"] <= REL, arch
             assert max(r["loss_rel"]) <= TRAJ, (arch, r["loss_rel"])
             assert r["params_err"][0] <= REL, (arch, r["params_err"])
             assert r["census"] == [
-                {"all_reduce": 1,
-                 "all_gather": 2 + aux + ((s + 1) % 4 == 0)}
+                {"all_reduce": 1, "all_to_all": scatters,
+                 "all_gather": gathers + 2 + aux + ((s + 1) % 4 == 0)}
                 for s in range(8)], (arch, r["census"])
-        # The two data ranks of a pod hold the same bits.
+        # The two data ranks of a pod gather the same whole params.
         pods = [r["data2 pod"] for r in ranks]
         for p in (0, 1):
             a, b = (res[i]["params"] for i in range(4) if pods[i] == p)
@@ -474,7 +482,8 @@ def test_pod_form_equals_stacked_form(world, request):
 
 
 def test_pod_data_form_matches_reference(tmp_path):
-    """The port's (pod 2, data 2) form on 4 gloo ranks against the
+    """The port's (pod 2, data 2) form on 4 gloo ranks (FSDP inside each
+    pod, the trainer's rules) against the
     reference's ``_make_pod_shard_map_step`` on the same mesh (a forced
     4-device JAX subprocess), from the reference's initial params, under
     a mask of uneven counts: 4 steps at interval 2, each step's loss, ce
@@ -510,32 +519,52 @@ def test_pod_data_form_matches_reference(tmp_path):
                    for x, y in zip(r["params"], ranks[0]["params"]))
 
 
-def test_data_parallel_every_step_equals_one_process():
-    """The ``every_step`` baseline on a ("data",) = 2 mesh (each rank two
-    of the batch's four rows) against the single process, 4 steps, with
-    rank 0's rows masked more than rank 1's: qwen3-0.6b and llama4-scout
-    SMOKE (whose aux loss multiplies two token means: the ranks gather
-    the dispatch counts before the product).  The step-1 gradient within
-    1e-5 of a leaf's max, the params after step 1 too, each step's loss,
-    ce and aux within 1e-4; the two ranks hold the same bits; census a
-    step: the mask count's ``all_reduce`` and the gradients' (and aux
-    counts') ``all_gather``.  A mesh with no batch dimension above 1 is
-    the single-device step bit for bit; a "model" dimension is refused."""
-    import test_torch_mesh as tm
-    ranks = tm.spawn("lm_dp_job", 2, steps=4)
+def _every_step_against_one_process(ranks, axes: int) -> None:
+    """:func:`test_data_parallel_every_step_equals_one_process`'s bars
+    over a mesh of ``axes`` batch dimensions."""
     for arch, aux in (("qwen3-0.6b", 0), ("llama4-scout-17b-a16e", 1)):
+        gathers, scatters = FSDP[arch]
         for r in ranks:
             res = r[arch]
             assert res["grad_err"] <= REL, arch
             assert res["params_err"][0] <= REL, (arch, res["params_err"])
             assert max(res["loss_rel"]) <= TRAJ, (arch, res["loss_rel"])
-            assert res["census"] == [{"all_reduce": 1,
-                                      "all_gather": 1 + aux}] * 4
-        assert all(np.array_equal(x, y) for x, y in
-                   zip(ranks[0][arch]["params"], ranks[1][arch]["params"]))
+            assert res["census"] == [
+                {"all_reduce": axes, "all_to_all": scatters,
+                 "all_gather": gathers + axes * (1 + aux)}] * 4
+        assert all(np.array_equal(x, y) for r in ranks[1:] for x, y in
+                   zip(ranks[0][arch]["params"], r[arch]["params"]))
     for r in ranks:
         assert r["data 1 is single"]
-        assert "'model' dimension is 2" in r["model refused"]
+
+
+def test_data_parallel_every_step_equals_one_process():
+    """The ``every_step`` baseline on a ("data",) = 2 mesh (each rank two
+    of the batch's four rows) under the trainer's rules (FSDP over
+    "data") against the single process, 4 steps, with rank 0's rows
+    masked more than rank 1's: qwen3-0.6b and llama4-scout SMOKE (whose
+    aux loss multiplies two token means: the ranks gather the dispatch
+    counts before the product).  The step-1 gradient within 1e-5 of a
+    leaf's max, the whole params after step 1 too, each step's loss, ce
+    and aux within 1e-4; the two ranks gather the same whole params;
+    census a step (:data:`FSDP`): the mask count's ``all_reduce``, the
+    FSDP gathers and reduce-scatters, the gradients' (and aux counts')
+    ``all_gather``.  A mesh with no batch dimension above 1 is the
+    single-device step bit for bit."""
+    import test_torch_mesh as tm
+    _every_step_against_one_process(tm.spawn("lm_dp_job", 2, steps=4), 1)
+
+
+def test_data_parallel_every_step_over_pod_and_data_equals_one_process():
+    """The same over ("pod", "data") = 2 x 2, the batch split over both
+    and each FSDP block held in both pods: a leaf cut over "data" has its
+    gradient reduce-scattered over "data", then added over "pod", so the
+    two pods step their blocks on the whole batch's gradient and gather
+    the same whole params; census a step: one ``all_reduce`` and one
+    gradient ``all_gather`` (and one of the aux counts) a batch
+    dimension."""
+    import test_torch_mesh as tm
+    _every_step_against_one_process(tm.spawn("lm_dp_job", 4, steps=4), 2)
 
 
 # ---------------------------------------------------------------------------

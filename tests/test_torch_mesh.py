@@ -12,6 +12,7 @@ This module imports no JAX, so the ranks start quickly.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
@@ -433,39 +434,68 @@ def _lm_state_close(ref, got) -> float:
 
 
 def _pod_data_run(cfg, stacked, pods, batches, mesh, pod: int) -> dict:
-    """The pod form on a ("pod", "data") mesh with "data" above 1 against
-    the stacked form: the step-1 gradient of this rank's pod (its shares
-    summed over "data") against the pod batch's, each step's metrics,
-    this pod's params after every step, and the census."""
+    """The pod form on a ("pod", "data") mesh with "data" above 1 (FSDP
+    inside each pod, the trainer's rules) against the stacked form: the
+    step-1 gradient of this rank's pod (the clip's input, gathered whole)
+    against the pod batch's, each step's metrics, this pod's whole params
+    after every step, and the census."""
     from repro_torch.core import collectives
     from repro_torch.train import init_train_state, make_train_step
     from repro_torch.train import trainer
 
     n_pod = stacked.n_pod
     sb = init_train_state(cfg, stacked, device="cpu")
-    sc = init_train_state(cfg, pods, device="cpu")
+    sc = init_train_state(cfg, pods, device="cpu", mesh=mesh)
     fb, fc = make_train_step(cfg, stacked), make_train_step(cfg, pods, mesh)
     pod_batch = {k: trainer._pod_slice(v, pod, n_pod)
                  for k, v in batches[0].items()}
-    split = trainer._DataSplit(mesh, ["data"])
-    want = trainer.loss_and_grads(cfg, pods, sc["params"], pod_batch)
-    got = trainer._sum_shares(split, *trainer.loss_and_grads(
-        cfg, pods, sc["params"],
-        {k: split.rows(v) for k, v in pod_batch.items()}, split))
-    out = {"grad_err": _lm_state_close(want[2], got[2]),
-           "loss_rel": [], "params_err": [], "census": []}
-    for b in batches:
+    want = trainer.loss_and_grads(cfg, pods, whole_params(sc["params"], cfg,
+                                                          mesh), pod_batch)
+    out = {"loss_rel": [], "params_err": [], "census": []}
+    for i, b in enumerate(batches):
         sb, mb = fb(sb, b)
         collectives.reset_collectives()
-        sc, mc = fc(sc, b)
+        with clip_inputs() as grads:
+            sc, mc = fc(sc, b)
         out["census"].append(dict(collectives.COLLECTIVES))
+        if i == 0:
+            out["grad_err"] = _lm_state_close(
+                want[2], whole_params(grads[0], cfg, mesh))
         out["loss_rel"].append(max(
             abs(float(mc[k]) - float(mb[k])) / max(abs(float(mb[k])), 1e-30)
             for k in ("loss", "ce", "aux")))
         out["params_err"].append(_lm_state_close(
-            [x[pod] for x in leaves_of(sb["params"])], sc["params"]))
-    out["params"] = [x.numpy() for x in leaves_of(sc["params"])]
+            [x[pod] for x in leaves_of(sb["params"])],
+            whole_params(sc["params"], cfg, mesh)))
+    out["params"] = [x.numpy() for x in
+                     leaves_of(whole_params(sc["params"], cfg, mesh))]
     return out
+
+
+def whole_params(tree, cfg, mesh):
+    """``tree`` (the params' tree of this rank's blocks under the
+    trainer's rules) gathered whole."""
+    from repro_torch.distributed import TRAIN_RULES, gather_whole
+    from repro_torch.models.transformer import arch_specs
+    return gather_whole(tree, arch_specs(cfg), mesh, TRAIN_RULES)
+
+
+@contextlib.contextmanager
+def clip_inputs():
+    """The gradients the trainer hands ``clip_by_global_norm`` inside the
+    ``with`` block (a step's summed gradients, this rank's blocks)."""
+    from repro_torch.train import trainer
+    grads, clip = [], trainer.clip_by_global_norm
+
+    def recorded(g, *a):
+        grads.append(g)
+        return clip(g, *a)
+
+    trainer.clip_by_global_norm = recorded
+    try:
+        yield grads
+    finally:
+        trainer.clip_by_global_norm = clip
 
 
 def leaves_of(tree) -> list:
@@ -542,10 +572,13 @@ def lm_pod_job(world: int, steps: int, interval: int) -> dict:
 
 
 def lm_reference_job(world: int, ref_npz: str, interval: int) -> dict:
-    """The (pod 2, data 2) pod form from the reference's initial params
-    (``ref_npz``, written by its ``_make_pod_shard_map_step`` run on the
-    same mesh): each step's metrics and the params after the last step."""
+    """The (pod 2, data 2) pod form (FSDP inside each pod) from the
+    reference's initial params (``ref_npz``, written by its
+    ``_make_pod_shard_map_step`` run on the same mesh): each step's
+    metrics and the whole params after the last step."""
     from repro_torch.configs import get_smoke_arch
+    from repro_torch.distributed import (TRAIN_RULES, shard_params,
+                                         train_state_specs)
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.transformer import arch_specs
     from repro_torch.nn import abstract_params
@@ -561,26 +594,32 @@ def lm_reference_job(world: int, ref_npz: str, interval: int) -> dict:
     params = _rebuild(abstract_params(arch_specs(cfg)),
                       iter(torch.from_numpy(ref[f"init{i}"])
                            for i in range(n)))
-    state = _state(cfg, settings, params)
-    step = make_train_step(cfg, settings, make_mesh(2, 2))
+    mesh = make_mesh(2, 2)
+    state = shard_params(_state(cfg, settings, params),
+                         train_state_specs(arch_specs(cfg), cfg.optimizer),
+                         mesh, TRAIN_RULES)
+    step = make_train_step(cfg, settings, mesh)
     metrics = []
     for i in range(len([k for k in ref.files if k.startswith("tokens")])):
         state, m = step(state, {k: torch.from_numpy(ref[f"{k}{i}"])
                                 for k in ("tokens", "labels", "mask")})
         metrics.append({k: float(v) for k, v in m.items()})
     return {"metrics": metrics,
-            "params": [x.numpy() for x in leaves_of(state["params"])]}
+            "params": [x.numpy() for x in
+                       leaves_of(whole_params(state["params"], cfg, mesh))]}
 
 
 def lm_dp_job(world: int, steps: int) -> dict:
-    """The ``every_step`` baseline on a ("data",) = world mesh against the
-    single process on the same global batches, for qwen3-0.6b (vocab 64)
-    and llama4-scout (the aux loss) SMOKE, under a mask whose counts
-    differ between the ranks' rows: the step-1 gradient (the ranks'
-    shares summed) against the batch's, each step's metrics, the params
-    after step 1 and after the last step, and the census.  A mesh with
-    no batch dimension above 1 gives the single-device step bit for bit;
-    a "model" dimension is refused."""
+    """The ``every_step`` baseline against the single process on the same
+    global batches, under the trainer's rules (FSDP over "data"): on a
+    ("data",) = 2 mesh at world 2 and a ("pod", "data") = 2 x 2 mesh at
+    world 4 (the batch split over both, each FSDP block held in both
+    pods), for qwen3-0.6b (vocab 64) and llama4-scout (the aux loss)
+    SMOKE, under a mask whose counts differ between the ranks' rows: the
+    step-1 gradient (the clip's input, gathered whole) against the
+    batch's, each step's metrics, the whole params after step 1 and
+    after the last step, and the census.  A mesh with no batch
+    dimension above 1 gives the single-device step bit for bit."""
     from repro_torch.configs import get_smoke_arch
     from repro_torch.core import collectives
     from repro_torch.launch.mesh import make_mesh
@@ -589,7 +628,7 @@ def lm_dp_job(world: int, steps: int) -> dict:
     from repro_torch.train import trainer
 
     settings = TrainSettings(total_steps=20, warmup_steps=2)
-    mesh = make_mesh(world)
+    mesh = make_mesh(2, pod=world // 2)
     rng = np.random.default_rng(5)
     out = {}
     for arch in ("qwen3-0.6b", "llama4-scout-17b-a16e"):
@@ -603,29 +642,29 @@ def lm_dp_job(world: int, steps: int) -> dict:
                             "labels": torch.from_numpy(toks[:, 1:]),
                             "mask": torch.from_numpy(mask)})
         single = init_train_state(cfg, settings, device="cpu")
-        dp = init_train_state(cfg, settings, device="cpu")
-        split = trainer._DataSplit(mesh, ["data"])
+        dp = init_train_state(cfg, settings, device="cpu", mesh=mesh)
         want = trainer.loss_and_grads(cfg, settings, single["params"],
                                       batches[0])
-        got = trainer._sum_shares(split, *trainer.loss_and_grads(
-            cfg, settings, dp["params"],
-            {k: split.rows(v) for k, v in batches[0].items()}, split))
-        res = {"grad_err": _lm_state_close(want[2], got[2]),
-               "loss_rel": [], "params_err": [], "census": []}
+        res = {"loss_rel": [], "params_err": [], "census": []}
         f1, f2 = make_train_step(cfg, settings), make_train_step(
             cfg, settings, mesh)
-        for b in batches:
+        for i, b in enumerate(batches):
             single, m1 = f1(single, b)
             collectives.reset_collectives()
-            dp, m2 = f2(dp, b)
+            with clip_inputs() as grads:
+                dp, m2 = f2(dp, b)
             res["census"].append(dict(collectives.COLLECTIVES))
+            if i == 0:
+                res["grad_err"] = _lm_state_close(
+                    want[2], whole_params(grads[0], cfg, mesh))
             res["loss_rel"].append(max(
                 abs(float(m2[k]) - float(m1[k]))
                 / max(abs(float(m1[k])), 1e-30) for k in ("loss", "ce",
                                                           "aux")))
-            res["params_err"].append(_lm_state_close(single["params"],
-                                                     dp["params"]))
-        res["params"] = [x.numpy() for x in leaves_of(dp["params"])]
+            res["params_err"].append(_lm_state_close(
+                single["params"], whole_params(dp["params"], cfg, mesh)))
+        res["params"] = [x.numpy() for x in
+                         leaves_of(whole_params(dp["params"], cfg, mesh))]
         out[arch] = res
     # A mesh whose batch dimensions are all 1: the single-device step.
     cfg = dataclasses.replace(get_smoke_arch("qwen3-0.6b"), vocab_size=64)
@@ -638,11 +677,6 @@ def lm_dp_job(world: int, steps: int) -> dict:
     out["data 1 is single"] = all(
         torch.equal(x, y) for x, y in zip(leaves_of([a, ma]),
                                           leaves_of([b, mb])))
-    try:
-        make_train_step(cfg, settings, make_mesh(1, model=world))
-        out["model refused"] = None
-    except ValueError as e:
-        out["model refused"] = str(e)
     return out
 
 
@@ -1000,8 +1034,9 @@ def _tp_bytes_ok(mine, specs, mesh) -> bool:
 
 def _tp_refusals(meshes) -> dict:
     """The tensor-parallel path's ValueErrors: the FSDP rule (parameters
-    over "data") in serving, and query heads that read parts of several
-    whole KV heads (6 heads over 3 KV heads on a 2-way "model")."""
+    over "data") in serving (a decode step), and query heads that read
+    parts of several whole KV heads (6 heads over 3 KV heads on a 2-way
+    "model", a prefill)."""
     from repro_torch.configs import get_smoke_arch
     from repro_torch.models import transformer as tt
     from repro_torch.nn import init_params
@@ -1009,15 +1044,268 @@ def _tp_refusals(meshes) -> dict:
     cfg = get_smoke_arch("qwen3-0.6b")
     odd = dataclasses.replace(cfg, num_heads=6, num_kv_heads=3, head_dim=16)
     toks = torch.zeros((4, 4), dtype=torch.long)
-    for label, c, mesh, rules in (
-            ("fsdp", cfg, meshes["2x2"], {"embed": "data"}),
-            ("kv heads", odd, meshes["1x2"], None)):
+
+    def decode(c, params, mesh, rules):
+        cache = tt.init_cache(c, 4, 8, device="cpu", mesh=mesh, rules=rules)
+        tt.decode_step(c, params, cache, toks[:, :1], mesh=mesh, rules=rules)
+
+    def prefill(c, params, mesh, rules):
+        tt.forward(c, params, toks, mesh=mesh, rules=rules)
+
+    for label, run, c, mesh, rules in (
+            ("fsdp", decode, cfg, meshes["2x2"], {"embed": "data"}),
+            ("kv heads", prefill, odd, meshes["1x2"], None)):
         params = init_params(tt.arch_specs(c),
                              torch.Generator().manual_seed(0), "cpu")
         try:
             with torch.no_grad():
-                tt.forward(c, params, toks, mesh=mesh, rules=rules)
+                run(c, params, mesh, rules)
             out[label] = None
         except ValueError as e:
             out[label] = str(e)
+    return out
+
+
+# The trainer's tensor parallelism and FSDP (tests/test_torch_tp_train.py):
+# each SMOKE config on ("replica", "model") = 2 x 2 (two 1 x 2 meshes side
+# by side) and ("data", "model") = 2 x 2 under the reference trainer's
+# rules {"embed": "data"}; the digest pod form on (pod 2, data 2, model 2).
+
+def tp_train_meshes() -> dict:
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.mesh import make_mesh
+    return {"1x2": init_device_mesh("cpu", (2, 2),
+                                    mesh_dim_names=("replica", "model")),
+            "2x2": make_mesh(2, model=2)}
+
+
+def _whole_state(cfg, settings, params_np) -> dict:
+    """The train state of the reference's parameters (numpy), whole: the
+    optimizer's zeros and step 0."""
+    from repro_torch.nn import params_from_numpy
+    from repro_torch.train import trainer
+    params = params_from_numpy(params_np, "cpu")
+    opt = trainer.make_arch_optimizer(cfg, settings)
+    return {"params": params, "opt_state": opt.init(params),
+            "step": torch.zeros((), dtype=torch.int32)}
+
+
+def _tp_run(cfg, settings, whole, batches, mesh) -> dict:
+    """``make_train_step`` over ``mesh`` from ``whole`` cut to this rank:
+    the step-1 gradient (the clip's input) gathered whole, each step's
+    metrics and census, and a digest of every leaf of the whole params
+    after the last step (every rank of the mesh must hold the same
+    bits); rank 0 also returns the whole gradient and params."""
+    from repro_torch.core import collectives
+    from repro_torch.distributed import (TRAIN_RULES, gather_whole,
+                                         shard_params, train_state_specs)
+    from repro_torch.models.transformer import arch_specs
+    from repro_torch.train import make_train_step
+
+    specs = train_state_specs(arch_specs(cfg), cfg.optimizer)
+    state = shard_params(whole, specs, mesh, TRAIN_RULES)
+    step = make_train_step(cfg, settings, mesh)
+    metrics, census = [], []
+    with clip_inputs() as grads:
+        for b in batches:
+            collectives.reset_collectives()
+            state, m = step(state, b)
+            census.append(dict(collectives.COLLECTIVES))
+            metrics.append({k: float(v) for k, v in m.items()})
+    grad1 = gather_whole(grads[0], arch_specs(cfg), mesh, TRAIN_RULES)
+    final = gather_whole(state, specs, mesh, TRAIN_RULES)
+    out = {"metrics": metrics, "census": census, "final": final,
+           "digests": [_digest(x) for x in leaves_of(final["params"])]}
+    if dist.get_rank() == 0:
+        out["grad1"] = [g.numpy() for g in leaves_of(grad1)]
+        out["params"] = [p.numpy() for p in leaves_of(final["params"])]
+    return out
+
+
+def tp_train_job(world: int, inputs: str) -> dict:
+    """Each config of ``inputs`` (parameters, overrides and batches) over
+    both :func:`tp_train_meshes` (:func:`_tp_run`); then the whole-leaf
+    statistics on cut leaves (:func:`_tp_units`) and a kill and resume
+    across meshes (:func:`_tp_resume`) on the 2 x 2 mesh."""
+    import pickle
+
+    from repro_torch.configs import get_smoke_arch
+    from repro_torch.train import TrainSettings
+
+    with open(inputs, "rb") as f:
+        data = pickle.load(f)
+    meshes = tp_train_meshes()
+    settings = TrainSettings(total_steps=20, warmup_steps=2)
+    out = {"rank": dist.get_rank(), "archs": {}}
+    for arch, entry in data.items():
+        cfg = dataclasses.replace(get_smoke_arch(arch), **entry["over"])
+        whole = _whole_state(cfg, settings, entry["params"])
+        batches = [{k: torch.from_numpy(v) for k, v in b.items()}
+                   for b in entry["batches"]]
+        out["archs"][arch] = {name: _tp_run(cfg, settings, whole, batches,
+                                            mesh)
+                              for name, mesh in meshes.items()}
+    out["units"] = _tp_units(meshes["2x2"])
+    entry = data["deepseek_coder_33b"]
+    cfg = dataclasses.replace(get_smoke_arch("deepseek_coder_33b"),
+                              **entry["over"])
+    out["resume"] = _tp_resume(
+        cfg, settings, _whole_state(cfg, settings, entry["params"]),
+        [{k: torch.from_numpy(v) for k, v in b.items()}
+         for b in entry["batches"]], meshes["2x2"],
+        out["archs"]["deepseek_coder_33b"]["2x2"]["final"],
+        os.path.dirname(inputs))
+    for runs in out["archs"].values():
+        for run in runs.values():
+            del run["final"]
+    return out
+
+
+def _tp_units(mesh) -> dict:
+    """On a ("data", "model") mesh, against the whole tensors on one
+    rank: the vocab-parallel NLL and its gradient block, the global norm
+    of leaves cut over "data", "model" and both, and one Adafactor update
+    of such leaves; the largest relative difference of each."""
+    from repro_torch.distributed import LeafGroups
+    from repro_torch.nn.layers import token_nll, vocab_parallel_nll
+    from repro_torch.optim import adafactor
+    from repro_torch.optim.optimizers import _global_norm
+
+    gen = torch.Generator().manual_seed(7)
+    d, m = mesh.get_local_rank("data"), mesh.get_local_rank("model")
+    dg, mg = mesh.get_group("data"), mesh.get_group("model")
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    out = {}
+    logits = torch.randn((3, 5, 64), generator=gen) * 4
+    labels = torch.randint(0, 64, (3, 5), generator=gen)
+    whole = logits.clone().requires_grad_(True)
+    want = token_nll(whole, labels)
+    want.sum().backward()
+    block = logits[..., 32 * m:32 * (m + 1)].clone().requires_grad_(True)
+    got = vocab_parallel_nll(block, labels, 32 * m, mg)
+    got.sum().backward()
+    out["nll"] = rel(got.detach(), want.detach())
+    out["nll_grad"] = rel(block.grad, whole.grad[..., 32 * m:32 * (m + 1)])
+    # Leaves (8, 6) cut: rows over "data", cols over "model", both, none.
+    cuts = {"d": ("data", None), "m": (None, "model"),
+            "dm": ("data", "model"), "w": (None, None)}
+    wholes = {k: torch.randn((8, 6), generator=gen) for k in cuts}
+    params = {k: torch.randn((8, 6), generator=gen) for k in cuts}
+
+    def block_of(t, names):
+        if names[0]:
+            t = t[4 * d:4 * (d + 1)]
+        if names[1]:
+            t = t[:, 3 * m:3 * (m + 1)]
+        return t.contiguous()
+
+    groups = {k: LeafGroups(names, tuple({"data": dg, "model": mg}.get(n)
+                                         for n in names),
+                            tuple(2 if n else 1 for n in names))
+              for k, names in cuts.items()}
+    grads = {k: block_of(v, cuts[k]) for k, v in wholes.items()}
+    out["norm"] = rel(_global_norm(grads, groups), _global_norm(wholes))
+    opt_whole, opt_cut = adafactor(1e-2), adafactor(1e-2, groups=groups)
+    pw, _ = opt_whole.update(wholes, opt_whole.init(params), params, 0)
+    local = {k: block_of(v, cuts[k]) for k, v in params.items()}
+    pc, _ = opt_cut.update(grads, opt_cut.init(local), local, 0)
+    out["adafactor"] = max(rel(pc[k], block_of(pw[k], cuts[k]))
+                           for k in cuts)
+    return out
+
+
+def _tp_resume(cfg, settings, whole, batches, mesh, straight,
+               tmp: str) -> dict:
+    """Kill and resume across meshes, through the launcher's checkpoint
+    path: ``straight`` (the whole state after every batch on ``mesh``
+    without a stop, :func:`_tp_run`'s) against 2 steps, the whole state
+    gathered and written by rank 0, restored on one process (rank 0
+    alone, ``init_train_state``'s template) and written again, then
+    restored over the mesh (cut again) and stepped on; the resumed
+    state, gathered, bit for bit, and the one process's restore against
+    the gathered state."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.core import collectives
+    from repro_torch.distributed import (TRAIN_RULES, gather_whole,
+                                         shard_params)
+    from repro_torch.launch.train import state_specs, whole_template
+    from repro_torch.train import init_train_state, make_train_step
+
+    specs = state_specs(cfg)
+    step = make_train_step(cfg, settings, mesh)
+    state = shard_params(whole, specs, mesh, TRAIN_RULES)
+    for b in batches[:2]:
+        state, _ = step(state, b)
+    a, b_dir = os.path.join(tmp, "ckpt_mesh"), os.path.join(tmp, "ckpt_one")
+    gathered = gather_whole(state, specs, mesh, TRAIN_RULES)
+    if dist.get_rank() == 0:
+        save_checkpoint(a, 2, gathered)
+        one, at = restore_checkpoint(
+            a, init_train_state(cfg, settings, device="cpu"))
+        one_equal = _bits_equal(one, gathered) and at == 2
+        save_checkpoint(b_dir, 2, one)
+    collectives.barrier()
+    resumed, at = restore_checkpoint(
+        b_dir, whole_template(cfg, state, mesh),
+        sharding=lambda t: shard_params(t, specs, mesh, TRAIN_RULES))
+    for b in batches[2:]:
+        resumed, _ = step(resumed, b)
+    out = {"equal": _bits_equal(gather_whole(resumed, specs, mesh,
+                                             TRAIN_RULES), straight)
+           and at == 2}
+    if dist.get_rank() == 0:
+        out["one_equal"] = one_equal
+    return out
+
+
+def _bits_equal(a, b) -> bool:
+    la, lb = leaves_of(a), leaves_of(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def tp_pod_job(world: int, inputs: str) -> dict:
+    """The digest pod form (``pod_impl="shard_map"``, interval 5) of
+    qwen3-0.6b SMOKE at 4 heads / 2 KV heads over (pod 2, data 2, model 2)
+    from ``inputs``' parameters: each step's metrics and census, and this
+    pod's whole params after the last step (its pod's rank 0 returns
+    them)."""
+    import pickle
+
+    from repro_torch.configs import get_smoke_arch
+    from repro_torch.core import collectives
+    from repro_torch.distributed import (TRAIN_RULES, gather_whole,
+                                         shard_params, train_state_specs)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import arch_specs
+    from repro_torch.train import TrainSettings, make_train_step
+
+    with open(inputs, "rb") as f:
+        entry = pickle.load(f)
+    cfg = dataclasses.replace(get_smoke_arch("qwen3_0_6b"), num_heads=4,
+                              num_kv_heads=2)
+    settings = TrainSettings(sync_mode="digest", n_pod=2,
+                             pod_impl="shard_map", sync_interval=5,
+                             total_steps=20, warmup_steps=2)
+    mesh = make_mesh(2, pod=2, model=2)
+    specs = train_state_specs(arch_specs(cfg), cfg.optimizer)
+    state = shard_params(_whole_state(cfg, settings, entry["params"]), specs,
+                         mesh, TRAIN_RULES)
+    step = make_train_step(cfg, settings, mesh)
+    metrics, census = [], []
+    for b in entry["batches"]:
+        collectives.reset_collectives()
+        state, m = step(state, {k: torch.from_numpy(v) for k, v in b.items()})
+        census.append(dict(collectives.COLLECTIVES))
+        metrics.append({k: float(v) for k, v in m.items()})
+    final = gather_whole(state["params"], arch_specs(cfg), mesh, TRAIN_RULES)
+    out = {"pod": mesh.get_local_rank("pod"), "metrics": metrics,
+           "census": census,
+           "digests": [_digest(x) for x in leaves_of(final)]}
+    if dist.get_rank() % 4 == 0:
+        out["params"] = [p.numpy() for p in leaves_of(final)]
     return out
