@@ -325,6 +325,18 @@ Phases, each ending the run with a non-zero exit on failure:
     2, 4 and 8 from the placement (nothing allocated).  Only K6
     launches, once an attention block a prefill on each rank.
 
+21. Sharded LM training (the trainer's tensor parallelism and FSDP over
+    gloo ranks sharing card 0; the constants' comment).
+22. The dry run (``repro_torch.launch.dryrun``, meta tensors, nothing
+    allocated): (a) qwen3-0.6b's bf16 prefill of 4 x 1024 tokens through
+    K6, dry at world 1 and then for real on the card: the dry ledger's K6
+    calls equal the real launches (28), and the predicted peak memory
+    lies within 10% of ``torch.cuda.max_memory_allocated`` over the run;
+    the predicted H100 terms (data-sheet peaks) beside the measured wall
+    ms; (b) the GNN dry run's three CI records at 2 x 16 x 16 (fp32; int8
+    at 2 parts a rank; the ema predictor), run as processes of their own
+    from the phase's start, gated by ``census_check --records 3``.
+
 Each path's launch counters are set to 0 just before it and read just
 after; the oracle runs launch nothing.  The last lines are the card's
 ``nvidia-smi`` line, one JSON object ``{"kernels": [...]}`` (each
@@ -334,7 +346,8 @@ as "collective training" and "sharded serving", summed over its ranks,
 phase 17's as "lm training", 0 for every kernel, phase 18's VLM
 prefills as "vlm prefill" and "vlm fp32 prefill", phase 19's as "moe ep
 mesh prefill", summed over (b)'s ranks, each rank's beside it, phase
-20's as "tp prefill" and "tp fp32 prefill", summed over its ranks),
+20's as "tp prefill" and "tp fp32 prefill", summed over its ranks,
+phase 22's real prefill as "dry run prefill"),
 its
 worst error, its bar and the times of its main-path variant; K3's also
 its chunk walk's and its times at the training shape; K6 one entry a
@@ -481,7 +494,8 @@ TRAINING_KERNELS = ("spmm", "halo_spmm", "halo_spmm_skip", "spmm_bwd_table",
                     "spmm_bwd_wts")
 # The paths each later kernel runs on, beside serving and training.
 PATH_OF = {"flash_attention": ("prefill", "moe prefill", "vlm prefill",
-                               "moe ep mesh prefill", "tp prefill"),
+                               "moe ep mesh prefill", "tp prefill",
+                               "dry run prefill"),
            "flash_attention_fp32": ("fp32 prefill", "moe fp32 prefill",
                                     "vlm fp32 prefill", "tp fp32 prefill"),
            "gat_edge_partial": ("gat_aggregate",)}
@@ -718,6 +732,25 @@ TT_DEEPSEEK_LAYERS = 2
 TT_BATCH = 2
 TT_SEQ = 1024
 TT_STEPS = {TT_QWEN: 4, TT_DEEPSEEK: 2}
+
+# Phase 22: the dry run (repro_torch.launch.dryrun, meta tensors, nothing
+# allocated).  (a) qwen3-0.6b's bf16 prefill of LM_BATCH x LM_SEQ int32
+# tokens through K6 (phase 9's) dry at world 1, then for real on the
+# card (weights from a CUDA generator, seed 0; a warm-up, then the run
+# measured): the dry ledger's K6 calls equal the launches counted in the
+# real run, and the dry run's predicted peak (mem_peak_bytes, its state
+# and batch included) lies within DRY_PEAK_TOL of the card's
+# max_memory_allocated over the run less what was allocated before the
+# weights; the dry run's H100 roofline terms (data-sheet peaks: a
+# prediction) printed beside the real run's wall ms.  (b) the GNN dry
+# run's three CI records at 2 x 16 x 16 (DRY_GNN_RECORDS: fp32, int8 at 2
+# parts a rank, the ema predictor), each its own process started at the
+# phase's start, gated by census_check --records 3 (zero all_gathers, the
+# all_to_all pull and the pod hop's sends).
+DRY_PEAK_TOL = 0.10
+DRY_GNN_RECORDS = ([], ["--precision", "int8", "--parts-per-device", "2"],
+                   ["--predictor", "ema"])
+DRY_GNN_TIMEOUT = 300
 
 # Kernels redesigned for Hopper, by source: ptxas's register and spill
 # lines of their instantiations are printed after the build.
@@ -6464,6 +6497,123 @@ def ranks_max(ranks, arch, mesh) -> dict:
             "gathers_a_forward": ranks[0][arch][mesh]["gathers_a_forward"]}
 
 
+def dry_run_phase(torch, dev, smi) -> dict:
+    """Phase 22: (a) and (b) (the constants' comment).  Returns the
+    phase's summary with K6's launches on (a)'s real prefill."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp()
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = []
+    for i, extra in enumerate(DRY_GNN_RECORDS):
+        out = f"{tmp}/census-{i}.jsonl"
+        procs.append((out, extra, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun_gnn",
+             "--multi-pod", "--pull", "collective", "--out", out, *extra],
+            env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+            text=True)))
+    try:
+        res = _dry_prefill(torch, dev, smi)
+        t_gnn = time.perf_counter()
+        records = []
+        for out, extra, proc in procs:
+            _, err = proc.communicate(timeout=DRY_GNN_TIMEOUT)
+            check(proc.returncode == 0,
+                  f"dryrun_gnn {extra}: exit {proc.returncode}: "
+                  f"{err[-3000:]}")
+            with open(out) as f:
+                records += [json.loads(line) for line in f if line.strip()]
+        census = f"{tmp}/census-multipod.jsonl"
+        with open(census, "w") as f:
+            f.writelines(json.dumps(r) + "\n" for r in records)
+        from repro_torch.launch import census_check
+        rc = census_check.main([census, "--records", "3"])
+        check(rc == 0, f"census_check of the GNN dry run's records: exit "
+              f"{rc}")
+        res["gnn"] = [{k: r[k] for k in (
+            "mesh", "precision", "parts_per_device", "predictor",
+            "collective_counts", "collective_per_op",
+            "collective_inter_pod_bytes", "compute_term_s", "memory_term_s",
+            "collective_term_s", "mem_peak_bytes", "t_dry_s")}
+            for r in records]
+        res["gnn_wait_s"] = time.perf_counter() - t_gnn
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps({"dry_run": res}), flush=True)
+    print(f"phase 22: {res['seconds']:.1f} s", flush=True)
+    return res
+
+
+def _dry_prefill(torch, dev, smi) -> dict:
+    """Phase 22 (a)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun
+    from repro_torch.models.transformer import arch_specs, forward
+    from repro_torch.nn import init_params
+
+    cfg = dataclasses.replace(get_arch("qwen3-0.6b"), attn_backend="kernel")
+    shape = {"seq": LM_SEQ, "batch": LM_BATCH, "kind": "prefill"}
+    dry = dryrun.lm_case(cfg, shape, None)
+    gc_cuda(torch)
+    base = torch.cuda.memory_allocated(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(arch_specs(cfg), gen, dev)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ),
+                           generator=gen, device=dev, dtype=torch.int32)
+    with torch.inference_mode():
+        forward(cfg, params, tokens)                  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        logits = forward(cfg, params, tokens)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    check(logits.shape == (LM_BATCH, LM_SEQ, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          "dry-run phase: the real prefill's logits are malformed")
+    del logits, params, tokens
+    gc_cuda(torch)
+    k6 = dry["kernels"].get("flash_attention", {}).get("calls", 0)
+    check(launches["flash_attention"] == cfg.num_layers == k6
+          and sum(launches.values()) == k6,
+          f"dry-run phase: the dry ledger's K6 calls {k6} against the real "
+          f"launches {launches} (expected {cfg.num_layers})")
+    rel = abs(dry["mem_peak_bytes"] - peak) / peak
+    terms = {k: dry[k] for k in ("compute_term_s", "memory_term_s",
+                                 "collective_term_s")}
+    print(f"card: {smi}", flush=True)
+    print(f"phase 22 (a) qwen3-0.6b bf16 prefill {LM_BATCH} x {LM_SEQ}: "
+          f"K6 {k6} dry calls, {launches['flash_attention']} launches; "
+          f"peak memory predicted {dry['mem_peak_bytes']} B (the dry run), "
+          f"measured {peak} B (max_memory_allocated less the "
+          f"{base} B allocated before), {100 * rel:.2f}% apart; predicted "
+          f"terms from data-sheet peaks {terms}, measured wall "
+          f"{ms:.2f} ms", flush=True)
+    check(rel <= DRY_PEAK_TOL,
+          f"dry-run phase: predicted peak {dry['mem_peak_bytes']} B is "
+          f"{100 * rel:.1f}% from the measured {peak} B (bar "
+          f"{100 * DRY_PEAK_TOL:.0f}%)")
+    return {"arch": cfg.name, "batch": LM_BATCH, "seq": LM_SEQ,
+            "k6_dry_calls": k6, "launches": launches,
+            "predicted_peak_bytes": dry["mem_peak_bytes"],
+            "measured_peak_bytes": peak, "allocated_before_bytes": base,
+            "peak_rel_diff": rel, "predicted": terms,
+            "flops_by_dtype": dry["flops_by_dtype"],
+            "hbm_bytes": dry["hbm_bytes"], "device_ops": dry["device_ops"],
+            "measured_ms": ms, "card": smi}
+
+
 def gc_cuda(torch) -> None:
     import gc
     gc.collect()
@@ -6547,6 +6697,9 @@ def main() -> None:
                           "tp fp32 prefill": tp["fp32_launches"]})
     gc_cuda(torch)
     tt = tensor_parallel_training(torch, dev, smi)
+    gc_cuda(torch)
+    dry = dry_run_phase(torch, dev, smi)
+    path_launches["dry run prefill"] = dry["launches"]
     torch.cuda.synchronize()
     print(f"phases: serving {t_serve:.1f} s, training {t_train:.1f} s (of "
           f"which SAT training {sat['seconds']:.1f} s, sampled training "
@@ -6558,7 +6711,8 @@ def main() -> None:
           f"{lm_train['seconds']:.1f} s, the last three architectures "
           f"{last['seconds']:.1f} s, the mesh forms {mesh['seconds']:.1f} "
           f"s, tensor parallelism {tp['seconds']:.1f} s, sharded "
-          f"training {tt['seconds']:.1f} s); the script "
+          f"training {tt['seconds']:.1f} s, the dry run "
+          f"{dry['seconds']:.1f} s); the script "
           f"{time.perf_counter() - T_START:.1f} s", flush=True)
     records = serve_records + train_records + lm_records
     kernels = []

@@ -4,6 +4,15 @@ op's entry of :data:`COLLECTIVES` — the collective census, counted the
 way ``kernels._build.LAUNCHES`` counts kernel launches (it replaces the
 reference's census of the compiled HLO).
 
+Each call also adds its result's bytes to its op's entry of
+:data:`COLLECTIVE_BYTES` (the reference's convention: a gather counts
+the whole gathered result; a send / receive pair counts once, at the
+receive) and to one span of :data:`COLLECTIVE_SPANS`, from the ranks of
+its group: ``intra_host`` where they all sit on one host of
+:data:`CARDS_PER_HOST` cards, else ``inter_host``, and ``inter_pod`` as
+well where they span pods of :data:`POD_RANKS` ranks (set by the mesh
+builders of ``launch.mesh``; 0: one pod).
+
 Ops and their census names: ``all_to_all`` (``all_to_all_single``,
 also the backward's of :func:`fsdp_gather`), ``all_reduce``,
 ``all_gather`` (also the one gather of :func:`ordered_sum`,
@@ -43,17 +52,55 @@ import torch
 import torch.distributed as dist
 
 COLLECTIVES: collections.Counter = collections.Counter()
+COLLECTIVE_BYTES: collections.Counter = collections.Counter()
+COLLECTIVE_SPANS: collections.Counter = collections.Counter()
+
+# Cards a host (NVIDIA's DGX H100: 8 cards on NVLink), and ranks a pod
+# (0: the job is one pod).
+CARDS_PER_HOST = 8
+POD_RANKS = 0
 
 
 def reset_collectives() -> None:
     COLLECTIVES.clear()
+    COLLECTIVE_BYTES.clear()
+    COLLECTIVE_SPANS.clear()
+
+
+def set_pod_ranks(ranks: int) -> None:
+    """Ranks a pod for the census's ``inter_pod`` span (0: one pod)."""
+    global POD_RANKS
+    POD_RANKS = int(ranks)
+
+
+def _count(op: str, nbytes: int, ranks) -> None:
+    """The census of one call: its op, its result bytes and their span
+    over the global ``ranks`` it joins."""
+    COLLECTIVES[op] += 1
+    if not nbytes:
+        return
+    COLLECTIVE_BYTES[op] += nbytes
+    lo, hi = min(ranks), max(ranks)
+    host = lo // CARDS_PER_HOST != hi // CARDS_PER_HOST
+    COLLECTIVE_SPANS["inter_host" if host else "intra_host"] += nbytes
+    if POD_RANKS and lo // POD_RANKS != hi // POD_RANKS:
+        COLLECTIVE_SPANS["inter_pod"] += nbytes
+
+
+def _ranks(group) -> list:
+    return dist.get_process_group_ranks(
+        dist.group.WORLD if group is None else group)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def all_to_all_single(output: torch.Tensor, input: torch.Tensor,
                       group=None) -> torch.Tensor:
     """``output`` ← the equal dim-0 blocks of every rank's ``input``
     destined for this rank, in group-rank order."""
-    COLLECTIVES["all_to_all"] += 1
+    _count("all_to_all", _nbytes(output), _ranks(group))
     dist.all_to_all_single(output, input, group=group)
     return output
 
@@ -61,17 +108,17 @@ def all_to_all_single(output: torch.Tensor, input: torch.Tensor,
 def all_reduce(tensor: torch.Tensor, op=dist.ReduceOp.SUM,
                group=None) -> torch.Tensor:
     """In-place all-reduce of ``tensor``."""
-    COLLECTIVES["all_reduce"] += 1
+    _count("all_reduce", _nbytes(tensor), _ranks(group))
     dist.all_reduce(tensor, op=op, group=group)
     return tensor
 
 
 def all_gather(tensor: torch.Tensor, group=None) -> list:
     """Every rank's ``tensor`` (equal shapes), in group-rank order."""
-    COLLECTIVES["all_gather"] += 1
     tensor = tensor.contiguous()
-    outs = [torch.empty_like(tensor)
-            for _ in range(dist.get_world_size(group))]
+    ranks = _ranks(group)
+    _count("all_gather", len(ranks) * _nbytes(tensor), ranks)
+    outs = [torch.empty_like(tensor) for _ in ranks]
     dist.all_gather(outs, tensor, group=group)
     return outs
 
@@ -194,8 +241,11 @@ def exchange(sends: list, recvs: list, group=None) -> None:
     pairs (``peer`` a global rank), posted together with
     ``dist.batch_isend_irecv`` and waited on; each received tensor is
     written in place."""
-    COLLECTIVES["send"] += len(sends)
-    COLLECTIVES["recv"] += len(recvs)
+    me = dist.get_rank()
+    for _, peer in sends:
+        _count("send", 0, (me, peer))
+    for t, peer in recvs:
+        _count("recv", _nbytes(t), (me, peer))
     s_buf = [_host(t, group) for t, _ in sends]
     r_buf = [_host(t, group) for t, _ in recvs]
     ops = ([dist.P2POp(dist.isend, b, peer, group)
@@ -210,5 +260,5 @@ def exchange(sends: list, recvs: list, group=None) -> None:
 
 
 def barrier(group=None) -> None:
-    COLLECTIVES["barrier"] += 1
+    _count("barrier", 0, ())
     dist.barrier(group=group)

@@ -17,6 +17,12 @@ Launch counters live here too: each wrapper adds one to its entry of
 can show that its main path went through the kernels.  So does
 :func:`no_backward`, the guard of the wrappers whose kernels have no
 backward.
+
+On ``meta`` tensors (the dry run, ``launch.dryrun``) a wrapper runs its
+checks and allocates its outputs as on the card, and in the place of the
+launch adds the kernel's work to :data:`DRY` through :func:`dry_launch`:
+its calls, FLOPs and bytes (each input byte read once, each output byte
+written once), never to :data:`LAUNCHES`.
 """
 from __future__ import annotations
 
@@ -42,6 +48,12 @@ LAUNCHES = {"spmm": 0, "halo_spmm": 0, "halo_spmm_stream": 0,
             "halo_spmm_skip": 0, "spmm_bwd_table": 0, "spmm_bwd_wts": 0,
             "flash_attention": 0, "gat_edge_partial": 0}
 
+# The dry ledger: name -> {"calls", "flops", "bytes", "basis",
+# "flops_by_dtype"}.  "slots"
+# marks work that depends on the data (nonzero ELL weights, distinct rows
+# referenced), counted at every slot the shapes give.
+DRY: dict[str, dict] = {}
+
 _LIBS: dict[str, ctypes.CDLL] = {}
 _FNS: dict[tuple[str, str], object] = {}
 
@@ -54,6 +66,29 @@ def dtype_code(dtype) -> int:
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def reset_dry() -> None:
+    DRY.clear()
+
+
+def dry_launch(name: str, flops: int, nbytes: int, basis: str = "shape",
+               dtype: str = "float32") -> None:
+    """Count one kernel call of a meta run (module docstring); ``dtype``
+    names the arithmetic's type (its peak rate on the card)."""
+    rec = DRY.setdefault(name, {"calls": 0, "flops": 0, "bytes": 0,
+                                "basis": basis, "flops_by_dtype": {}})
+    rec["calls"] += 1
+    rec["flops"] += int(flops)
+    rec["bytes"] += int(nbytes)
+    by = rec["flops_by_dtype"]
+    by[dtype] = by.get(dtype, 0) + int(flops)
+
+
+def nbytes(*tensors) -> int:
+    """The bytes of ``tensors`` (None counts 0)."""
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
 
 
 def _nvcc() -> str:

@@ -36,7 +36,9 @@ The wrappers also take ``(B, H, S, D)`` tensors with any strides over the
 first three dims (a ``transpose(1, 2)`` view of the transformer's
 ``(B, S, H, D)`` activations): the kernel reads and writes through the
 strides, so no copy is made.  On the card bf16 tensors are read by TMA,
-which needs 16-byte aligned bases and strides (:func:`check_tma`).
+which needs 16-byte aligned bases and strides (:func:`check_tma`).  On
+meta tensors the wrapper runs the card's checks and counts the kernel's
+work in the dry ledger (``kernels._build.dry_launch``).
 """
 from __future__ import annotations
 
@@ -88,7 +90,7 @@ def _check(q, k, v) -> None:
     if not (q.device == k.device == v.device):
         raise ValueError(f"q/k/v on different devices: {q.device} / "
                          f"{k.device} / {v.device}")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
 
 
@@ -208,6 +210,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if max(b * h, s) >= 2 ** 31 or -(-s // BLOCKS[q.dtype][0]) > 65535:
         raise ValueError(f"shape {tuple(q4.shape)} too large for the grid")
     out = torch.empty_like(q4)     # q4's strides where q4 is dense
+    if q.is_meta:
+        pairs = s * (s + 1) // 2 if causal else s * s
+        _build.dry_launch("flash_attention", 4 * b * h * d * pairs,
+                          _build.nbytes(q4, k4, v4, out),
+                          dtype=str(q.dtype).split(".")[-1])
+        return out.reshape(q.shape) if q.dim() == 3 else out
     scale = d ** -0.5 if sm_scale is None else sm_scale
     i64 = ctypes.c_longlong
     fn = _build.kernel_fn("flash_attention", "flash_attention_launch", [

@@ -8,8 +8,9 @@ DIGEST's in- and out-of-subgraph edge sets.  :func:`gat_edge_partial_cuda`
 launches the hand-written kernel ``csrc/gat_edge.cu`` on CUDA tensors and
 runs :func:`gat_edge_partial_plain`, the kernel's arithmetic in its two
 phases (every slot's running max, alpha and p at once; then the ordered
-l / acc chain) in plain PyTorch, on CPU tensors.  There is no fallback: a
-CUDA tensor launches the kernel or raises.
+l / acc chain) in plain PyTorch, on CPU tensors; on meta tensors it
+counts its work in the dry ledger (``kernels._build.dry_launch``).
+There is no fallback: a CUDA tensor launches the kernel or raises.
 
 Replaces the TPU kernel
 ``src/repro/kernels/gat_edge/gat_edge.py::gat_edge_partial_pallas``
@@ -29,6 +30,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.spmm.spmm import rows_read
 
 NEG_INF = -1e30
 LEAKY_SLOPE = 0.2
@@ -53,7 +55,7 @@ def _check(nbr, valid, s_dst, s_src, z) -> None:
     if len({t.device for t in tensors}) != 1:
         raise ValueError("nbr/valid/s_dst/s_src/z on different devices: "
                          f"{[str(t.device) for t in tensors]}")
-    if nbr.device.type not in ("cpu", "cuda"):
+    if nbr.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {nbr.device}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("nbr, valid, s_dst, s_src and z must be contiguous")
@@ -126,6 +128,14 @@ def gat_edge_partial_cuda(nbr: torch.Tensor, valid: torch.Tensor,
     m = torch.empty((rows,), dtype=torch.float32, device=z.device)
     l = torch.empty((rows,), dtype=torch.float32, device=z.device)
     if rows == 0:
+        return acc, m, l
+    if z.is_meta:
+        # Every slot is taken: the score, two subtractions, two exps, l's
+        # multiply-add and three operations a feature (PERF.md's bound).
+        _build.dry_launch("gat_edge_partial", nbr.numel() * (3 * feat + 8),
+                          _build.nbytes(nbr, valid, s_dst, acc, m, l)
+                          + rows_read(nbr, z) + rows_read(nbr, s_src),
+                          "slots")
         return acc, m, l
     fn = _build.kernel_fn("gat_edge", "gat_edge_partial_launch", [
         *([ctypes.c_void_p] * 8), ctypes.c_int, ctypes.c_int, ctypes.c_int,

@@ -28,10 +28,12 @@ into the same loop.
 All launch ``csrc/halo_pull.cu`` on CUDA tensors and run their plain
 PyTorch versions (:func:`halo_spmm_plain`, :func:`halo_spmm_stream_plain`,
 :func:`halo_spmm_skip_plain`) on CPU tensors; a CUDA tensor launches the
-kernel or raises.  They have no backward: the slab is stale state and the
-weights are constants on every path that reaches them (DIGEST detaches
-its halo tables), so each raises on an input that requires grad rather
-than return a result cut off from autograd.  The source note in
+kernel or raises.  On meta tensors they count their work in the dry
+ledger (``kernels._build.dry_launch``).  They have no backward: the
+slab is stale state and the weights are constants on every path that
+reaches them (DIGEST detaches its halo tables), so each raises on an
+input that requires grad rather than return a result cut off from
+autograd.  The source note in
 ``csrc/halo_pull.cu`` says what bounds them on the card and how the
 masking of out-of-chunk edges differs from the TPU kernel.
 """
@@ -42,7 +44,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.spmm.spmm import check_ell, spmm_cuda
+from repro_torch.kernels.spmm.spmm import check_ell, rows_read, spmm_cuda
 
 # Slab rows per chunk of the streamed kernel, as on the TPU: the chunk
 # geometry decides the summation order, so both packages keep one value.
@@ -199,14 +201,23 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
 
 
 def _launch(symbol, counter, nbr, wts, data, scale, pdata, pscale, gamma,
-            extra=(), extra_types=()):
-    if data.device.type != "cuda":
+            extra=(), extra_types=(), read=()):
+    """Launch ``symbol`` on CUDA tensors; on meta tensors add its dry
+    count (``read``: the further inputs it reads whole, the worklist)."""
+    if data.device.type not in ("cuda", "meta"):
         raise ValueError(f"{symbol}: unsupported device {data.device}")
     rows, deg = nbr.shape
     n_tab, feat = data.shape
     out = torch.empty((rows, feat), dtype=torch.float32,
                       device=data.device)
     if out.numel() == 0:
+        return out
+    if data.is_meta:
+        slabs = [t for t in (data, scale, pdata, pscale) if t is not None]
+        _build.dry_launch(
+            counter, 2 * nbr.numel() * feat * (1 + (pdata is not None)),
+            _build.nbytes(nbr, wts, out, *read)
+            + sum(rows_read(nbr, t) for t in slabs), "slots")
         return out
     fn = _build.kernel_fn("halo_pull", symbol,
                           _ARGTYPES + list(extra_types) + [ctypes.c_void_p])
@@ -315,5 +326,5 @@ def halo_spmm_skip_cuda(nbr, wts, data, scale=None, wl_ids=None,
                   (int(chunk_rows), _build.ptr(wl_ids), _build.ptr(wl_cnt),
                    int(wl_ids.shape[1]), _build.ptr(visits)),
                   (ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_void_p))
+                   ctypes.c_int, ctypes.c_void_p), (wl_ids, wl_cnt, visits))
     return (out, visits) if count_visits else out

@@ -79,13 +79,22 @@ def check_ell(nbr: torch.Tensor, wts: torch.Tensor,
 
 
 def _device_of(t: torch.Tensor, what: str) -> None:
-    if t.device.type not in ("cpu", "cuda"):
+    if t.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{what}: unsupported device {t.device}")
+
+
+def rows_read(nbr: torch.Tensor, table: torch.Tensor) -> int:
+    """Bytes of the ``table`` rows an ELL ``nbr`` reads, for a dry count:
+    a row per slot, at most every row of the table (the distinct rows
+    referenced depend on the data)."""
+    return (min(nbr.numel(), table.shape[0]) * table[0].numel()
+            * table.element_size())
 
 
 def _spmm_forward(nbr: torch.Tensor, wts: torch.Tensor,
                   table: torch.Tensor) -> torch.Tensor:
-    """K1 on CUDA tensors, its plain version on CPU tensors."""
+    """K1 on CUDA tensors, its plain version on CPU tensors, its dry
+    count on meta tensors."""
     _device_of(table, "spmm_cuda")
     if table.device.type == "cpu":
         return spmm_plain(nbr, wts, table)
@@ -94,6 +103,11 @@ def _spmm_forward(nbr: torch.Tensor, wts: torch.Tensor,
     out = torch.empty((rows, feat), dtype=torch.float32,
                       device=table.device)
     if out.numel() == 0:
+        return out
+    if table.is_meta:
+        _build.dry_launch("spmm", 2 * nbr.numel() * feat,
+                          _build.nbytes(nbr, wts, out)
+                          + rows_read(nbr, table), "slots")
         return out
     fn = _build.kernel_fn("spmm", "spmm_launch", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
@@ -164,7 +178,8 @@ def spmm_bwd_table(pos: torch.Tensor, wts: torch.Tensor,
     """``dtable[j] = sum_{(i,k): nbr[i,k]=j} wts[i,k] * g[i]`` through the
     transposed ELL ``pos`` (n_tab, t_deg) of :func:`ell_transpose`; the
     kernel ``csrc/spmm_bwd.cu`` on CUDA tensors, the plain version on CPU
-    tensors.  Returns (n_tab, feat) float32; the sentinel row is 0."""
+    tensors, the dry count on meta tensors.  Returns (n_tab, feat)
+    float32; the sentinel row is 0."""
     rows, deg = wts.shape
     n_tab, t_deg = pos.shape
     if pos.dtype != torch.int32 or wts.dtype != torch.float32:
@@ -185,6 +200,10 @@ def spmm_bwd_table(pos: torch.Tensor, wts: torch.Tensor,
     out = torch.empty((n_tab, feat), dtype=torch.float32, device=g.device)
     if out.numel() == 0:
         return out
+    if g.is_meta:
+        _build.dry_launch("spmm_bwd_table", 2 * wts.numel() * feat,
+                          _build.nbytes(pos, wts, g, out), "slots")
+        return out
     fn = _build.kernel_fn("spmm_bwd", "spmm_bwd_table_launch", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -201,9 +220,9 @@ def spmm_bwd_wts(nbr: torch.Tensor, g: torch.Tensor,
                  table: torch.Tensor) -> torch.Tensor:
     """``dwts[i, k] = <g[i], table[nbr[i, k]]>``; the kernel
     ``csrc/spmm_bwd.cu`` on CUDA tensors, the plain version on CPU
-    tensors.  Slots on the sentinel row (``n_tab - 1``) share one value a
-    row, equal to each slot's own for any sentinel contents.  Returns
-    (rows, deg) float32."""
+    tensors, the dry count on meta tensors.  Slots on the sentinel row
+    (``n_tab - 1``) share one value a row, equal to each slot's own for
+    any sentinel contents.  Returns (rows, deg) float32."""
     check_ell(nbr, None, table)
     rows, deg = nbr.shape
     feat = table.shape[1]
@@ -213,6 +232,11 @@ def spmm_bwd_wts(nbr: torch.Tensor, g: torch.Tensor,
         return spmm_bwd_wts_plain(nbr, g, table)
     out = torch.empty((rows, deg), dtype=torch.float32, device=table.device)
     if out.numel() == 0:
+        return out
+    if table.is_meta:
+        _build.dry_launch("spmm_bwd_wts", 2 * nbr.numel() * feat,
+                          _build.nbytes(nbr, g, out)
+                          + rows_read(nbr, table), "slots")
         return out
     fn = _build.kernel_fn("spmm_bwd", "spmm_bwd_wts_launch", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,

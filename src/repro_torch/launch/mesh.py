@@ -1,8 +1,11 @@
 """The mesh the multi-GPU paths run over: a
 ``torch.distributed.device_mesh.DeviceMesh`` with dimension names
 ``("data",)`` or ``("pod", "data")``, and ``"model"`` last where the
-experts are sharded (the mesh constructor of ``repro.launch.mesh``; its
-TPU constants stay there).
+experts are sharded (the mesh constructor of ``repro.launch.mesh``), the
+production mesh (:func:`make_production_mesh`), the H100 constants of
+the dry run's roofline terms in place of the reference's TPU ones, and
+:func:`dry_group`, the stand-in process group the dry run
+(``launch.dryrun``) runs one rank of.
 
 On a ``("pod", "data")`` mesh rank ``p·data + d`` sits at coordinate
 ``(p, d)``, which is the reference's combined block index
@@ -21,6 +24,7 @@ Run under ``torchrun`` (``env://``):
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import os
 
@@ -31,6 +35,21 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 from repro_torch.device import resolve_device
 
 BACKENDS = ("nccl", "gloo")
+
+# Hardware constants of the dry run's roofline terms: NVIDIA H100 SXM5
+# 80GB HBM3 at 700 W, published peaks (NVIDIA H100 Tensor Core GPU data
+# sheet, SXM5 column, dense, no sparsity): the tensor cores' bf16 and
+# TF32 rates, fp32 outside the tensor cores, HBM3 bandwidth, NVLink 4
+# (900 GB/s a card both ways, 450e9 each way).  The network: one 400 Gb/s
+# NDR InfiniBand port a card (NVIDIA DGX H100 user guide: eight ConnectX-7
+# ports for eight cards), 50e9 B/s each way.  Predictions from data-sheet
+# peaks, not measurements.
+PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "tf32": 495e12,
+              "float32": 67e12}
+HBM_BW = 3.35e12             # bytes/s a card
+NVLINK_BW = 450e9            # bytes/s a card, each way
+NET_BW = 50e9                # bytes/s a card, each way
+POD_SHAPE = (16, 16)         # ("data", "model") of one production pod
 
 
 def make_mesh(data: int, pod: int = 1, device_type: str = "cpu",
@@ -50,8 +69,58 @@ def make_mesh(data: int, pod: int = 1, device_type: str = "cpu",
                          f"does not match the world size {world}")
     dims = ([("pod", pod)] if pod > 1 else []) + [("data", data)] + (
         [("model", model)] if model > 1 else [])
+    from repro_torch.core import collectives
+    collectives.set_pod_ranks(data * model if pod > 1 else 0)
     return init_device_mesh(device_type, tuple(n for _, n in dims),
                             mesh_dim_names=tuple(a for a, _ in dims))
+
+
+def make_production_mesh(*, multi_pod: bool = False, pods: int = None,
+                         device_type: str = "cpu") -> DeviceMesh:
+    """The reference's production mesh over the initialised group: one
+    pod is (16, 16) over ("data", "model"), 256 ranks; several are
+    (pods, 16, 16) over ("pod", "data", "model") (``pods`` defaults to 2
+    under ``multi_pod``).  The world size must be ``256 · pods``
+    (ValueError naming it otherwise); the reference's ValueError where
+    ``pods`` contradicts ``multi_pod``."""
+    if pods is None:
+        pods = 2 if multi_pod else 1
+    if pods < 1 or (multi_pod and pods < 2):
+        raise ValueError(f"pods={pods} contradicts multi_pod={multi_pod}"
+                         f" — multi-pod needs pods >= 2, single-pod "
+                         f"exactly pods=1 (or omit pods)")
+    if not dist.is_initialized():
+        raise RuntimeError("make_production_mesh needs an initialised "
+                           "process group (dry_group for a dry run)")
+    data, model = POD_SHAPE
+    world = dist.get_world_size()
+    if world != pods * data * model:
+        raise ValueError(f"the production mesh of {pods} pod(s) needs a "
+                         f"world size of {pods * data * model}, not "
+                         f"{world}")
+    return make_mesh(data, pods, device_type, model)
+
+
+@contextlib.contextmanager
+def dry_group(world: int, rank: int = 0):
+    """Be rank ``rank`` of a stand-in process group of ``world`` ranks
+    (PyTorch's fake backend on the CPU and meta devices): every
+    collective returns at once without moving data, so one process runs
+    one rank's program over meta tensors.  Refuses (RuntimeError) under
+    an initialised group, so it never stands in for a real job; destroys
+    the group on exit (:func:`close_distributed`)."""
+    if dist.is_initialized():
+        raise RuntimeError("dry_group: a process group is initialised "
+                           "already; a dry run never joins a real job")
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} outside a world of {world}")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("cpu:fake,meta:fake", store=FakeStore(),
+                            rank=rank, world_size=world)
+    try:
+        yield
+    finally:
+        close_distributed()
 
 
 def dim_size(mesh: DeviceMesh, name: str) -> int:
@@ -72,12 +141,14 @@ def refuse_model_dim(mesh: DeviceMesh, what: str) -> None:
 
 
 def init_distributed(backend: str, device="cuda", data: int = None,
-                     pod: int = 1, model: int = 1
+                     pod: int = 1, model: int = 1, production: bool = False
                      ) -> tuple[DeviceMesh, torch.device]:
     """Join the job ``torchrun`` started (``env://``: ``RANK``,
     ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``) over
     ``backend`` and build its mesh (``data`` defaults to the world size
-    over ``pod · model``).  Returns ``(mesh, device)``: a CUDA rank runs on
+    over ``pod · model``; ``production``: :func:`make_production_mesh` of
+    ``pod`` pods, ``data`` and ``model`` unused).  Returns ``(mesh,
+    device)``: a CUDA rank runs on
     ``cuda:{LOCAL_RANK mod cards}``, so ranks beyond the card count
     share cards (gloo only: NCCL refuses two ranks on one card); the
     CPU only when ``device`` names it."""
@@ -94,10 +165,16 @@ def init_distributed(backend: str, device="cuda", data: int = None,
         dist.init_process_group(
             backend, init_method="env://",
             device_id=dev if backend == "nccl" else None)
-    if data is None:
-        data = dist.get_world_size() // (pod * model)
     kind = "cuda" if backend == "nccl" else "cpu"
-    return make_mesh(data, pod, kind, model), dev
+    try:
+        if production:
+            return make_production_mesh(pods=pod, device_type=kind), dev
+        if data is None:
+            data = dist.get_world_size() // (pod * model)
+        return make_mesh(data, pod, kind, model), dev
+    except ValueError:
+        close_distributed()          # a mesh the job cannot form
+        raise
 
 
 def close_distributed() -> None:
@@ -110,3 +187,5 @@ def close_distributed() -> None:
     first, in order."""
     gc.collect()
     dist.destroy_process_group()
+    from repro_torch.core import collectives
+    collectives.set_pod_ranks(0)

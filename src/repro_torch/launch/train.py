@@ -8,7 +8,11 @@ default:
       --steps 20 --batch 4 --seq 1024
 
 ``--device cpu --smoke`` runs the reduced config on the CPU.
-``--production-mesh`` (the reference's TPU fleet mesh) is not ported.
+``--production-mesh`` trains over the reference's production mesh
+(``launch.mesh.make_production_mesh``): a torchrun job of 256 ranks,
+(16, 16) over ("data", "model"), or of 512 with ``--sync-mode digest
+--n-pod 2``, (2, 16, 16) over ("pod", "data", "model"); any other world
+size raises ValueError.
 
 Over a mesh (the reference trains under ``axis_rules(mesh, {"embed":
 "data"})``): under ``torchrun`` (``env://``) with ``--dist-backend``, the
@@ -84,7 +88,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--n-pod", type=int, default=1)
     ap.add_argument("--sync-interval", type=int, default=10)
     ap.add_argument("--production-mesh", action="store_true",
-                    help="the reference's TPU fleet mesh (not ported)")
+                    help="the reference's production mesh: 256 ranks "
+                         "(16 x 16), 512 with --n-pod 2 (2 x 16 x 16); "
+                         "needs --dist-backend")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
@@ -100,10 +106,13 @@ def main(argv=None) -> dict:
                     help="join the torchrun job over this backend")
     args = ap.parse_args(argv)
     if args.production_mesh:
-        raise NotImplementedError(
-            "--production-mesh builds the reference's (16,16)/(2,16,16) TPU "
-            "v5e mesh, whose constants are not ported (ROADMAP.md §1, "
-            "'Not ported')")
+        if args.dist_backend is None:
+            ap.error("--production-mesh needs --dist-backend (a torchrun "
+                     "job of 256 ranks a pod)")
+        if args.pod_axis * args.data_axis * args.model_axis > 1:
+            ap.error("--production-mesh sets the mesh: leave --pod-axis / "
+                     "--data-axis / --model-axis at 1")
+        args.pod_axis = 2 if args.n_pod > 1 else 1
     if args.dist_backend is None and (
             args.pod_axis * args.data_axis * args.model_axis > 1):
         ap.error("--pod-axis / --data-axis / --model-axis need "
@@ -116,7 +125,8 @@ def main(argv=None) -> dict:
     if args.dist_backend is not None:
         mesh, dev = init_distributed(args.dist_backend, args.device,
                                      data=args.data_axis, pod=args.pod_axis,
-                                     model=args.model_axis)
+                                     model=args.model_axis,
+                                     production=args.production_mesh)
     else:
         dev = resolve_device(args.device)
     try:

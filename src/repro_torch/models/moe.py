@@ -42,7 +42,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import collectives
 from repro_torch.launch.mesh import dim_size
-from repro_torch.nn.layers import take_rows
+from repro_torch.nn.layers import count_ids, take_rows
 
 EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
 
@@ -151,7 +151,7 @@ def _moe_local(x_flat: torch.Tensor, router_w: torch.Tensor,
     mine = (local_e >= 0) & (local_e < e_loc)
     sort_key = torch.where(mine, local_e, e_loc)          # invalid → tail
     order = torch.argsort(sort_key, stable=True)
-    counts = torch.bincount(sort_key, minlength=e_loc + 1)[:e_loc]
+    counts = count_ids(sort_key, e_loc + 1)[:e_loc]
     starts = torch.cumsum(counts, 0) - counts
 
     # (E_loc, C_e) assignment indices into the flat lists (+ validity).
@@ -179,12 +179,15 @@ def _combine(tok: torch.Tensor, contrib: torch.Tensor, t: int,
     n, d = contrib.shape
     order = torch.argsort(tok, stable=True)               # by token, then row
     tok_o = tok[order]
-    counts = torch.bincount(tok, minlength=t + 1)
+    counts = count_ids(tok, t + 1)
     rank = (torch.arange(n, device=tok.device)
             - (torch.cumsum(counts, 0) - counts)[tok_o])
+    # The drop slot's rows land in a spare row t, left out after: every
+    # index has a static shape (no boolean mask), so meta tensors run too.
     keep = tok_o < t
-    slot = torch.full((t, k), n, dtype=torch.long, device=tok.device)
-    slot[tok_o[keep], rank[keep]] = order[keep]
+    slot = torch.full((t + 1, k), n, dtype=torch.long, device=tok.device)
+    slot[tok_o, torch.where(keep, rank, 0)] = order
+    slot = slot[:t]
     padded = torch.cat([contrib, contrib.new_zeros((1, d))])
     out = torch.zeros((t, d), dtype=contrib.dtype, device=contrib.device)
     for j in range(k):

@@ -105,8 +105,8 @@ from repro_torch.models.moe import load_balance_loss, moe_ffn
 from repro_torch.models.recurrent import (mlstm_parallel, mlstm_step,
                                           rg_lru, rg_lru_step, slstm_scan)
 from repro_torch.models.stale_kv import StaleKVConfig, stale_kv_decode
-from repro_torch.nn import (ParamSpec, apply_rope, dense, gelu, rms_norm,
-                            take_rows)
+from repro_torch.nn import (ParamSpec, apply_rope, count_ids, dense, gelu,
+                            rms_norm, take_rows)
 
 Pytree = Any
 
@@ -1091,7 +1091,7 @@ def aux_moe_stats(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
             continue
         logits = x @ block["router"][0].float()
         ids = torch.topk(logits, cfg.experts_per_token, dim=-1).indices
-        counts = torch.bincount(ids[:, 0], minlength=cfg.num_experts)
+        counts = count_ids(ids[:, 0], cfg.num_experts)
         out.append((counts.float(), torch.softmax(logits, dim=-1).sum(0)))
     return out
 

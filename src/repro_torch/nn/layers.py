@@ -53,6 +53,17 @@ def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return table[idx]
 
 
+def count_ids(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """``torch.bincount(ids, minlength=n)`` for ids known to lie in
+    ``[0, n)``: an ``n``-long int64 count by ``scatter_add_``, whose
+    shape is static, so it runs on meta tensors too (bincount has no meta
+    kernel and sizes its result from the data).  Integer adds are exact:
+    the same counts on every device."""
+    flat = ids.reshape(-1).long()
+    return torch.zeros((n,), dtype=torch.int64, device=ids.device
+                       ).scatter_add_(0, flat, torch.ones_like(flat))
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     """RMS norm in fp32 with the ``1 + scale`` form (zero-initialised

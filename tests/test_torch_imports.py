@@ -16,7 +16,9 @@ PORT = ROOT / "src" / "repro_torch"
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "examples").glob("torch_*.py"))
+            + sorted((ROOT / "scripts").glob("torch_*.py")))
 
 
 def _modules():
@@ -44,7 +46,17 @@ def test_port_sources_import_no_jax_and_no_reference():
             PORT / "launch" / "async_straggler.py",
             PORT / "launch" / "mesh.py",
             PORT / "core" / "collectives.py",
-            PORT / "distributed" / "sharding.py"} <= set(files)
+            PORT / "distributed" / "sharding.py",
+            PORT / "launch" / "specs.py", PORT / "launch" / "dryrun.py",
+            PORT / "launch" / "dryrun_gnn.py",
+            PORT / "launch" / "census_check.py",
+            ROOT / "scripts" / "torch_run_dryruns.py",
+            ROOT / "scripts" / "torch_roofline_report.py"} <= set(files)
+    examples = {p for p in files if p.parent.name == "examples"}
+    assert {p.stem for p in examples} == {
+        f"torch_{n}" for n in ("quickstart", "train_digest_gnn",
+                               "train_sampled_gnn", "async_straggler",
+                               "serve_gnn", "serve_lm", "train_lm")}
     for path in files:
         for name in _imported(path):
             root = name.split(".")[0]
@@ -57,7 +69,10 @@ def test_importing_every_module_loads_no_jax():
             "repro_torch.launch.async_straggler",
             "repro_torch.launch.mesh",
             "repro_torch.core.collectives",
-            "repro_torch.distributed.sharding"} <= set(mods)
+            "repro_torch.distributed.sharding",
+            "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+            "repro_torch.launch.dryrun_gnn",
+            "repro_torch.launch.census_check"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

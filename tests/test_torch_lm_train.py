@@ -587,10 +587,13 @@ def test_train_launcher_on_the_cpu(tmp_path, capsys):
     assert int(out["state"]["step"]) == 6
 
 
-def test_train_launcher_refuses_a_missing_card_and_the_tpu_mesh():
-    with pytest.raises(NotImplementedError, match="not ported"):
+def test_train_launcher_refuses_a_missing_card_and_the_tpu_mesh(capsys):
+    # The production mesh is a torchrun job's: without --dist-backend the
+    # launcher refuses it (its world-size check: test_torch_dryrun.py).
+    with pytest.raises(SystemExit):
         tlaunch.main(["--device", "cpu", "--smoke", "--arch", "qwen3-0.6b",
                       "--production-mesh"])
+    assert "--production-mesh needs --dist-backend" in capsys.readouterr().err
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -1,6 +1,7 @@
 """Spawned ranks for the port's mesh tests (``tests/test_torch_collective.py``,
-``tests/test_torch_serving.py``, ``tests/test_torch_checkpoint.py``); this
-module holds their jobs and no test of its own.
+``tests/test_torch_serving.py``, ``tests/test_torch_checkpoint.py``,
+``tests/test_torch_dryrun.py`` and others); this module holds their jobs
+and no test of its own.
 
 :func:`spawn` starts ``world`` ranks with ``torch.multiprocessing`` (the
 ``spawn`` method), joins them into a ``gloo`` process group through a
@@ -1308,4 +1309,29 @@ def tp_pod_job(world: int, inputs: str) -> dict:
            "digests": [_digest(x) for x in leaves_of(final)]}
     if dist.get_rank() % 4 == 0:
         out["params"] = [p.numpy() for p in leaves_of(final)]
+    return out
+
+
+def dry_census_job(world: int) -> dict:
+    """The dry run's port-against-port cases (``tests/torch_dry_cases.py``)
+    run for real on this rank: qwen3-0.6b SMOKE's train step, prefill and
+    decode step over ("data", "model") = 2 x 2 and the collective GCN
+    epoch over ("pod", "data") = 2 x 2; each case's census over one call
+    (calls and result bytes by op, the bytes by span), which
+    ``tests/test_torch_dryrun.py`` holds the dry run's against."""
+    import torch_dry_cases as cases
+    from repro_torch.core import collectives
+    from repro_torch.launch.mesh import make_mesh
+
+    def census(run) -> tuple:
+        collectives.reset_collectives()
+        run()
+        return (dict(collectives.COLLECTIVES),
+                dict(collectives.COLLECTIVE_BYTES),
+                dict(collectives.COLLECTIVE_SPANS))
+
+    mesh = make_mesh(2, 1, "cpu", 2)
+    out = {kind: census(cases.lm_real(kind, mesh))
+           for kind in cases.LM_SHAPES}
+    out["gnn"] = census(cases.gnn_run(make_mesh(2, 2), meta=False)[0])
     return out
