@@ -60,6 +60,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import trace
 from repro_torch.checkpoint import checkpoint as ckpt_io
 from repro_torch.core import collectives
 from repro_torch.core import faults as faults_mod
@@ -526,32 +527,33 @@ def _digest_pull(cfg: GNNConfig, settings: TrainSettings, state: dict,
         do_pull = do_pull or r == 1
     if not do_pull:
         return state["cache"], state.get("pcache")
-    if settings.pull_mode == "collective":
-        halo_size = int(data["halo_ids"].shape[1])
+    with trace.span("store.pull"):
+        if settings.pull_mode == "collective":
+            halo_size = int(data["halo_ids"].shape[1])
 
-        def pull_store(zs):
-            return halo_exchange.collective_pull(
-                zs, data["pull_send"], data["pull_recv"], halo_size, mesh)
-    else:
-        def pull_store(zs):
-            return halo_exchange.pull_slab(zs, data["halo_slots"])
-    pred = settings.predictor.enabled and "pstore" in state
-    if gat_projected(cfg):
-        cache = {}
-        for key, zs in project_store_tables(
-                state["store"], state["params"], cfg, settings.precision,
-                pstore=state["pstore"] if pred else None,
-                gamma=settings.predictor.gamma,
-                shard_rows=_shard_rows(state, data)).items():
-            slab = pull_store(zs)
-            cache[key] = slab["data"]
-            if "scale" in slab:
-                cache[f"{key}_scale"] = slab["scale"]
-        return cache, state.get("pcache")
-    cache = pull_store(state["store"])
-    if pred:
-        return cache, pull_store(state["pstore"])
-    return cache, None
+            def pull_store(zs):
+                return halo_exchange.collective_pull(
+                    zs, data["pull_send"], data["pull_recv"], halo_size, mesh)
+        else:
+            def pull_store(zs):
+                return halo_exchange.pull_slab(zs, data["halo_slots"])
+        pred = settings.predictor.enabled and "pstore" in state
+        if gat_projected(cfg):
+            cache = {}
+            for key, zs in project_store_tables(
+                    state["store"], state["params"], cfg, settings.precision,
+                    pstore=state["pstore"] if pred else None,
+                    gamma=settings.predictor.gamma,
+                    shard_rows=_shard_rows(state, data)).items():
+                slab = pull_store(zs)
+                cache[key] = slab["data"]
+                if "scale" in slab:
+                    cache[f"{key}_scale"] = slab["scale"]
+            return cache, state.get("pcache")
+        cache = pull_store(state["store"])
+        if pred:
+            return cache, pull_store(state["pstore"])
+        return cache, None
 
 
 def _digest_push(cfg: GNNConfig, settings: TrainSettings, state: dict,
@@ -598,18 +600,10 @@ def _digest_push(cfg: GNNConfig, settings: TrainSettings, state: dict,
         # part pushes leaves every leaf as it was, so it skips the push.
         do_push = bool(ok.any())
     pred = settings.predictor.enabled and pstore is not None
-    eps_store = store
-    if pred:
-        eps_store = {"data": halo_exchange.dequantize_rows(
-            store["data"], store.get("scale"))
-            + _f32(settings.predictor.gamma) * halo_exchange.dequantize_rows(
-                pstore["data"], pstore.get("scale"))}
     slots = data["local_slots"]
-    if settings.pull_mode == "collective":
+    collective = settings.pull_mode == "collective"
+    if collective:
         shard_rows = _shard_rows(state, data)
-        eps = halo_exchange.local_staleness_error(
-            eps_store, push_reps, slots, data["local_boundary"], shard_rows,
-            mesh)
 
         def push_rows(st, reps):
             return halo_exchange.shard_push(st, slots, local_valid, reps,
@@ -619,9 +613,6 @@ def _digest_push(cfg: GNNConfig, settings: TrainSettings, state: dict,
             return halo_exchange.shard_push_ef(st, slots, local_valid, reps,
                                                res, shard_rows, mesh)
     else:
-        eps = halo_exchange.staleness_error(eps_store, push_reps, slots,
-                                            data["local_boundary"])
-
         def push_rows(st, reps):
             return halo_exchange.push(st, slots, local_valid, reps,
                                       data["sentinel_slots"])
@@ -629,26 +620,42 @@ def _digest_push(cfg: GNNConfig, settings: TrainSettings, state: dict,
         def push_ef(st, reps, res):
             return halo_exchange.push_ef(st, slots, local_valid, reps, res,
                                          data["sentinel_slots"])
+    with trace.span("store.probe"):
+        eps_store = store
+        if pred:
+            eps_store = {"data": halo_exchange.dequantize_rows(
+                store["data"], store.get("scale"))
+                + _f32(settings.predictor.gamma)
+                * halo_exchange.dequantize_rows(pstore["data"],
+                                                pstore.get("scale"))}
+        if collective:
+            eps = halo_exchange.local_staleness_error(
+                eps_store, push_reps, slots, data["local_boundary"],
+                shard_rows, mesh)
+        else:
+            eps = halo_exchange.staleness_error(eps_store, push_reps, slots,
+                                                data["local_boundary"])
     if not do_push:
         return store, residual, eps, last, pstore, hist
-    if settings.precision.error_feedback:
-        new_store, new_residual = push_ef(store, push_reps, residual)
-        if ok is not None:
-            # A masked part wrote nothing, so its residual must not take
-            # this round's rounding error either.
-            new_residual = torch.where(ok[:, None, None, None],
-                                       new_residual, residual)
-    else:
-        new_store = push_rows(store, push_reps)
-        new_residual = residual
-    if pred:
-        if ok is None:
-            ok = torch.ones(local_valid.shape[:1], dtype=torch.bool,
-                            device=local_valid.device)
-        # No error feedback on the pstore: deltas do not telescope.
-        hist, prows = predictor_mod.update_history(hist, push_reps, ok,
-                                                   settings.predictor)
-        pstore = push_rows(pstore, prows)
+    with trace.span("store.push"):
+        if settings.precision.error_feedback:
+            new_store, new_residual = push_ef(store, push_reps, residual)
+            if ok is not None:
+                # A masked part wrote nothing, so its residual must not
+                # take this round's rounding error either.
+                new_residual = torch.where(ok[:, None, None, None],
+                                           new_residual, residual)
+        else:
+            new_store = push_rows(store, push_reps)
+            new_residual = residual
+        if pred:
+            if ok is None:
+                ok = torch.ones(local_valid.shape[:1], dtype=torch.bool,
+                                device=local_valid.device)
+            # No error feedback on the pstore: deltas do not telescope.
+            hist, prows = predictor_mod.update_history(hist, push_reps, ok,
+                                                       settings.predictor)
+            pstore = push_rows(pstore, prows)
     return new_store, new_residual, eps, last, pstore, hist
 
 
@@ -728,19 +735,28 @@ def make_epoch_fn(cfg: GNNConfig, opt: Optimizer, settings: TrainSettings,
     of Algorithm 1 over the M subgraphs.  With ``pull_mode="collective"``
     pass the ``mesh``: ``state`` and ``data`` are then this rank's parts
     (:func:`shard_state`, :func:`shard_data`) and the metrics the
-    mesh-wide ones."""
+    mesh-wide ones.  Each call is a ``digest.epoch`` span holding its
+    phases' spans (``repro_torch.trace``)."""
     _check_settings(settings, mesh)
     loss_fn = make_subgraph_loss(cfg)
 
     def epoch_fn(state: dict, data: dict) -> tuple[dict, dict]:
+        trace.COUNTERS["digest.epochs"] += 1
+        with trace.span("digest.epoch"):
+            return _epoch(state, data)
+
+    def _epoch(state: dict, data: dict) -> tuple[dict, dict]:
         r = state["epoch"] + 1            # 1-indexed, as in Algorithm 1
         x_global = data["x_global"]
         struct = data["struct"]
-        # Layer-0 halo features as per-subgraph slabs (M, H+1, d), row H
-        # the zero sentinel; the partition baseline zeroes the tables.
-        x_halo0 = x_global[data["halo_ids_x"].long()]
-        if settings.mode == "partition":
-            x_halo0 = torch.zeros_like(x_halo0)
+        # The layer-0 halo features as per-subgraph slabs (M, H+1, d),
+        # row H the zero sentinel (the partition baseline zeroes them);
+        # the local rows after the pull, so that they are not held
+        # across it (the epoch's peak memory is reached in the pull).
+        with trace.span("digest.gather"):
+            x_halo0 = x_global[data["halo_ids_x"].long()]
+            if settings.mode == "partition":
+                x_halo0 = torch.zeros_like(x_halo0)
         pcache = None
         if settings.mode == "propagation" and cfg.num_layers > 1:
             with torch.no_grad():
@@ -750,8 +766,8 @@ def make_epoch_fn(cfg: GNNConfig, opt: Optimizer, settings: TrainSettings,
             cache, pcache = _digest_pull(cfg, settings, state, data, r, mesh)
         else:
             cache = state["cache"]
-
-        x_local = x_global[data["local_ids"].long()]        # (M, S, d)
+        with trace.span("digest.gather"):
+            x_local = x_global[data["local_ids"].long()]    # (M, S, d)
 
         def sub_loss(params, m):
             struct_m = {k: v[m] for k, v in struct.items()}
@@ -763,8 +779,10 @@ def make_epoch_fn(cfg: GNNConfig, opt: Optimizer, settings: TrainSettings,
         loss, push_reps, train_acc, mean_grads = _subgraph_grads(
             state["params"], x_local.shape[0], sub_loss, data["labels"],
             data["train_mask"], mesh)
-        new_params, opt_state = opt.update(mean_grads, state["opt_state"],
-                                           state["params"], state["step"])
+        with trace.span("digest.update"):
+            new_params, opt_state = opt.update(
+                mean_grads, state["opt_state"], state["params"],
+                state["step"])
         if settings.llcg_correction:
             new_params = _llcg_step(cfg, settings, new_params, data, r)
         return _end_round(cfg, settings, state, data, r, new_params,
@@ -781,7 +799,9 @@ def _subgraph_grads(params: Pytree, num_parts: int, sub_loss: Callable,
     differentiated by ``torch.autograd.grad`` in turn, and the M
     gradients averaged (Algorithm 1 line 13, as ``vmap`` + ``jnp.mean``
     do).  Returns (mean loss, push reps (M, L-1, S, hidden), train F1
-    over ``mask``, mean gradients as a tree like ``params``).
+    over ``mask``, mean gradients as a tree like ``params``).  The mean
+    (with a mesh, its ``all_reduce`` too) is a ``digest.update`` span;
+    the callers' optimizer step is a second one.
 
     With a ``mesh`` the ``num_parts`` are this rank's k of M: its parts'
     flat gradients, losses and F1 counts (hits, masked rows) go into
@@ -792,17 +812,22 @@ def _subgraph_grads(params: Pytree, num_parts: int, sub_loss: Callable,
     tree = _unflatten(params, leaves)
     losses, reps, logits, grads = [], [], [], []
     for m in range(num_parts):
-        loss, (rep, lg) = sub_loss(tree, m)
-        grads.append(torch.autograd.grad(loss, leaves, allow_unused=True))
+        with trace.span("digest.subgraph"):
+            with trace.span("gnn.forward"):
+                loss, (rep, lg) = sub_loss(tree, m)
+            with trace.span("gnn.backward"):
+                grads.append(torch.autograd.grad(loss, leaves,
+                                                 allow_unused=True))
         losses.append(loss.detach())
         reps.append(rep.detach())
         logits.append(lg.detach())
-    logits = torch.stack(logits)
+    logits, reps = torch.stack(logits), torch.stack(reps)
     mask = mask.float()
     if mesh is None:
-        return (torch.stack(losses).mean(), torch.stack(reps),
-                micro_f1(logits, labels, mask),
-                _unflatten(params, mean_grads_of(grads, leaves)))
+        loss, f1 = torch.stack(losses).mean(), micro_f1(logits, labels, mask)
+        with trace.span("digest.update"):
+            mean_grads = _unflatten(params, mean_grads_of(grads, leaves))
+        return loss, reps, f1, mean_grads
     sizes = [p.numel() for p in leaves]
     hits = ((torch.argmax(logits, dim=-1) == labels).float()
             * mask).sum(dim=1)
@@ -812,16 +837,17 @@ def _subgraph_grads(params: Pytree, num_parts: int, sub_loss: Callable,
             for i, gm in enumerate(grads)]
     total = num_parts * halo_exchange.exchange_size(mesh)
     sl = halo_exchange.part_slice(total, mesh)
-    buf = rows[0].new_zeros((total, rows[0].numel()))
-    buf[sl] = torch.stack(rows)
-    collectives.all_reduce(buf)
     flat = sum(sizes)
-    all_grads = [tuple(v.reshape(p.shape) for v, p in zip(
-        torch.split(row[:flat], sizes), leaves)) for row in buf]
+    with trace.span("digest.update"):
+        buf = rows[0].new_zeros((total, rows[0].numel()))
+        buf[sl] = torch.stack(rows)
+        collectives.all_reduce(buf)
+        all_grads = [tuple(v.reshape(p.shape) for v, p in zip(
+            torch.split(row[:flat], sizes), leaves)) for row in buf]
+        mean_grads = _unflatten(params, mean_grads_of(all_grads, leaves))
     n_hits, n_rows = buf[:, flat + 1].sum(), buf[:, flat + 2].sum()
-    return (buf[:, flat].contiguous().mean(), torch.stack(reps),
-            n_hits / torch.clamp_min(n_rows, 1.0),
-            _unflatten(params, mean_grads_of(all_grads, leaves)))
+    return (buf[:, flat].contiguous().mean(), reps,
+            n_hits / torch.clamp_min(n_rows, 1.0), mean_grads)
 
 
 def _end_round(cfg: GNNConfig, settings: TrainSettings, state: dict,
@@ -1122,8 +1148,9 @@ def make_sampled_epoch_fn(cfg: GNNConfig, opt: Optimizer,
         loss, push_reps, train_acc, mean_grads = _subgraph_grads(
             state["params"], x_local.shape[0], sub_loss, data["labels"],
             batch["seed_mask"], mesh)
-        params, opt_state = opt.update(mean_grads, state["opt_state"],
-                                       state["params"], state["step"])
+        with trace.span("digest.update"):
+            params, opt_state = opt.update(mean_grads, state["opt_state"],
+                                           state["params"], state["step"])
         new_state, metrics = _end_round(cfg, settings, state, data, r,
                                         params, opt_state, cache, pcache,
                                         push_reps, loss, train_acc, mesh)

@@ -21,7 +21,9 @@ precision, row H the zero sentinel.  PUSH (lines 9-10) is :func:`push`, or
 :func:`push_ef` with the pusher's rounding residual carried forward; a
 DIGEST-A worker pushes its own shard alone (:func:`owner_push`,
 :func:`owner_push_ef`).
-Theorem 1's per-layer staleness is :func:`staleness_error`.
+Theorem 1's per-layer staleness is :func:`staleness_error`.  Every pull
+and push adds the bytes it writes to ``repro_torch.trace.COUNTERS``
+(``store.pull_bytes``, ``store.push_bytes``).
 
 The mesh forms (``pull_mode="collective"``): the M parts lie over the
 ranks of a ``("data",)`` or ``("pod", "data")`` DeviceMesh
@@ -48,9 +50,11 @@ import torch
 
 import torch.distributed as dist
 
+from repro_torch import trace
 from repro_torch.core import collectives
 from repro_torch.device import resolve_device
 from repro_torch.graph.partition import parts_per_device
+from repro_torch.kernels._build import nbytes
 from repro_torch.launch.mesh import refuse_model_dim
 
 PRECISIONS = ("fp32", "bf16", "int8")
@@ -192,6 +196,18 @@ def dequantize_rows(data: torch.Tensor, scale: Optional[torch.Tensor]
 # The store operations (compact-slot indexed)
 # ---------------------------------------------------------------------------
 
+def _count_pull(slab: dict) -> None:
+    """``trace.COUNTERS``: the bytes of the slab a pull wrote."""
+    trace.COUNTERS["store.pull_bytes"] += nbytes(*slab.values())
+
+
+def _count_push(store: dict, rows: int) -> None:
+    """``trace.COUNTERS``: the bytes of a push writing ``rows`` rows of
+    each layer of ``store`` (data and scale)."""
+    row = sum(t.shape[-1] * t.element_size() for t in store.values())
+    trace.COUNTERS["store.push_bytes"] += store["data"].shape[0] * rows * row
+
+
 def init_store(num_hidden_layers: int, num_slots: int, hidden: int,
                precision: HaloPrecision = HaloPrecision(),
                device="cuda") -> dict:
@@ -254,6 +270,7 @@ def pull_slab(store: dict, halo_slots: torch.Tensor) -> dict:
         sc = store["scale"][:, idx, :].transpose(0, 1)
         one = sc.new_ones(sc.shape[:2] + (1,) + sc.shape[3:])
         out["scale"] = torch.cat([sc, one], dim=2).contiguous()
+    _count_pull(out)
     return out
 
 
@@ -295,6 +312,7 @@ def push(store: dict, local_slots: torch.Tensor, local_valid: torch.Tensor,
         new_scale[:, ids, :] = scale
         new_scale[:, sentinels, :] = 1.0
         new["scale"] = new_scale
+    _count_push(store, ids.numel() + sentinels.numel())
     return new
 
 
@@ -356,6 +374,7 @@ def owner_push(store: dict, owner: int, local_slots: torch.Tensor,
         sshard = store["scale"][:, start:start + shard_rows]
         sshard[:, off, :] = scale
         sshard[:, -1, :] = 1.0
+    _count_push(store, off.numel() + 1)
     return store
 
 
@@ -547,6 +566,7 @@ def collective_pull(store: dict, send_offsets: torch.Tensor,
         # every routed row is an owner sentinel (data 0, scale 1).
         slab[parts, :, pos] = vals
         out[key] = slab
+    _count_pull(out)
     return out
 
 
@@ -580,6 +600,7 @@ def shard_push(store: dict, local_slots: torch.Tensor,
         new_scale[:, off, :] = scale.transpose(0, 1).reshape(l1, -1, 1)
         new_scale[:, sent, :] = 1.0
         new["scale"] = new_scale
+    _count_push(store, off.numel() + sent.numel())
     return new
 
 

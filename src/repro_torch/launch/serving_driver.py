@@ -92,10 +92,11 @@ def profile_serve_loop(step_fn: Callable[[Any, Any], tuple],
     """Trace ``step_fn`` over ``items`` with ``torch.profiler`` on the
     card: the loop's wall time, the device's busy time (the sum of the
     device ops' self times — one stream, so they do not overlap) and its
-    share of the wall time, and the ``top`` device ops by time (None:
-    every one).  The profiler's own overhead inflates the wall time, so
-    take latencies from :func:`run_serve_loop` and only the split from
-    here."""
+    share of the wall time, the ``top`` device ops by time (None: every
+    one), and the program's spans (``repro_torch.trace``) by name: their
+    calls and host ms.  The profiler's own overhead inflates the wall
+    time, so take latencies from :func:`run_serve_loop` and only the
+    split from here."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -109,15 +110,26 @@ def profile_serve_loop(step_fn: Callable[[Any, Any], tuple],
     # launched a kernel would report its time again), summed by name from
     # the raw events: ``key_averages`` first parses every CPU op, about a
     # minute over the ~10^5 launches of an eager recurrent prefill.
+    # A span shows on both timelines as a user annotation, on the
+    # device's as no op.
     ops: dict[str, list] = {}
+    spans: dict[str, list] = {}
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == torch.autograd.DeviceType.CUDA:
+            if e.is_user_annotation():
+                continue
             calls_ns = ops.setdefault(e.name(), [0, 0])
-            calls_ns[0] += 1
-            calls_ns[1] += e.duration_ns()
+        elif e.is_user_annotation():
+            calls_ns = spans.setdefault(e.name(), [0, 0])
+        else:
+            continue
+        calls_ns[0] += 1
+        calls_ns[1] += e.duration_ns()
     ranked = sorted(ops.items(), key=lambda kv: -kv[1][1])
     device_ms = sum(ns for _, ns in ops.values()) / 1e6
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "busy_share": device_ms / wall_ms,
             "top": [{"op": name, "calls": calls, "device_ms": ns / 1e6}
-                    for name, (calls, ns) in ranked[:top]]}
+                    for name, (calls, ns) in ranked[:top]],
+            "spans": {name: {"calls": calls, "host_ms": ns / 1e6}
+                      for name, (calls, ns) in sorted(spans.items())}}

@@ -11,7 +11,8 @@ Runs on the card by default:
 
 ``--device cpu`` runs the kernels' plain PyTorch versions instead.
 ``--profile N`` traces N more epochs with ``torch.profiler`` and prints
-the device's busy share of them and the top device ops.
+the device's busy share of them, the top device ops and the program's
+spans (``repro_torch.trace``).
 Weights are drawn from ``torch.Generator`` seed 0.
 
 ``--predictor delta|ema`` turns on SAT prediction, the ``--fault-*``
